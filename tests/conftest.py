@@ -33,6 +33,11 @@ def pytest_configure(config):
         "slow: excluded from the tier-1 gate (-m 'not slow'); run "
         "explicitly or via the full suite",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skips "
+        "without one",
+    )
 
 
 if os.environ.get("TRINO_TPU_TEST_TPU") == "1":

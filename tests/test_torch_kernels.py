@@ -1,0 +1,183 @@
+"""The port's kernels (trino_tpu_torch/ops/kernels.py) against the JAX
+package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX side
+runs its Pallas kernel in interpret mode, as its own tests do.  Inputs
+are made with numpy from fixed seeds and every comparison is exact
+(integer sums and counts).  The fused kernel's per-row work is a postfix
+program on the port's side and the equivalent closure on the JAX side;
+the closure is built by interpreting the same program over jnp tiles.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trino_tpu.ops import pallas_kernels as jpk
+from trino_tpu_torch.ops import kernels as kn
+
+L, C = kn.LOAD, kn.CONST
+
+
+def _jnp_eval(code, tiles):
+    """Interpret a postfix program over jnp tiles (the JAX-side emit)."""
+    st = []
+    for op, imm in code:
+        if op == kn.LOAD:
+            st.append(tiles[f"c{imm}"])
+        elif op == kn.CONST:
+            st.append(jnp.int32(imm))
+        elif op in (kn.NEG, kn.LO16, kn.HI16, kn.NOT, kn.CLIP):
+            a = st.pop()
+            st.append({
+                kn.NEG: lambda: -a,
+                kn.LO16: lambda: a & 0xFFFF,
+                kn.HI16: lambda: a >> 16,
+                kn.NOT: lambda: (a == 0).astype(jnp.int32),
+                kn.CLIP: lambda: jnp.clip(a, 0, imm - 1),
+            }[op]())
+        else:
+            b = st.pop()
+            a = st.pop()
+            r = {
+                kn.ADD: lambda: a + b, kn.SUB: lambda: a - b,
+                kn.MUL: lambda: a * b, kn.EQ: lambda: a == b,
+                kn.NE: lambda: a != b, kn.LT: lambda: a < b,
+                kn.LE: lambda: a <= b, kn.GT: lambda: a > b,
+                kn.GE: lambda: a >= b,
+                kn.AND: lambda: (a != 0) & (b != 0),
+                kn.OR: lambda: (a != 0) | (b != 0),
+            }[op]()
+            st.append(r.astype(jnp.int32))
+    return st[-1]
+
+
+def _emit(prog):
+    def emit(tiles):
+        p = _jnp_eval(prog.pred, tiles) != 0 if prog.pred else None
+        g = _jnp_eval(prog.gid, tiles) if prog.gid else None
+        vals = []
+        for t in prog.terms:
+            v = _jnp_eval(t, tiles)
+            vals.append(jnp.broadcast_to(v, tiles["c0"].shape).astype(jnp.int32))
+        return p, g, vals
+    return emit
+
+
+PLANES = (((L, 0), (kn.LO16, 0)), ((L, 0), (kn.HI16, 0)))
+P_LO = ((L, 0), (kn.LO16, 0), (L, 1), (kn.MUL, 0))
+P_HI = ((L, 0), (kn.HI16, 0), (L, 1), (kn.MUL, 0))
+
+
+def _fused_cases():
+    """(label, columns, live, program, groups): the cases of
+    tests/test_megakernel.py's kernel unit tests, plus one program that
+    uses every opcode on bounded values."""
+    rng = np.random.default_rng(7)
+    out = []
+    out.append(("plane_recombination", [rng.integers(0, 2**30, 5000)],
+                np.ones(5000, bool), kn.Program((), (), PLANES), 1))
+    out.append(("all_lanes_saturated", [np.full(4096, (1 << 30) - 1)],
+                np.ones(4096, bool), kn.Program((), (), PLANES), 1))
+    rng = np.random.default_rng(11)
+    a = rng.integers(90_000, 10_495_001, 3000)
+    b = rng.integers(0, 32_768, 3000)
+    out.append(("limb_split_product", [a, b], np.ones(3000, bool),
+                kn.Program((), (), (
+                    P_LO + ((kn.LO16, 0),), P_LO + ((kn.HI16, 0),),
+                    P_HI + ((kn.LO16, 0),), P_HI + ((kn.HI16, 0),))), 1))
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 3, 2500)
+    vals = rng.integers(0, 100_000, 2500)
+    live = rng.random(2500) < 0.6
+    out.append(("grouped_with_selection", [keys, vals], live,
+                kn.Program((), ((L, 0),), (((C, 1),), ((L, 1),))), 3))
+    out.append(("predicate_masks_rows", [np.arange(1000)], np.ones(1000, bool),
+                kn.Program(((L, 0), (C, 100), (kn.LT, 0)), (), (((L, 0),),)), 1))
+    rng = np.random.default_rng(5)
+    n = 7000
+    cols = [rng.integers(0, 100, n), rng.integers(-1, 6, n), rng.integers(0, 9, n)]
+    pred = ((L, 0), (C, 50), (kn.LT, 0), (L, 1), (C, 3), (kn.EQ, 0),
+            (kn.NOT, 0), (kn.AND, 0), (L, 2), (C, 7), (kn.GE, 0), (kn.OR, 0),
+            (L, 0), (C, 90), (kn.LE, 0), (kn.AND, 0), (L, 2), (C, 1),
+            (kn.NE, 0), (L, 0), (C, 5), (kn.GT, 0), (kn.OR, 0), (kn.AND, 0))
+    gid = ((L, 1), (kn.CLIP, 5), (C, 4), (kn.MUL, 0), (L, 2), (kn.CLIP, 4),
+           (kn.ADD, 0))
+    terms = (((C, 1),), ((L, 0), (L, 1), (kn.ADD, 0)),
+             ((L, 0), (L, 2), (kn.SUB, 0)), ((L, 2), (kn.NEG, 0)),
+             ((L, 0), (L, 2), (kn.MUL, 0)), ((L, 0), (C, 70000), (kn.MUL, 0),
+                                              (kn.LO16, 0)),
+             ((L, 0), (C, 70000), (kn.MUL, 0), (kn.HI16, 0)))
+    out.append(("every_opcode", cols, rng.random(n) < 0.8,
+                kn.Program(pred, gid, terms), 20))
+    return out
+
+
+@pytest.mark.parametrize("case", _fused_cases(), ids=lambda c: c[0])
+def test_fused_agg_sums_plain_matches_jax_interpret(case):
+    _label, cols, live, prog, groups = case
+    tcols = [torch.as_tensor(np.asarray(c, np.int32)) for c in cols]
+    got = kn.fused_agg_sums(tcols, torch.as_tensor(live), prog, groups)
+    jcols = {f"c{i}": jnp.asarray(np.asarray(c, np.int32)) for i, c in enumerate(cols)}
+    want = np.asarray(jpk.fused_agg_sums(
+        jcols, jnp.asarray(live), _emit(prog), len(prog.terms), groups,
+        interpret=True,
+    ))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,groups,lo,hi", [
+    (300_000, 9, 0, 9),      # tests/test_pallas.py::test_grouped_count_exact
+    (50_000, 12, -3, 15),    # out-of-range ids are skipped on both sides
+    (4096, 32, 0, 32),       # the largest capacity the kernel takes
+])
+def test_grouped_count_plain_matches_jax_interpret(n, groups, lo, hi):
+    rng = np.random.default_rng(3)
+    flags = rng.integers(0, 2, n).astype(bool)
+    gid = rng.integers(lo, hi, n)
+    got = kn.grouped_count(torch.as_tensor(flags), torch.as_tensor(gid), groups)
+    want = np.asarray(jpk.grouped_count(
+        jnp.asarray(flags), jnp.asarray(gid), groups, interpret=True
+    ))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_seg_count_gate_mirrors_capacity_bound():
+    v = torch.zeros(10, dtype=torch.bool)
+    g = torch.zeros(10, dtype=torch.int64)
+    assert kn.seg_count_maybe(v, g, kn.MAX_GROUPS + 1) is None
+    assert kn.seg_count_maybe(v, g, 4).tolist() == [0, 0, 0, 0]
+    assert kn.MAX_GROUPS == jpk.MAX_GROUPS
+
+
+def test_wrappers_check_their_inputs():
+    prog = kn.Program((), (), (((L, 0),),))
+    live = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError):  # int64 column
+        kn.fused_agg_sums([torch.zeros(4, dtype=torch.int64)], live, prog, 1)
+    with pytest.raises(ValueError):  # LOAD beyond the column list
+        kn.fused_agg_sums([], live, prog, 1)
+    with pytest.raises(ValueError):  # stack underflow
+        kn.check_program(kn.Program((), (), (((kn.ADD, 0),),)), 1, 1)
+    with pytest.raises(ValueError):
+        kn.grouped_count(torch.ones(3, dtype=torch.bool),
+                         torch.zeros(4, dtype=torch.int64), 2)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card():
+    """The CUDA kernels against their plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python3 chip_smoke.py)")
+    dev = torch.device("cuda")
+    for _label, cols, live, prog, groups in _fused_cases():
+        tcols = [torch.as_tensor(np.asarray(c, np.int32), device=dev) for c in cols]
+        tl = torch.as_tensor(live, device=dev)
+        assert torch.equal(kn.fused_agg_sums(tcols, tl, prog, groups),
+                           kn.fused_agg_sums_plain(tcols, tl, prog, groups))
+    rng = np.random.default_rng(3)
+    flags = torch.as_tensor(rng.integers(0, 2, 100_000).astype(bool), device=dev)
+    gid = torch.as_tensor(rng.integers(-2, 14, 100_000), device=dev)
+    assert torch.equal(kn.grouped_count(flags, gid, 12),
+                       kn.grouped_count_plain(flags, gid, 12))

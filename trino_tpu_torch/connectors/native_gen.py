@@ -1,0 +1,111 @@
+"""ctypes bindings + build for the native (C++) TPC-H generator.
+
+The shared library is built on first use with g++ -O3 from the repo's
+native/tpchgen.cpp into the port's own build directory
+(trino_tpu_torch/build/).  Falls back silently to the numpy path when a
+toolchain is unavailable; results are bit-identical either way (tested).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from typing import Dict, Optional
+
+import numpy as np
+
+_LIB: Optional[ctypes.CDLL] = None
+_TRIED = False
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(os.path.dirname(_PKG), "native", "tpchgen.cpp")
+_SO = os.path.join(_PKG, "build", "libtpchgen.so")
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _LIB, _TRIED
+    if _LIB is not None or _TRIED:
+        return _LIB
+    _TRIED = True
+    try:
+        if not os.path.exists(_SO) or (
+            os.path.getmtime(_SO) < os.path.getmtime(_SRC)
+        ):
+            os.makedirs(os.path.dirname(_SO), exist_ok=True)
+            subprocess.run(
+                ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
+                check=True,
+                capture_output=True,
+            )
+        lib = ctypes.CDLL(_SO)
+        lib.gen_lineitem.restype = ctypes.c_int64
+        _LIB = lib
+    except Exception:
+        _LIB = None
+    return _LIB
+
+
+_I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_U64P = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+
+LINEITEM_COLS = [
+    "l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
+    "l_extendedprice", "l_discount", "l_tax", "l_shipdate", "l_commitdate",
+    "l_receiptdate", "l_returnflag", "l_linestatus", "l_shipinstruct",
+    "l_shipmode", "l_comment",
+]
+
+_BASE_KEYS = [
+    "l_count", "o_orderdate", "l_shipdate", "l_partkey", "l_supp_slot",
+    "l_quantity", "l_discount", "l_tax", "l_commitdate", "l_receiptdate",
+    "l_returnflag", "l_shipinstruct", "l_shipmode", "l_comment", "o_custkey",
+]
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def gen_lineitem(
+    lo_order: int, hi_order: int, npart: int, nsupp: int, ncomments: int
+) -> Optional[Dict[str, np.ndarray]]:
+    """All 16 lineitem columns for orders [lo, hi), or None if no lib."""
+    lib = _load()
+    if lib is None:
+        return None
+    from .tpch import _fnv
+
+    bases = np.array([np.uint64(_fnv(k)) for k in _BASE_KEYS], dtype=np.uint64)
+    cap = 7 * max(1, hi_order - lo_order)
+    i64 = {
+        c: np.empty(cap, dtype=np.int64)
+        for c in ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                  "l_quantity", "l_extendedprice", "l_discount", "l_tax")
+    }
+    i32 = {
+        c: np.empty(cap, dtype=np.int32)
+        for c in ("l_shipdate", "l_commitdate", "l_receiptdate",
+                  "l_returnflag", "l_linestatus", "l_shipinstruct",
+                  "l_shipmode", "l_comment")
+    }
+    n = lib.gen_lineitem(
+        ctypes.c_int64(lo_order), ctypes.c_int64(hi_order),
+        ctypes.c_int64(npart), ctypes.c_int64(nsupp),
+        ctypes.c_int64(ncomments),
+        bases.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        *[a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)) for a in (
+            i64["l_orderkey"], i64["l_partkey"], i64["l_suppkey"],
+            i64["l_linenumber"], i64["l_quantity"], i64["l_extendedprice"],
+            i64["l_discount"], i64["l_tax"],
+        )],
+        *[a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)) for a in (
+            i32["l_shipdate"], i32["l_commitdate"], i32["l_receiptdate"],
+            i32["l_returnflag"], i32["l_linestatus"], i32["l_shipinstruct"],
+            i32["l_shipmode"], i32["l_comment"],
+        )],
+    )
+    out: Dict[str, np.ndarray] = {}
+    for c, a in {**i64, **i32}.items():
+        out[c] = a[:n]
+    return out

@@ -1,0 +1,1199 @@
+"""Logical plan optimizer.
+
+Reference parity: sql/planner/PlanOptimizers.java:267 (1094-line ordered
+pipeline, 221 iterative rules + visitor optimizers).  This is the minimal
+rule set that matters for TPC-H-class plans (SURVEY §7 step 5):
+
+  - predicate pushdown + cross-join-to-inner-join
+    (PredicatePushDown + iterative rules EliminateCrossJoins)
+  - join build-side selection using connector statistics
+    (the CBO's DetermineJoinDistributionType / ReorderJoins role, reduced
+    to: probe side = larger, build side = unique-keyed dimension side)
+  - column pruning into table scans (PruneUnreferencedOutputs +
+    PushProjectionIntoTableScan — the generator then never materializes
+    unused columns)
+  - trivial projection/filter cleanup
+
+Exchange placement (AddExchanges) happens at fragmentation time
+(parallel/fragmenter.py).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+from .. import types as T
+from ..catalog import Metadata
+from ..expr import ir
+from . import nodes as P
+
+
+def optimize(
+    plan: P.PlanNode,
+    metadata: Optional[Metadata] = None,
+    properties=None,
+) -> P.PlanNode:
+    def prop(name, default=True):
+        return properties.get(name) if properties is not None else default
+
+    def sink_predicates(node):
+        prev = None
+        for _ in range(20):
+            if node == prev:
+                break
+            prev = node
+            node = _push_predicates(node)
+            node = _merge_filters(node)
+        return node
+
+    if metadata is not None:
+        from .cost import effective_metadata
+
+        # statistics_enabled=false degrades every stats consumer below
+        # (greedy passes, Memo, compaction) to bare row counts at once
+        metadata = effective_metadata(metadata, properties)
+    cur = sink_predicates(plan)
+    if metadata is not None:
+        if prop("reorder_joins"):
+            cur = _reorder_joins(cur, metadata)
+            # the reorder re-applies residual predicates above the new
+            # join tree; sink them back down before physical decisions
+            cur = sink_predicates(cur)
+        cur = _choose_build_sides(cur, metadata)
+        cur = _choose_join_distribution(cur, metadata, properties)
+        if prop("memo_optimizer"):
+            # iterative Memo exploration: cost-compared join orders,
+            # commutation, and broadcast-vs-partitioned alternatives
+            # (IterativeOptimizer/Memo/CostCalculatorUsingExchanges)
+            from .memo import memo_optimize
+
+            cur = memo_optimize(cur, metadata, properties)
+            cur = sink_predicates(cur)
+    if metadata is not None and prop("fd_group_key_pruning"):
+        cur = _prune_fd_group_keys(cur, metadata)
+    if metadata is not None and prop("direct_address_joins"):
+        cur = _annotate_direct_joins(cur, metadata)
+    if prop("distinct_agg_rewrite"):
+        cur = _rewrite_global_count_distinct(cur)
+    if metadata is not None and prop("compaction"):
+        cur = _annotate_compaction(cur, metadata, properties)
+    if prop("column_pruning"):
+        cur = _prune_columns(cur)
+    cur = _derive_scan_constraints(
+        cur, in_lists=prop("in_list_pushdown")
+    )
+    return cur
+
+
+# --- constraint extraction (TupleDomain pushdown into the connector) ----
+
+
+def _range_of(conj: "ir.Expr", scan: P.TableScan):
+    """(source_column, lo, hi) for a simple range conjunct over a scan
+    symbol of integral/date type, else None.  Conservative: bounds from
+    non-integral literals (double / fractional decimal) are widened with
+    floor/ceil so connector pruning can never drop matching rows."""
+    import math
+
+    sym_to_col = dict(scan.assignments)
+    types = dict(scan.types)
+
+    def raw(symref, const):
+        """(source_column, true_literal_value) or None.  The literal's
+        *semantic* value depends on its type: decimal Constants hold the
+        unscaled integer (ir.Constant docstring), dates hold epoch days."""
+        if not (isinstance(symref, ir.ColumnRef) and isinstance(const, ir.Constant)):
+            return None
+        t = types.get(symref.name)
+        if t is None or const.value is None:
+            return None
+        if not (t.name in ("tinyint", "smallint", "integer", "bigint", "date")):
+            return None
+        if symref.name not in sym_to_col:
+            return None
+        ct = const.type
+        if ct.is_decimal:
+            v = float(const.value) / (10 ** ct.scale)
+        elif ct.name in ("double", "real") or T.is_integral(ct) or ct.name == "date":
+            v = float(const.value)
+        else:
+            return None
+        return sym_to_col[symref.name], v
+
+    if isinstance(conj, ir.Comparison) and conj.op in ("=", "<", "<=", ">", ">="):
+        r = raw(conj.left, conj.right)
+        flip = False
+        if r is None:
+            r = raw(conj.right, conj.left)
+            flip = True
+        if r is None:
+            return None
+        col, v = r
+        op = conj.op
+        if flip:
+            op = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}.get(op, op)
+        whole = float(v).is_integer()
+        if op == "=":
+            # fractional literal can't equal an integral column; the Filter
+            # above still evaluates exactly, so an empty range is safe
+            return (col, v, v) if whole else (col, 1.0, 0.0)
+        if op == "<":
+            return col, None, (v - 1 if whole else math.floor(v))
+        if op == "<=":
+            return col, None, math.floor(v)
+        if op == ">":
+            return col, (v + 1 if whole else math.ceil(v)), None
+        if op == ">=":
+            return col, math.ceil(v), None
+        return None
+    if isinstance(conj, ir.Between) and not conj.negate:
+        lo = raw(conj.value, conj.low)
+        hi = raw(conj.value, conj.high)
+        if lo is not None and hi is not None and lo[0] == hi[0]:
+            return lo[0], math.ceil(lo[1]), math.floor(hi[1])
+    return None
+
+
+def _values_of(conj: "ir.Expr", scan: P.TableScan):
+    """(source_column, sorted distinct values) for a discrete-domain
+    conjunct — `col IN (c1, .., ck)` or an OR of `col = ci` — over an
+    integral/date scan column (spi/predicate/ValueSet discrete form)."""
+    pairs = None
+    if (
+        isinstance(conj, ir.In)
+        and not conj.negate
+        and isinstance(conj.value, ir.ColumnRef)
+    ):
+        pairs = [(conj.value, it) for it in conj.items]
+    elif isinstance(conj, ir.Logical) and conj.op == "or":
+        pairs = []
+        for t in conj.terms:
+            if not (isinstance(t, ir.Comparison) and t.op == "="):
+                return None
+            if isinstance(t.left, ir.ColumnRef):
+                pairs.append((t.left, t.right))
+            elif isinstance(t.right, ir.ColumnRef):
+                pairs.append((t.right, t.left))
+            else:
+                return None
+    if not pairs:
+        return None
+    col = None
+    vals = []
+    for symref, const in pairs:
+        r = _range_of(ir.Comparison("=", symref, const), scan)
+        if r is None:
+            return None
+        c, lo, hi = r
+        if lo != hi:  # fractional literal: no discrete integral value
+            return None
+        if col is None:
+            col = c
+        elif col != c:
+            return None
+        vals.append(lo)
+    return col, tuple(sorted(set(vals)))
+
+
+def _derive_scan_constraints(
+    node: P.PlanNode, in_lists: bool = True
+) -> P.PlanNode:
+    node = _rewrite_sources(
+        node,
+        tuple(
+            _derive_scan_constraints(s, in_lists) for s in node.sources
+        ),
+    )
+    if not (isinstance(node, P.Filter) and isinstance(node.source, P.TableScan)):
+        return node
+    scan = node.source
+    ranges = {}
+    value_sets = {}
+    for c in _conjuncts(node.predicate):
+        vs = _values_of(c, scan) if in_lists else None
+        if vs is not None:
+            col, vals = vs
+            prev = value_sets.get(col)
+            value_sets[col] = (
+                vals if prev is None
+                else tuple(sorted(set(prev) & set(vals)))
+            )
+            # discrete set implies a [min, max] range too (_values_of
+            # never returns an empty tuple)
+            r = (col, vals[0], vals[-1])
+        else:
+            r = _range_of(c, scan)
+        if r is None:
+            continue
+        col, lo, hi = r
+        plo, phi = ranges.get(col, (None, None))
+        lo = plo if lo is None else (lo if plo is None else max(lo, plo))
+        hi = phi if hi is None else (hi if phi is None else min(hi, phi))
+        ranges[col] = (lo, hi)
+    if not ranges:
+        return node
+    new_scan = P.TableScan(
+        scan.catalog, scan.table, scan.assignments, scan.types,
+        tuple(
+            (c, lo, hi) if c not in value_sets
+            else (c, lo, hi, value_sets[c])
+            for c, (lo, hi) in sorted(ranges.items())
+        ),
+    )
+    return P.Filter(new_scan, node.predicate, node.compact_rows)
+
+
+# --- predicate pushdown ------------------------------------------------
+
+
+def _conjuncts(e: ir.Expr) -> List[ir.Expr]:
+    if isinstance(e, ir.Logical) and e.op == "and":
+        out: List[ir.Expr] = []
+        for t in e.terms:
+            out.extend(_conjuncts(t))
+        return out
+    return [e]
+
+
+def _extract_common_or_conjuncts(e: ir.Expr) -> List[ir.Expr]:
+    """or(and(A, B1), and(A, B2)) -> [A, or(B1, B2)] — the
+    ExtractCommonPredicatesExpressionRewriter analog.  Pulling predicates
+    common to every OR branch above the disjunction lets equi-join keys
+    buried in an OR (TPC-H Q19's p_partkey = l_partkey) reach the join as
+    criteria instead of leaving a cross product."""
+    if not (isinstance(e, ir.Logical) and e.op == "or" and len(e.terms) > 1):
+        return [e]
+    branch_conjs = [_conjuncts(t) for t in e.terms]
+    common = [c for c in branch_conjs[0] if all(c in bc for bc in branch_conjs[1:])]
+    if not common:
+        return [e]
+    reduced = []
+    for bc in branch_conjs:
+        rest = [c for c in bc if c not in common]
+        if not rest:
+            # one branch reduces to TRUE: the disjunction adds nothing
+            return common
+        reduced.append(_combine(rest))
+    return common + [ir.Logical("or", tuple(reduced))]
+
+
+def _combine(conj: List[ir.Expr]) -> Optional[ir.Expr]:
+    if not conj:
+        return None
+    if len(conj) == 1:
+        return conj[0]
+    return ir.Logical("and", tuple(conj))
+
+
+def _rewrite_sources(node: P.PlanNode, new_sources: Tuple[P.PlanNode, ...]):
+    import dataclasses
+
+    if isinstance(node, (P.Filter, P.Project, P.Aggregate, P.Sort, P.TopN,
+                         P.Limit, P.Distinct, P.Output, P.Exchange,
+                         P.Window, P.GroupId, P.TableWriter, P.Unnest,
+                         P.Sample, P.MatchRecognize)):
+        return dataclasses.replace(node, source=new_sources[0])
+    if isinstance(node, P.Join):
+        return dataclasses.replace(node, left=new_sources[0], right=new_sources[1])
+    if isinstance(node, P.SemiJoin):
+        return dataclasses.replace(
+            node, source=new_sources[0], filtering=new_sources[1]
+        )
+    if isinstance(node, P.ScalarJoin):
+        return dataclasses.replace(
+            node, source=new_sources[0], subquery=new_sources[1]
+        )
+    if isinstance(node, P.SetOperation):
+        return dataclasses.replace(node, inputs=new_sources)
+    return node
+
+
+def _push_predicates(node: P.PlanNode) -> P.PlanNode:
+    node = _rewrite_sources(
+        node, tuple(_push_predicates(s) for s in node.sources)
+    )
+    if not isinstance(node, P.Filter):
+        return node
+    src = node.source
+    conj = []
+    for c in _conjuncts(node.predicate):
+        conj.extend(_extract_common_or_conjuncts(c))
+
+    if isinstance(src, P.Filter):
+        return _push_predicates(
+            P.Filter(src.source, _combine(conj + _conjuncts(src.predicate)))
+        )
+
+    if isinstance(src, P.Project):
+        mapping = {s: e for s, e in src.assignments}
+        pushable: List[ir.Expr] = []
+        stay: List[ir.Expr] = []
+        for c in conj:
+            refs = ir.referenced_columns(c)
+            # only push through pure column-renames and cheap exprs
+            if all(r in mapping for r in refs):
+                pushable.append(ir.replace_refs(c, mapping))
+            else:
+                stay.append(c)
+        if pushable:
+            new_src = P.Project(
+                P.Filter(src.source, _combine(pushable)), src.assignments
+            )
+            rest = _combine(stay)
+            return P.Filter(new_src, rest) if rest else new_src
+        return node
+
+    if isinstance(src, P.Join) and src.kind in ("cross", "inner"):
+        lsyms = set(src.left.output_symbols())
+        rsyms = set(src.right.output_symbols())
+        to_left: List[ir.Expr] = []
+        to_right: List[ir.Expr] = []
+        criteria: List[Tuple[str, str]] = list(src.criteria)
+        residual: List[ir.Expr] = []
+        for c in conj:
+            refs = set(ir.referenced_columns(c))
+            if refs and refs <= lsyms:
+                to_left.append(c)
+            elif refs and refs <= rsyms:
+                to_right.append(c)
+            elif (
+                isinstance(c, ir.Comparison)
+                and c.op == "="
+                and isinstance(c.left, ir.ColumnRef)
+                and isinstance(c.right, ir.ColumnRef)
+            ):
+                if c.left.name in lsyms and c.right.name in rsyms:
+                    criteria.append((c.left.name, c.right.name))
+                elif c.left.name in rsyms and c.right.name in lsyms:
+                    criteria.append((c.right.name, c.left.name))
+                else:
+                    residual.append(c)
+            else:
+                residual.append(c)
+        left = P.Filter(src.left, _combine(to_left)) if to_left else src.left
+        right = (
+            P.Filter(src.right, _combine(to_right)) if to_right else src.right
+        )
+        kind = "inner" if criteria else src.kind
+        join_filter = src.filter
+        if residual and kind == "inner":
+            jf = _conjuncts(join_filter) if join_filter is not None else []
+            join_filter = _combine(jf + residual)
+            residual = []
+        newj = P.Join(kind, left, right, tuple(criteria), join_filter)
+        rest = _combine(residual)
+        return P.Filter(newj, rest) if rest else newj
+
+    if isinstance(src, P.Join) and src.kind == "left":
+        # WHERE conjuncts touching only the probe (left) side commute with
+        # a left outer join; right-side/mixed conjuncts must stay above
+        lsyms = set(src.left.output_symbols())
+        down: List[ir.Expr] = []
+        stay: List[ir.Expr] = []
+        for c in conj:
+            refs = set(ir.referenced_columns(c))
+            (down if refs and refs <= lsyms else stay).append(c)
+        if down:
+            import dataclasses
+
+            newj = dataclasses.replace(
+                src, left=P.Filter(src.left, _combine(down))
+            )
+            rest = _combine(stay)
+            return P.Filter(newj, rest) if rest else newj
+        return node
+
+    if isinstance(src, P.ScalarJoin):
+        # same commuting rule: source-side conjuncts push below
+        ssyms = set(src.source.output_symbols())
+        down = []
+        stay = []
+        for c in conj:
+            refs = set(ir.referenced_columns(c))
+            (down if refs and refs <= ssyms else stay).append(c)
+        if down:
+            import dataclasses
+
+            newj = dataclasses.replace(
+                src, source=P.Filter(src.source, _combine(down))
+            )
+            rest = _combine(stay)
+            return P.Filter(newj, rest) if rest else newj
+        return node
+
+    if isinstance(src, P.Window):
+        # conjuncts over partition keys only commute with the window
+        # (PushPredicateThroughProjectIntoWindow analog)
+        psyms = set(src.partition_by)
+        down = []
+        stay = []
+        for c in conj:
+            refs = set(ir.referenced_columns(c))
+            (down if refs and refs <= psyms else stay).append(c)
+        if down:
+            import dataclasses
+
+            new_src = dataclasses.replace(
+                src, source=P.Filter(src.source, _combine(down))
+            )
+            rest = _combine(stay)
+            return P.Filter(new_src, rest) if rest else new_src
+        return node
+
+    if isinstance(src, P.SemiJoin):
+        # predicates not on the mark push below
+        mark = src.output
+        below = [c for c in conj if mark not in ir.referenced_columns(c)]
+        stay = [c for c in conj if mark in ir.referenced_columns(c)]
+        if below:
+            import dataclasses
+
+            new_src = dataclasses.replace(
+                src, source=P.Filter(src.source, _combine(below))
+            )
+            rest = _combine(stay)
+            return P.Filter(new_src, rest) if rest else new_src
+        return node
+
+    return node
+
+
+def _merge_filters(node: P.PlanNode) -> P.PlanNode:
+    node = _rewrite_sources(node, tuple(_merge_filters(s) for s in node.sources))
+    if isinstance(node, P.Filter) and isinstance(node.source, P.Filter):
+        return P.Filter(
+            node.source.source,
+            _combine(_conjuncts(node.predicate) + _conjuncts(node.source.predicate)),
+        )
+    return node
+
+
+# --- join reordering ---------------------------------------------------
+
+
+def _reorder_joins(node: P.PlanNode, metadata: Metadata) -> P.PlanNode:
+    """EliminateCrossJoins + greedy ReorderJoins (iterative/rule/
+    ReorderJoins.java:97, EliminateCrossJoins):
+    flatten each maximal region of inner/cross joins into a join graph
+    (leaves + equi edges), then rebuild left-deep so every added relation
+    connects to the prefix through an equi edge when one exists — a
+    disconnected FROM list degrades to at most one final cross join instead
+    of materializing giant intermediate cross products.  Among connectable
+    relations the one with the smallest estimated row count joins first
+    (dimension tables early), the largest relation anchors as the streaming
+    probe base."""
+    node = _rewrite_sources(
+        node, tuple(_reorder_joins(s, metadata) for s in node.sources)
+    )
+    if not (
+        isinstance(node, P.Join) and node.kind in ("inner", "cross")
+    ):
+        return node
+
+    leaves: List[P.PlanNode] = []
+    criteria: List[Tuple[str, str]] = []
+    residuals: List[ir.Expr] = []
+
+    def flatten(n: P.PlanNode):
+        if isinstance(n, P.Join) and n.kind in ("inner", "cross"):
+            flatten(n.left)
+            flatten(n.right)
+            criteria.extend(n.criteria)
+            if n.filter is not None:
+                residuals.extend(_conjuncts(n.filter))
+        else:
+            leaves.append(n)
+
+    flatten(node)
+    if len(leaves) <= 2:
+        return node
+
+    sym_of = [set(l.output_symbols()) for l in leaves]
+    est = [_estimate_rows(l, metadata) for l in leaves]
+    # anchor on the largest relation (the fact table stays the probe side)
+    start = max(range(len(leaves)), key=lambda i: est[i])
+    placed = {start}
+    cur_syms = set(sym_of[start])
+    result = leaves[start]
+    unused = list(criteria)
+
+    def edges_to(i: int) -> List[Tuple[str, str]]:
+        out = []
+        for a, b in unused:
+            if (a in cur_syms and b in sym_of[i]) or (
+                b in cur_syms and a in sym_of[i]
+            ):
+                out.append((a, b))
+        return out
+
+    while len(placed) < len(leaves):
+        open_idx = [i for i in range(len(leaves)) if i not in placed]
+        connectable = [i for i in open_idx if edges_to(i)]
+        pick_from = connectable or open_idx
+        nxt = min(pick_from, key=lambda i: est[i])
+        edges = edges_to(nxt)
+        oriented = tuple(
+            (a, b) if a in cur_syms else (b, a) for a, b in edges
+        )
+        for e in edges:
+            unused.remove(e)
+        result = P.Join(
+            "inner" if oriented else "cross",
+            result,
+            leaves[nxt],
+            oriented,
+        )
+        placed.add(nxt)
+        cur_syms |= sym_of[nxt]
+    # residual join filters (non-equi conjuncts) re-apply above; the next
+    # pushdown round sinks them back to the lowest join that covers them
+    types = node.output_types()
+    rest = _combine(
+        residuals
+        + [
+            ir.Comparison(
+                "=",
+                ir.ColumnRef(types[a], a),
+                ir.ColumnRef(types[b], b),
+            )
+            for a, b in unused
+        ]
+    )
+    return P.Filter(result, rest) if rest else result
+
+
+# --- build-side selection ---------------------------------------------
+
+
+def _estimate_rows(node: P.PlanNode, metadata: Metadata) -> float:
+    if isinstance(node, P.TableScan):
+        return metadata.table_statistics(node.catalog, node.table).row_count
+    if isinstance(node, P.Filter):
+        base = _estimate_rows(node.source, metadata)
+        # shared FilterStatsCalculator: histogram/NDV selectivity when
+        # the column has collected stats, 0.3 per unknown conjunct
+        from .cost import _scan_below, predicate_selectivity
+
+        return base * predicate_selectivity(
+            node.predicate, _scan_below(node.source), metadata
+        )
+    if isinstance(node, P.Join):
+        l = _estimate_rows(node.left, metadata)
+        r = _estimate_rows(node.right, metadata)
+        if node.kind == "cross":
+            return l * r
+        return max(l, r)
+    if isinstance(node, P.Aggregate):
+        return max(1.0, _estimate_rows(node.source, metadata) / 10)
+    if isinstance(node, (P.TopN, P.Limit)):
+        cnt = getattr(node, "count", 1)
+        return min(cnt, _estimate_rows(node.sources[0], metadata))
+    if node.sources:
+        return max(_estimate_rows(s, metadata) for s in node.sources)
+    return 1.0
+
+
+def _key_unique(node: P.PlanNode, symbol: str, metadata: Metadata) -> bool:
+    """Is `symbol` unique in node's output? Walk to the defining scan."""
+    if isinstance(node, P.TableScan):
+        col = dict(node.assignments).get(symbol)
+        if col is None:
+            return False
+        stats = metadata.table_statistics(node.catalog, node.table)
+        cs = stats.columns.get(col)
+        return cs is not None and cs.distinct_count == stats.row_count
+    if isinstance(node, P.Filter):
+        return _key_unique(node.source, symbol, metadata)
+    if isinstance(node, P.Project):
+        for s, e in node.assignments:
+            if s == symbol and isinstance(e, ir.ColumnRef):
+                return _key_unique(node.source, e.name, metadata)
+        return False
+    if isinstance(node, P.Aggregate):
+        return len(node.keys) == 1 and symbol in node.keys
+    if isinstance(node, P.Join):
+        # unique key of one side joined 1:1 stays unique-ish; conservative:
+        for s in node.sources:
+            if symbol in s.output_symbols():
+                return _key_unique(s, symbol, metadata)
+    if isinstance(node, (P.SemiJoin, P.ScalarJoin, P.Sort, P.TopN, P.Limit,
+                         P.Window)):
+        return _key_unique(node.sources[0], symbol, metadata)
+    return False
+
+
+def _choose_build_sides(node: P.PlanNode, metadata: Metadata) -> P.PlanNode:
+    node = _rewrite_sources(
+        node, tuple(_choose_build_sides(s, metadata) for s in node.sources)
+    )
+    if not (isinstance(node, P.Join) and node.criteria):
+        return node
+    import dataclasses
+
+    lkeys = [l for l, _ in node.criteria]
+    rkeys = [r for _, r in node.criteria]
+    l_unique = all(_key_unique(node.left, k, metadata) for k in lkeys) or (
+        len(lkeys) > 1 and any(_key_unique(node.left, k, metadata) for k in lkeys)
+    )
+    r_unique = all(_key_unique(node.right, k, metadata) for k in rkeys) or (
+        len(rkeys) > 1 and any(_key_unique(node.right, k, metadata) for k in rkeys)
+    )
+    if node.kind != "inner":
+        # outer joins cannot swap sides; build (right) duplicates -> expansion
+        return dataclasses.replace(node, expansion=not r_unique)
+    # right side is the build side (HashBuilderOperator on right child).
+    # prefer a unique-keyed (dimension) build side; else the smaller side
+    # with the expansion kernel.
+    lrows = _estimate_rows(node.left, metadata)
+    rrows = _estimate_rows(node.right, metadata)
+    swap = False
+    if l_unique and not r_unique:
+        swap = True
+    elif l_unique and r_unique and lrows < rrows:
+        swap = True
+    elif not l_unique and not r_unique and lrows < rrows:
+        swap = True  # smaller side as (expansion) build
+    if swap:
+        return P.Join(
+            "inner",
+            node.right,
+            node.left,
+            tuple((r, l) for l, r in node.criteria),
+            node.filter,
+            expansion=not l_unique,
+        )
+    return dataclasses.replace(node, expansion=not r_unique)
+
+
+def _choose_join_distribution(
+    node: P.PlanNode, metadata: Metadata, properties
+) -> P.PlanNode:
+    """DetermineJoinDistributionType + the AddExchanges.java:138 CBO
+    decision: REPLICATED (broadcast the build side) when it is small,
+    PARTITIONED (hash-hash exchange on both sides) when replicating it
+    would blow past the broadcast threshold.  Session property
+    join_distribution_type forces either mode."""
+    import dataclasses
+
+    from ..config import BROADCAST_JOIN_THRESHOLD_ROWS
+
+    mode = "automatic"
+    threshold = BROADCAST_JOIN_THRESHOLD_ROWS
+    if properties is not None:
+        mode = properties.get("join_distribution_type")
+        threshold = properties.get("broadcast_join_threshold_rows")
+
+    def walk(n: P.PlanNode) -> P.PlanNode:
+        n = _rewrite_sources(n, tuple(walk(s) for s in n.sources))
+        if not (
+            isinstance(n, P.Join)
+            and n.criteria
+            and n.kind in ("inner", "left")
+        ):
+            return n
+        if mode in ("broadcast", "partitioned"):
+            return dataclasses.replace(n, distribution=mode)
+        rrows = _estimate_rows(n.right, metadata)
+        dist = "partitioned" if rrows > threshold else "broadcast"
+        return dataclasses.replace(n, distribution=dist)
+
+    return walk(node)
+
+
+# --- global count(DISTINCT) decomposition ------------------------------
+
+
+def _rewrite_global_count_distinct(node: P.PlanNode) -> P.PlanNode:
+    """count(DISTINCT x) with no GROUP BY -> count(x) over
+    Distinct(Project x).  The Distinct hash-partitions across tasks/mesh
+    devices and tiles under the streaming executor (its partial step
+    dedups locally), so an oversized distinct no longer needs every raw
+    row gathered to one task — the reference reaches the same shape via
+    MultipleDistinctAggregationToMarkDistinct + partial aggregation
+    (iterative/rule/, PushPartialAggregationThroughExchange)."""
+    import dataclasses as dc
+
+    node = _rewrite_sources(
+        node,
+        tuple(_rewrite_global_count_distinct(s) for s in node.sources),
+    )
+    if not (
+        isinstance(node, P.Aggregate)
+        and node.step == "single"
+        and not node.keys
+        and len(node.aggs) == 1
+        and node.aggs[0].distinct
+        and node.aggs[0].kind == "count"
+        and node.aggs[0].arg is not None
+    ):
+        return node
+    a = node.aggs[0]
+    x = a.arg
+    xt = node.source.output_types().get(x)
+    if xt is None:
+        return node
+    proj = P.Project(node.source, ((x, ir.ColumnRef(xt, x)),))
+    return dc.replace(
+        node,
+        source=P.Distinct(proj),
+        aggs=(dc.replace(a, distinct=False),),
+    )
+
+
+# --- direct-address join annotation ------------------------------------
+
+# biggest dense-domain lookup table the executor may allocate (i32
+# entries: 64M = 256 MB HBM) and how sparse the domain may be relative
+# to the build rows before the table wastes more than it saves
+_DIRECT_MAX_DOMAIN = 64 << 20
+_DIRECT_SPARSITY = 16
+
+
+def _scan_minmax(node: P.PlanNode, symbol: str, metadata: Metadata):
+    """(lo, hi) value bounds for `symbol`, traced through identity
+    projections/filters to its scan column's statistics."""
+    while True:
+        if isinstance(node, P.Filter):
+            node = node.source
+            continue
+        if isinstance(node, P.Project):
+            nxt = None
+            for s, e in node.assignments:
+                if s == symbol:
+                    if isinstance(e, ir.ColumnRef):
+                        nxt = e.name
+                    break
+            if nxt is None:
+                return None
+            symbol, node = nxt, node.source
+            continue
+        if isinstance(node, P.Join):
+            side = (
+                node.left
+                if symbol in node.left.output_symbols() else node.right
+            )
+            node = side
+            continue
+        if isinstance(node, P.TableScan):
+            col = dict(node.assignments).get(symbol)
+            if col is None:
+                return None
+            cs = metadata.table_statistics(
+                node.catalog, node.table
+            ).columns.get(col)
+            if cs is None or cs.min_value is None or cs.max_value is None:
+                return None
+            return int(cs.min_value), int(cs.max_value)
+        return None
+
+
+def _annotate_direct_joins(node: P.PlanNode, metadata: Metadata) -> P.PlanNode:
+    """Dense-domain build keys probe through a direct-address table (one
+    scatter + one gather) instead of sort-merge ranks — measured 2.3x on
+    the locate step at 4M probes (MICRO_probe.json), and the build sort
+    disappears.  Requirements (ops/join.DirectLookupSource): build key
+    strict-proven unique, narrow integer, bounded domain from column
+    stats.  The runtime self-verifies (violation + duplicate counters
+    reroute to the sorted kernels), so stale stats cost a retry, never a
+    wrong row.
+
+    Reference analog: JoinCompiler's array-based lookup source for dense
+    integer keys (operator/join/PagesHash + ArrayPositionLinks)."""
+    import dataclasses as dc
+
+    node = _rewrite_sources(
+        node,
+        tuple(_annotate_direct_joins(s, metadata) for s in node.sources),
+    )
+    if not (
+        isinstance(node, P.Join)
+        and node.kind in ("inner", "left")
+        and len(node.criteria) == 1
+        and not node.expansion
+    ):
+        return node
+    pk, bk = node.criteria[0]
+    types = node.right.output_types()
+    bt = types.get(bk)
+    pt = node.left.output_types().get(pk)
+    for t in (bt, pt):
+        if t is None or getattr(t, "wide", False):
+            return node
+        if t.name not in ("bigint", "integer", "date"):
+            return node
+    if not _key_unique_strict(node.right, bk, metadata):
+        return node
+    mm = _scan_minmax(node.right, bk, metadata)
+    if mm is None:
+        return node
+    lo, hi = mm
+    domain = hi - lo + 1
+    if domain < 1 or domain > _DIRECT_MAX_DOMAIN:
+        return node
+    rows = _estimate_rows(node.right, metadata)
+    if domain > max(_DIRECT_SPARSITY * rows, 1 << 20):
+        return node
+    return dc.replace(node, direct_domain=(lo, hi))
+
+
+# --- compaction annotation ---------------------------------------------
+
+# compact only when the estimate says at most this fraction survives
+# (padding + the safety margin eat the benefit above it)
+_COMPACT_SELECTIVITY = 0.6
+# below this input-row estimate the copy costs more than it saves
+_COMPACT_MIN_ROWS = 1 << 20
+
+
+def _annotate_compaction(
+    node: P.PlanNode, metadata: Metadata, properties
+) -> P.PlanNode:
+    """Mark selective Filters and inner Joins with their estimated output
+    rows so the executor tightens survivors into a smaller static
+    capacity.  TPU-first rationale: every operator here is a fixed-shape
+    XLA program over padded lanes, so a 50%-selective filter otherwise
+    drags dead lanes through every downstream sort/gather — and the
+    whole-fragment program's HBM peak (the q3_sf5 compile-OOM) scales
+    with those widths.  The reference's row-oriented operators get this
+    for free by materializing only survivors
+    (ScanFilterAndProjectOperator); here it is an explicit cumsum+gather
+    whose capacity the retry ladder verifies."""
+    from .cost import StatsProvider
+
+    stats = StatsProvider(metadata)
+    import dataclasses as dc
+
+    # compaction pays only when a WIDTH-SENSITIVE operator consumes the
+    # tightened lanes downstream (joins/sorts/grouping run at input
+    # width); a filter feeding only a global aggregate would pay the
+    # cumsum+gather for nothing (measured: a plain scan+filter+sum went
+    # 0.065s -> 0.58s with an unconditional compact).  Aggregates/TopN
+    # reset the width for everything above them.
+    _consumers = (P.Join, P.SemiJoin, P.Sort, P.TopN, P.Window, P.Distinct)
+
+    def walk(n: P.PlanNode, width_sensitive_above: bool) -> P.PlanNode:
+        child_flag = (
+            isinstance(n, _consumers)
+            or (isinstance(n, P.Aggregate) and bool(n.keys))
+            or (
+                width_sensitive_above
+                and not isinstance(n, (P.Aggregate, P.TopN))
+            )
+        )
+        n = _rewrite_sources(
+            n, tuple(walk(s, child_flag) for s in n.sources)
+        )
+        if not width_sensitive_above:
+            return n
+        if isinstance(n, P.Filter):
+            try:
+                est = stats.estimate(n).rows
+                base = stats.estimate(n.source).rows
+            except Exception:
+                return n
+            if (
+                base >= _COMPACT_MIN_ROWS
+                and est <= base * _COMPACT_SELECTIVITY
+            ):
+                return dc.replace(n, compact_rows=int(est) + 1)
+            return n
+        if isinstance(n, P.Join) and n.kind == "inner" and n.criteria:
+            try:
+                est = stats.estimate(n).rows
+                base = max(
+                    stats.estimate(n.left).rows,
+                    stats.estimate(n.right).rows,
+                )
+            except Exception:
+                return n
+            if (
+                base >= _COMPACT_MIN_ROWS
+                and est <= base * _COMPACT_SELECTIVITY
+            ):
+                return dc.replace(n, compact_rows=int(est) + 1)
+            return n
+        return n
+
+    return walk(node, False)
+
+
+# --- functional-dependency group-key pruning ---------------------------
+
+
+def _key_unique_strict(node: P.PlanNode, symbol: str,
+                       metadata: Metadata) -> bool:
+    """PROVEN uniqueness of `symbol` in node's output — unlike
+    _key_unique (a build-side heuristic where a wrong guess only costs a
+    runtime dup-check retry), this feeds result-correctness rewrites, so
+    a Join only preserves uniqueness when the OTHER side cannot fan out:
+    it must itself be unique on its join key.  Anything unproven is
+    False."""
+    if isinstance(node, P.TableScan):
+        col = dict(node.assignments).get(symbol)
+        if col is None:
+            return False
+        stats = metadata.table_statistics(node.catalog, node.table)
+        cs = stats.columns.get(col)
+        return cs is not None and cs.distinct_count == stats.row_count
+    if isinstance(node, P.Filter):
+        return _key_unique_strict(node.source, symbol, metadata)
+    if isinstance(node, P.Project):
+        for s, e in node.assignments:
+            if s == symbol and isinstance(e, ir.ColumnRef):
+                return _key_unique_strict(node.source, e.name, metadata)
+        return False
+    if isinstance(node, P.Aggregate):
+        return len(node.keys) == 1 and symbol in node.keys
+    if isinstance(node, P.Join):
+        if node.kind not in ("inner", "left") or len(node.criteria) != 1:
+            return False
+        l, r = node.criteria[0]
+        left_has = symbol in node.left.output_symbols()
+        side, other = (
+            (node.left, node.right) if left_has else (node.right, node.left)
+        )
+        other_key = r if left_has else l
+        return _key_unique_strict(
+            side, symbol, metadata
+        ) and _key_unique_strict(other, other_key, metadata)
+    if isinstance(node, (P.SemiJoin, P.Sort, P.TopN, P.Limit)):
+        return _key_unique_strict(node.sources[0], symbol, metadata)
+    return False
+
+
+def _prune_fd_group_keys(node: P.PlanNode, metadata: Metadata) -> P.PlanNode:
+    """Group keys functionally dependent on another key drop out of the
+    hash and come back as `arbitrary` aggregates: GROUP BY l_orderkey,
+    o_orderdate, o_shippriority over a unique-build join on
+    o_orderkey collapses to a single-key group-by (TPC-H Q3's multi-key
+    hash-sort becomes one narrow-int grouping).
+
+    Reference analog: the CBO's unique-constraint reasoning
+    (sql/planner/optimizations/ + iterative rules that exploit
+    distinctness, e.g. RemoveRedundantDistinct / PruneDistinctAggregation
+    in core/trino-main/.../iterative/rule/).  Safety:
+      - the dependency comes from a SINGLE-column equi join whose build
+        side is stats-PROVEN unique on the join key (primary-key
+        distinct_count == row_count, not a heuristic) — probe rows with
+        equal keys then share one build row, so every build-side symbol
+        is a function of the probe key
+      - inner joins only, or left joins without residual filters (a
+        residual nulls build columns per-row and breaks the dependency)
+    """
+    node = _rewrite_sources(
+        node, tuple(_prune_fd_group_keys(s, metadata) for s in node.sources)
+    )
+    if not (
+        isinstance(node, P.Aggregate)
+        and node.step == "single"
+        and len(node.keys) > 1
+    ):
+        return node
+
+    # trace each group key down through identity projections/filters to
+    # the first join below the aggregate
+    def trace(sym: str):
+        cur = node.source
+        s = sym
+        while True:
+            if isinstance(cur, P.Filter):
+                cur = cur.source
+                continue
+            if isinstance(cur, P.Project):
+                nxt = None
+                for out, e in cur.assignments:
+                    if out == s:
+                        if isinstance(e, ir.ColumnRef):
+                            nxt = e.name
+                        break
+                if nxt is None:
+                    return None
+                s = nxt
+                cur = cur.source
+                continue
+            if isinstance(cur, P.Join):
+                return cur, s
+            return None
+
+    traces = {k: trace(k) for k in node.keys}
+    if any(t is None for t in traces.values()):
+        return node
+    # trace() walks the same source chain for every key, so all traces
+    # stop at the same first Join
+    j, _ = next(iter(traces.values()))
+    if not (
+        isinstance(j, P.Join)
+        and len(j.criteria) == 1
+        and (j.kind == "inner" or (j.kind == "left" and j.filter is None))
+    ):
+        return node
+    pk, bk = j.criteria[0]
+    if not _key_unique_strict(j.right, bk, metadata):
+        return node
+    build_syms = set(j.right.output_symbols())
+    anchor = [k for k, (_, s) in traces.items() if s == pk]
+    fd = [k for k, (_, s) in traces.items() if s in build_syms and s != pk]
+    if not anchor or not fd or len(anchor) + len(fd) != len(node.keys):
+        return node
+    import dataclasses as dc
+
+    types = node.source.output_types()
+    new_aggs = list(node.aggs) + [
+        P.AggInfo(
+            output=k, kind="arbitrary", arg=k, distinct=False,
+            input_type=types[k], output_type=types[k],
+        )
+        for k in fd
+    ]
+    return dc.replace(
+        node,
+        keys=tuple(k for k in node.keys if k not in fd),
+        aggs=tuple(new_aggs),
+    )
+
+
+# --- column pruning ----------------------------------------------------
+
+
+def _prune_columns(root: P.PlanNode) -> P.PlanNode:
+    """Top-down required-symbol pruning (PruneUnreferencedOutputs +
+    PushProjectionIntoTableScan combined): each node keeps only outputs its
+    parent requires and tells children what it needs."""
+    import dataclasses
+
+    def prune(node: P.PlanNode, required: Set[str]) -> P.PlanNode:
+        if isinstance(node, P.Output):
+            return dataclasses.replace(
+                node, source=prune(node.source, set(node.symbols))
+            )
+        if isinstance(node, P.TableWriter):
+            # every source column is written — nothing above can prune them
+            return dataclasses.replace(
+                node,
+                source=prune(node.source, set(node.source.output_symbols())),
+            )
+        if isinstance(node, P.MatchRecognize):
+            need = set(node.partition_by)
+            for k in node.order_by:
+                need.add(k.column)
+            for _, e in node.defines:
+                need.update(ir.referenced_columns(e))
+            for _, e, _ in node.measures:
+                need.update(ir.referenced_columns(e))
+            return dataclasses.replace(node, source=prune(node.source, need))
+        if isinstance(node, P.Unnest):
+            need = (set(required) - {node.element_symbol,
+                                     node.ordinality_symbol})
+            need.add(node.array_symbol)
+            return dataclasses.replace(node, source=prune(node.source, need))
+        if isinstance(node, P.TableScan):
+            kept = tuple(
+                (s, c) for s, c in node.assignments if s in required
+            ) or node.assignments[:1]
+            keep_syms = {s for s, _ in kept}
+            types_ = tuple((s, t) for s, t in node.types if s in keep_syms)
+            return P.TableScan(node.catalog, node.table, kept, types_)
+        if isinstance(node, P.Project):
+            kept = tuple(
+                (s, e) for s, e in node.assignments if s in required
+            ) or node.assignments[:1]
+            need: Set[str] = set()
+            for _, e in kept:
+                need.update(ir.referenced_columns(e))
+            return P.Project(prune(node.source, need), kept)
+        if isinstance(node, P.Filter):
+            need = set(required) | set(ir.referenced_columns(node.predicate))
+            return P.Filter(
+                prune(node.source, need), node.predicate, node.compact_rows
+            )
+        if isinstance(node, P.Aggregate):
+            kept_aggs = tuple(a for a in node.aggs if a.output in required)
+            need = (
+                set(node.keys)
+                | {a.arg for a in kept_aggs if a.arg}
+                | {a.arg2 for a in kept_aggs if a.arg2}
+            )
+            return P.Aggregate(
+                prune(node.source, need), node.keys, kept_aggs, node.step
+            )
+        if isinstance(node, P.Join):
+            need = set(required)
+            for l, r in node.criteria:
+                need.add(l)
+                need.add(r)
+            if node.filter is not None:
+                need.update(ir.referenced_columns(node.filter))
+            lsyms = set(node.left.output_symbols())
+            rsyms = set(node.right.output_symbols())
+            return dataclasses.replace(
+                node,
+                left=prune(node.left, need & lsyms),
+                right=prune(node.right, need & rsyms),
+            )
+        if isinstance(node, P.SemiJoin):
+            fref = (
+                set(ir.referenced_columns(node.filter))
+                if node.filter is not None
+                else set()
+            )
+            ssyms = set(node.source.output_symbols())
+            need = ((set(required) - {node.output}) | set(node.source_keys)
+                    | (fref & ssyms))
+            fneed = set(node.filtering_keys) | (fref - ssyms)
+            return dataclasses.replace(
+                node,
+                source=prune(node.source, need),
+                filtering=prune(node.filtering, fneed),
+            )
+        if isinstance(node, P.ScalarJoin):
+            sub_syms = set(node.subquery.output_symbols())
+            return dataclasses.replace(
+                node,
+                source=prune(node.source, set(required) - sub_syms),
+                subquery=prune(node.subquery, sub_syms),
+            )
+        if isinstance(node, (P.Sort, P.TopN)):
+            need = set(required) | {k.column for k in node.keys}
+            return dataclasses.replace(node, source=prune(node.source, need))
+        if isinstance(node, P.Window):
+            kept = tuple(
+                f for f in node.functions if f.output in required
+            )
+            if not kept:
+                # no surviving function: the node adds nothing — drop it
+                return prune(node.source, set(required))
+            need = set(required) - {f.output for f in node.functions}
+            need |= set(node.partition_by)
+            need |= {k.column for k in node.order_by}
+            for f in kept:
+                need.update(f.args)
+            return dataclasses.replace(
+                node, source=prune(node.source, need), functions=kept
+            )
+        if isinstance(node, (P.Limit, P.Exchange)):
+            return dataclasses.replace(
+                node, source=prune(node.source, set(required))
+            )
+        if isinstance(node, P.Distinct):
+            # distinct is over all output columns — everything is required
+            return dataclasses.replace(
+                node,
+                source=prune(node.source, set(node.source.output_symbols())),
+            )
+        if isinstance(node, P.SetOperation):
+            new_inputs = []
+            for inp in node.inputs:
+                pos_syms = inp.output_symbols()
+                need = {
+                    pos_syms[i]
+                    for i, s in enumerate(node.symbols)
+                    if s in required or True  # positional: keep arity
+                }
+                new_inputs.append(prune(inp, need))
+            return dataclasses.replace(node, inputs=tuple(new_inputs))
+        if isinstance(node, P.Values):
+            return node
+        return _rewrite_sources(
+            node, tuple(prune(s, set(required)) for s in node.sources)
+        )
+
+    return prune(root, set(root.output_symbols()))
