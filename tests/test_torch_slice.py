@@ -94,6 +94,35 @@ def test_megakernels_auto_is_off_on_the_cpu():
     assert s.last_kernel_profile.get("fusedAggregates") is None
 
 
+def test_plan_cache_never_replays_a_folded_current_date(monkeypatch):
+    """current_date folds into a per-query constant; like the reference,
+    the port caches only deterministic plans, so a repeated query sees the
+    clock move.  A deterministic query is cached by its text."""
+    import datetime
+    import types
+
+    from trino_tpu_torch.sql import analyzer
+
+    days = iter([datetime.datetime(2024, 3, 1, 12, tzinfo=datetime.timezone.utc),
+                 datetime.datetime(2025, 7, 9, 12, tzinfo=datetime.timezone.utc)])
+
+    class _Clock(datetime.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return next(days)
+
+    fake = types.SimpleNamespace(**vars(datetime))
+    fake.datetime = _Clock
+    monkeypatch.setattr(analyzer, "datetime", fake)
+    s = torch_session(SF, device="cpu")
+    sql = "select current_date"
+    got = [s.execute(sql).to_pylist()[0][0] for _ in range(2)]
+    assert got == ["2024-03-01", "2025-07-09"]
+    assert sql not in s._plan_cache
+    s.execute(Q["q6"])
+    assert Q["q6"] in s._plan_cache
+
+
 def test_entry_point_refuses_the_cpu_unless_asked():
     """With no card, the port's entry points raise unless the caller
     asks for the CPU; they never run there quietly."""

@@ -373,19 +373,15 @@ def reset_counts() -> None:
         LAUNCHES[name] = 0
 
 
-# Every kernel of the port registers here: the wrapper, its plain
-# version, its source and the TPU kernel it replaces.
+# Every kernel of the port registers here, by wrapper name: its source
+# and the TPU kernel it replaces.
 KERNEL_REGISTRY = {
     "fused_agg_sums": {
-        "plain": "fused_agg_sums_plain",
         "source": "trino_tpu_torch/csrc/fused_agg.cu",
         "replaces": "trino_tpu/ops/pallas_kernels.py:188",
-        "what": "fused scan->filter->aggregate per-(term, group) sums",
     },
     "grouped_count": {
-        "plain": "grouped_count_plain",
         "source": "trino_tpu_torch/csrc/grouped_count.cu",
         "replaces": "trino_tpu/ops/pallas_kernels.py:128",
-        "what": "per-group count of set flags",
     },
 }

@@ -12,12 +12,14 @@ a card and without that request, creating one raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 from . import device as D
 from . import types as T
 from .catalog import CatalogManager, Metadata
 from .config import SessionProperties
+from .expr import ir
 from .connectors.tpch import TpchConnectorFactory
 from .exec.local import DeviceScanCache, LocalExecutor
 from .page import Page, column_from_pylist
@@ -101,13 +103,48 @@ class Session:
         plan = self._plan_cache.get(sql)
         if plan is None:
             plan = self._plan_stmt(stmt)
-            self._plan_cache[sql] = plan
-            for k in list(self._plan_cache)[:-256]:
-                self._plan_cache.pop(k, None)
+            # nondeterministic plans carry query-time folded constants
+            # (now() timestamps, rand() seeds): caching the plan by SQL
+            # text would replay the first execution's values forever
+            if plan_is_deterministic(plan):
+                self._plan_cache[sql] = plan
+                for k in list(self._plan_cache)[:-256]:
+                    self._plan_cache.pop(k, None)
         executor = self._executor()
         page = executor.execute(plan)
         self.last_kernel_profile = executor.kernel_profile
         return page
+
+
+def _plan_exprs(plan: P.PlanNode):
+    """Every ir.Expr reachable from any node field (predicates,
+    projections, aggregates, ...)."""
+
+    def from_val(v):
+        if isinstance(v, P.PlanNode):
+            return
+        if isinstance(v, ir.Expr):
+            yield v
+        elif isinstance(v, tuple):
+            for x in v:
+                yield from from_val(x)
+        elif dataclasses.is_dataclass(v):
+            for f in dataclasses.fields(v):
+                yield from from_val(getattr(v, f.name))
+
+    stack = [plan]
+    while stack:
+        n = stack.pop()
+        stack.extend(n.sources)
+        for f in dataclasses.fields(n):
+            yield from from_val(getattr(n, f.name))
+
+
+def plan_is_deterministic(plan: P.PlanNode) -> bool:
+    """True when no expression of the plan calls a nondeterministic
+    function and no constant was folded from one (the reference's
+    plan_signature(plan).deterministic)."""
+    return all(ir.is_deterministic(e) for e in _plan_exprs(plan))
 
 
 def tpch_session(sf: float = 0.01, device=None, **config) -> Session:
