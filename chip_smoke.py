@@ -8,12 +8,13 @@ Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel from trino_tpu_torch/csrc with nvcc (sm_90a);
   2. hold each kernel against its plain PyTorch version on the card,
      on random and edge inputs (exact equality);
-  3. TPC-H SF1: Q6 and Q1 through Session.execute with megakernels on
-     (fused kernel), off (grouped-count kernel) and with both kernel
-     functions replaced by their plain versions: the pages must be
-     byte-identical, and agree with a numpy reference at a small SF;
-  4. TPC-H SF10, the main path: Q6 and Q1 warm with megakernels=auto and
-     Q1 with megakernels=off; every kernel's launch count must move;
+  3. TPC-H SF1: Q6, Q1 and Q3 through Session.execute with megakernels
+     on (fused kernel), off (grouped-count and grouped-sum kernels) and
+     with every kernel function replaced by its plain version: the pages
+     must be byte-identical and agree with exact numpy references;
+  4. TPC-H SF10, the main path: Q6, Q1 and Q3 warm with megakernels=auto
+     and Q1 with megakernels=off, held against the numpy references;
+     every kernel's launch count must move (direct_probe twice per Q3);
   5. each kernel timed with CUDA events at the main path's shapes beside
      its bound, its plain version and, where one exists, one PyTorch call
      computing the same function.
@@ -160,6 +161,74 @@ def _count_cases(dev):
             for lbl, f, g, c in cases]
 
 
+def _sum_cases(dev):
+    """(label, values, gid, cap) for grouped_sum_i64: random, ids outside
+    [0, cap), values near +-2^63 whose sums wrap, empty and one group."""
+    rng = np.random.default_rng(SEED + 2)
+    cases = []
+    for r in range(6):
+        n = int(rng.integers(0, 3_000_000))
+        cap = int(rng.integers(1, 33))
+        cases.append((f"random {r} (out-of-range ids)",
+                      rng.integers(-(2**40), 2**40, n),
+                      rng.integers(-3, cap + 3, n), cap))
+    n = 1 << 20
+    near = np.where(rng.random(n) < 0.5, 2**63 - 1 - rng.integers(0, 1000, n),
+                    -(2**63) + rng.integers(0, 1000, n))
+    cases.append(("values near +-2^63 (wrapping sums)", near,
+                  rng.integers(0, 12, n), 12))
+    cases.append(("int64 extremes, one group", np.full(4097, 2**63 - 1),
+                  np.zeros(4097, np.int64), 1))
+    cases.append(("full range, cap 32", rng.integers(-(2**63), 2**63 - 1, 500_000),
+                  rng.integers(0, 32, 500_000), 32))
+    cases.append(("no rows", np.zeros(0, np.int64), np.zeros(0, np.int64), 5))
+    return [(lbl, torch.as_tensor(v.astype(np.int64), device=dev),
+             torch.as_tensor(g.astype(np.int64), device=dev), c)
+            for lbl, v, g, c in cases]
+
+
+def _probe_cases(dev):
+    """(label, table, key, ok, sel, lo) for direct_probe: the micro-probe's
+    own shape, random tables and keys, out-of-domain, negative and
+    extreme keys, NULL keys, int32 keys and empty inputs."""
+    rng = np.random.default_rng(SEED + 3)
+    cases = []
+    # scripts/micro_probe.py: 150,000-entry table (30,000 build rows),
+    # 4 M int32 probes, every key in the domain and live
+    dom, nb, m = 150_000, 30_000, 4 << 20
+    table = np.zeros(dom, np.int32)
+    table[rng.choice(dom, size=nb, replace=False)] = np.arange(1, nb + 1, dtype=np.int32)
+    cases.append(("micro-probe shape (150,000 slots, 4 M int32 probes)", table,
+                  rng.integers(0, dom, m).astype(np.int32),
+                  np.ones(m, bool), np.ones(m, bool), 0))
+    for r in range(4):
+        dom = int(rng.integers(1, 3_000_000))
+        n = int(rng.integers(1, 4_000_000))
+        lo = int(rng.integers(-(2**40), 2**40))
+        table = np.where(rng.random(dom) < 0.3, 0,
+                         rng.integers(1, 2**31 - 1, dom)).astype(np.int32)
+        key = lo + rng.integers(-dom // 4 - 2, dom + dom // 4 + 2, n)
+        cases.append((f"random {r} (out-of-domain keys)", table, key,
+                      rng.random(n) < 0.9, rng.random(n) < 0.7, lo))
+    table = rng.integers(-5, 50, 1000).astype(np.int32)
+    key = np.concatenate([np.array([-(2**63), 2**63 - 1, -1, 0, 999, 1000, 1001]),
+                          rng.integers(-(2**63), 2**63 - 1, 5_000),
+                          rng.integers(-10, 1010, 5_000)])
+    n = key.shape[0]
+    cases.append(("extreme and negative keys, wrapping key - lo", table, key,
+                  rng.random(n) < 0.5, np.ones(n, bool), 1))
+    cases.append(("negative lo, int32 keys", rng.integers(0, 9, 77).astype(np.int32),
+                  rng.integers(-100, 0, 5000).astype(np.int32),
+                  np.ones(5000, bool), rng.random(5000) < 0.5, -60))
+    cases.append(("all keys NULL", np.arange(10, dtype=np.int32),
+                  np.arange(100), np.zeros(100, bool), np.ones(100, bool), 0))
+    cases.append(("no rows", np.arange(4, dtype=np.int32), np.zeros(0, np.int64),
+                  np.zeros(0, bool), np.zeros(0, bool), 0))
+    return [(lbl, torch.as_tensor(t, device=dev), torch.as_tensor(k, device=dev),
+             torch.as_tensor(o, device=dev), torch.as_tensor(s, device=dev), lo)
+            for lbl, t, k, o, s, lo in cases]
+
+
 def phase_kernels(dev):
     from trino_tpu_torch.ops import kernels as kn
 
@@ -182,6 +251,27 @@ def phase_kernels(dev):
         _log(f"[kernels] grouped_count {lbl}: "
              f"{'exact' if ok else 'MISMATCH'} (cap {cap}, "
              f"{flags.shape[0]} rows)")
+    for lbl, vals, gid, cap in _sum_cases(dev):
+        got = kn.grouped_sum_i64(vals, gid, cap)
+        want = kn.grouped_sum_i64_plain(vals, gid, cap)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        bad += not ok
+        _log(f"[kernels] grouped_sum_i64 {lbl}: "
+             f"{'exact' if ok else 'MISMATCH'} (cap {cap}, {vals.shape[0]} rows)")
+    for lbl, table, key, okl, sel, lo in _probe_cases(dev):
+        got = kn.direct_probe(table, key, okl, sel, lo)
+        want = kn.direct_probe_plain(table, key, okl, sel, lo)
+        torch.cuda.synchronize()
+        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if lbl.startswith("micro-probe"):
+            # the micro-probe's own check: out[i] = table[probe[i]] (its
+            # table held build row, ours build row + 1)
+            ok = ok and torch.equal(got[0], (table[key.long()] - 1).long())
+        bad += not ok
+        _log(f"[kernels] direct_probe {lbl}: "
+             f"{'exact' if ok else 'MISMATCH'} ({table.shape[0]} slots, "
+             f"{key.shape[0]} {key.dtype} probes, {int(got[1].sum())} matched)")
     if bad:
         raise AssertionError(f"{bad} kernel cases disagree with the plain versions")
 
@@ -196,6 +286,7 @@ def _queries():
     q1_cut = days_from_civil(1998, 12, 1) - 90
     q6_lo = days_from_civil(1994, 1, 1)
     q6_hi = days_from_civil(1995, 1, 1)
+    q3_cut = days_from_civil(1995, 3, 15)
     q1 = f"""
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
        sum(l_extendedprice) as sum_base_price,
@@ -216,7 +307,18 @@ where l_shipdate >= date '1994-01-01'
   and l_discount between 0.06 - 0.01 and 0.06 + 0.01
   and l_quantity < 24
 """
-    return {"Q6": q6, "Q1": q1}, (q1_cut, q6_lo, q6_hi)
+    q3 = """
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+       o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING'
+  and c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+"""
+    return {"Q6": q6, "Q1": q1, "Q3": q3}, (q1_cut, q6_lo, q6_hi, q3_cut)
 
 
 def _raw(col, i):
@@ -237,7 +339,7 @@ def _half_away(num: int, den: int) -> int:
 def check_reference(pages, cols, dicts):
     """Hold the Q6/Q1 pages against exact numpy/python arithmetic over
     the same lineitem columns (host arrays)."""
-    _, (q1_cut, q6_lo, q6_hi) = _queries()
+    _, (q1_cut, q6_lo, q6_hi, _) = _queries()
     sd = cols["l_shipdate"].astype(np.int64)
     qty = cols["l_quantity"].astype(np.int64)
     ext = cols["l_extendedprice"].astype(np.int64)
@@ -276,18 +378,91 @@ def check_reference(pages, cols, dicts):
             raise AssertionError(f"Q1 row {i}: {got} != reference {want}")
 
 
-def _scan_host_columns(session, needed):
-    """The host arrays (and dictionaries) of the session's cached lineitem
-    scan that holds every column in `needed`."""
+def check_q3(page, li, orders, cust, cdicts):
+    """Hold Q3's page against an exact reference over the host arrays:
+    joins by searchsorted, revenue = sum(ext * (100 - disc)) per orderkey
+    in int64 (at most 7 lines of at most 1.05e9 each: no wrap), top 10 by
+    revenue desc, orderdate asc.  Rows tied on both keys may come in any
+    order, so each row is checked against its own order's values and the
+    sequence of (revenue, orderdate) against the reference's."""
+    _, (_, _, _, cut) = _queries()
+    seg = list(cdicts["c_mktsegment"]).index("BUILDING")
+    building = np.sort(cust["c_custkey"][cust["c_mktsegment"] == seg])
+    ocust = orders["o_custkey"]
+    pos = np.clip(np.searchsorted(building, ocust), 0, max(len(building) - 1, 0))
+    om = (orders["o_orderdate"] < cut) & (building[pos] == ocust)
+    okey = orders["o_orderkey"][om]
+    order = np.argsort(okey)
+    okey = okey[order]
+    odate = orders["o_orderdate"][om][order]
+    oprio = orders["o_shippriority"][om][order]
+    lm = li["l_shipdate"] > cut
+    lkey = li["l_orderkey"][lm]
+    at = np.clip(np.searchsorted(okey, lkey), 0, max(len(okey) - 1, 0))
+    hit = okey[at] == lkey
+    rev = (li["l_extendedprice"][lm][hit].astype(np.int64)
+           * (100 - li["l_discount"][lm][hit].astype(np.int64)))
+    oidx = at[hit]
+    sums = np.zeros(len(okey), np.int64)
+    np.add.at(sums, oidx, rev)
+    has = np.bincount(oidx, minlength=len(okey)) > 0
+    keys, revs, dates, prios = okey[has], sums[has], odate[has], oprio[has]
+    top = np.lexsort((dates, -revs))[:10]
+    want = [(int(revs[i]), int(dates[i])) for i in top]
+    if page.count != len(want):
+        raise AssertionError(f"Q3 has {page.count} rows, reference {len(want)}")
+    by_key = {int(k): (int(r), int(d), int(p)) for k, r, d, p in
+              zip(keys, revs, dates, prios)}
+    got = []
+    for i in range(page.count):
+        k = _raw(page.columns[0], i)
+        row = (_raw(page.columns[1], i), _raw(page.columns[2], i),
+               _raw(page.columns[3], i))
+        if by_key.get(k) != row:
+            raise AssertionError(f"Q3 row {i}: order {k} {row} != reference "
+                                 f"{by_key.get(k)}")
+        got.append(row[:2])
+    if got != want:
+        raise AssertionError(f"Q3 top 10 {got} != reference {want}")
+
+
+def _scan_host_columns(session, needed, table="lineitem"):
+    """The host arrays (and dictionaries) of the session's cached scan of
+    `table` that holds every column in `needed`."""
     for key, entry in session._scan_cache.entries.items():
-        if key[1] == "lineitem" and set(needed) <= set(entry["merged"]):
+        if key[1] == table and set(needed) <= set(entry["merged"]):
             return ({c: v for c, (v, _ok) in entry["merged"].items()},
                     entry["dicts"])
-    raise AssertionError("no cached lineitem scan with the Q1 columns")
+    raise AssertionError(f"no cached {table} scan with columns {needed}")
+
+
+def check_q3_page(session, page):
+    li, _ = _scan_host_columns(session, ["l_orderkey", "l_shipdate"])
+    orders, _ = _scan_host_columns(session, ["o_custkey"], "orders")
+    cust, cdicts = _scan_host_columns(session, ["c_mktsegment"], "customer")
+    check_q3(page, li, orders, cust, cdicts)
 
 
 # ---------------------------------------------------------------------------
 # phase 3: SF1 parity across fused / unfused / plain
+
+
+# kernel wrappers each (query, megakernels mode) must launch
+SF1_WANT = {
+    ("Q6", "on"): ("fused_agg_sums",), ("Q1", "on"): ("fused_agg_sums",),
+    ("Q6", "off"): ("grouped_sum_i64",),
+    ("Q1", "off"): ("grouped_count", "grouped_sum_i64"),
+    ("Q3", "on"): ("direct_probe",), ("Q3", "off"): ("direct_probe",),
+}
+KERNEL_FNS = ("fused_agg_sums", "grouped_count", "grouped_sum_i64", "direct_probe")
+# launches each main-path run must make, per kernel (Q1 does not fuse at
+# SF10: see PERF.md; Q3 probes both of its joins)
+MAIN_WANT = {
+    ("Q6", "auto"): {"fused_agg_sums": 1},
+    ("Q1", "auto"): {"grouped_count": 1, "grouped_sum_i64": 1},
+    ("Q1", "off"): {"grouped_count": 1, "grouped_sum_i64": 1},
+    ("Q3", "auto"): {"direct_probe": 2},
+}
 
 
 def phase_sf1(dev, sf=1.0):
@@ -314,12 +489,13 @@ def phase_sf1(dev, sf=1.0):
             finally:
                 kn.fused_agg_sums = real
             torch.cuda.synchronize()
-            want = "fused_agg_sums" if mode == "on" else "grouped_count"
-            if kn.LAUNCHES[want] == 0 and not (q == "Q6" and mode == "off"):
-                raise AssertionError(f"{q} megakernels={mode}: {want} never launched")
+            for want in SF1_WANT[(q, mode)]:
+                if kn.LAUNCHES[want] == 0:
+                    raise AssertionError(f"{q} megakernels={mode}: {want} never launched")
             _log(f"[sf1] {q} megakernels={mode}: launches {dict(kn.LAUNCHES)}")
-    kernel_fns = (kn.fused_agg_sums, kn.grouped_count)
-    kn.fused_agg_sums, kn.grouped_count = kn.fused_agg_sums_plain, kn.grouped_count_plain
+    kernel_fns = {name: getattr(kn, name) for name in KERNEL_FNS}
+    for name in KERNEL_FNS:
+        setattr(kn, name, getattr(kn, f"{name}_plain"))
     try:
         kn.reset_counts()
         for mode in ("on", "off"):
@@ -329,17 +505,21 @@ def phase_sf1(dev, sf=1.0):
         if any(kn.LAUNCHES.values()):
             raise AssertionError("a kernel launched while replaced by its plain version")
     finally:
-        kn.fused_agg_sums, kn.grouped_count = kernel_fns
+        for name, fn in kernel_fns.items():
+            setattr(kn, name, fn)
     for q in qs:
         for mode in ("off", "plain-on", "plain-off"):
             convert.assert_pages_identical(pages[(q, "on")], pages[(q, mode)])
-        _log(f"[sf1] {q}: fused, unfused and plain pages byte-identical")
+        _log(f"[sf1] {q}: megakernels on, off and plain pages byte-identical")
     cols, dicts = _scan_host_columns(s, ["l_tax", "l_returnflag", "l_shipdate"])
-    check_reference({q: pages[(q, "on")] for q in qs}, cols, dicts)
-    _log("[sf1] Q6 and Q1 agree exactly with the numpy reference")
+    check_reference({q: pages[(q, "on")] for q in ("Q6", "Q1")}, cols, dicts)
+    check_q3_page(s, pages[("Q3", "on")])
+    _log("[sf1] Q6, Q1 and Q3 agree exactly with the numpy references")
     for row in pages[("Q1", "on")].to_pylist():
         _log(f"[sf1] Q1 {row}")
     _log(f"[sf1] Q6 {pages[('Q6', 'on')].to_pylist()}")
+    for row in pages[("Q3", "on")].to_pylist():
+        _log(f"[sf1] Q3 {row}")
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +566,11 @@ def phase_sf10(dev, do_profile=False):
     qs, _ = _queries()
     sf = MAIN_SF
     s = tpch_session(sf)
-    runs = [("Q6", "auto"), ("Q1", "auto"), ("Q1", "off")]
+    # the four queries' scans take ~6.44 GB of host arrays at SF10, at the
+    # edge of the default 6 GiB scan-cache budget: size the budget so the
+    # warm runs keep every scan resident instead of evicting in turn
+    s._scan_cache.max_bytes = 16 << 30
+    runs = [("Q6", "auto"), ("Q1", "auto"), ("Q1", "off"), ("Q3", "auto")]
     for q, mode in runs:  # cold: generation, upload, first run
         s.properties.set("megakernels", mode)
         t0 = time.perf_counter()
@@ -395,33 +579,56 @@ def phase_sf10(dev, do_profile=False):
         _log(f"[sf{sf:g}] cold {q} megakernels={mode}: "
              f"{time.perf_counter() - t0:.3f} s")
     recorded = {}
-    real = (kn.fused_agg_sums, kn.grouped_count)
+    real = {name: getattr(kn, name) for name in KERNEL_FNS}
 
     def rec_fused(cols, live, prog, groups):
         recorded[("fused", len(prog.terms))] = (cols, live, prog, groups)
-        return real[0](cols, live, prog, groups)
+        return real["fused_agg_sums"](cols, live, prog, groups)
 
     def rec_count(flags, gid, cap):
         recorded["count"] = (flags, gid, cap)
-        return real[1](flags, gid, cap)
+        return real["grouped_count"](flags, gid, cap)
 
-    kn.fused_agg_sums, kn.grouped_count = rec_fused, rec_count
+    def rec_sum(values, gid, cap):
+        # the largest call: one of Q1-off's full-table segment sums
+        prev = recorded.get("sum")
+        if prev is None or values.shape[0] >= prev[0].shape[0]:
+            recorded["sum"] = (values, gid, cap)
+        return real["grouped_sum_i64"](values, gid, cap)
+
+    def rec_probe(table, key, ok, sel, lo):
+        # Q3's two joins, told apart by their table: orderkey and custkey
+        recorded[("probe", table.shape[0])] = (table, key, ok, sel, lo)
+        return real["direct_probe"](table, key, ok, sel, lo)
+
+    shims = {"fused_agg_sums": rec_fused, "grouped_count": rec_count,
+             "grouped_sum_i64": rec_sum, "direct_probe": rec_probe}
+    for name, fn in shims.items():
+        setattr(kn, name, fn)
     walls = {r: [] for r in runs}
+    per_run = {r: dict.fromkeys(KERNEL_FNS, 0) for r in runs}
     pages = {}
     try:
+        torch.cuda.reset_peak_memory_stats()
         kn.reset_counts()  # the main path starts here
         for _ in range(MAIN_REPS):
             for q, mode in runs:
                 s.properties.set("megakernels", mode)
+                before = dict(kn.LAUNCHES)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 pages[(q, mode)] = s.execute(qs[q])
                 torch.cuda.synchronize()
                 walls[(q, mode)].append(time.perf_counter() - t0)
+                for name in KERNEL_FNS:
+                    per_run[(q, mode)][name] += kn.LAUNCHES[name] - before[name]
         launches = dict(kn.LAUNCHES)  # ... and ends here
     finally:
-        kn.fused_agg_sums, kn.grouped_count = real
+        for name, fn in real.items():
+            setattr(kn, name, fn)
     _log(f"[sf{sf:g}] main path launches: {launches}")
+    for (q, mode), n in per_run.items():
+        _log(f"[sf{sf:g}]   {q} megakernels={mode} over {MAIN_REPS} runs: {n}")
     for (q, mode), w in walls.items():
         _log(f"[sf{sf:g}] warm {q} megakernels={mode}: median "
              f"{statistics.median(w) * 1e3:.3f} ms over {len(w)} runs "
@@ -429,14 +636,31 @@ def phase_sf10(dev, do_profile=False):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} never launched on the main path")
+    for path, want in MAIN_WANT.items():
+        for name, per in want.items():
+            if per_run[path][name] < per * MAIN_REPS:
+                raise AssertionError(f"{path}: {name} launched {per_run[path][name]} "
+                                     f"times in {MAIN_REPS} runs, want >= {per} a run")
     convert.assert_pages_identical(pages[("Q1", "auto")], pages[("Q1", "off")])
     cols, dicts = _scan_host_columns(s, ["l_tax", "l_returnflag", "l_shipdate"])
     check_reference({"Q6": pages[("Q6", "auto")], "Q1": pages[("Q1", "auto")]},
                     cols, dicts)
-    _log(f"[sf{sf:g}] Q6/Q1 agree exactly with the numpy reference; "
+    check_q3_page(s, pages[("Q3", "auto")])
+    _log(f"[sf{sf:g}] Q6/Q1/Q3 agree exactly with the numpy references; "
          f"Q1 fused and unfused pages byte-identical")
-    _log(f"[sf{sf:g}] peak device memory "
+    for row in pages[("Q3", "auto")].to_pylist():
+        _log(f"[sf{sf:g}] Q3 {row}")
+    _log(f"[sf{sf:g}] peak device memory over the warm main path "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s.execute(qs["Q3"])
+    torch.cuda.synchronize()
+    _log(f"[sf{sf:g}] Q3 alone: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of which "
+         f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above "
+         f"the resident scans ({base / 2**30:.2f} GiB)")
     MAIN.update(launches=launches, recorded=recorded, walls=walls)
     if do_profile:
         for q, mode in runs:
@@ -480,31 +704,84 @@ def _fused_work(cols, live, prog, groups):
     return nbytes, ops
 
 
+def _row(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
+    """One kernel's entry of the kernels line; the bound is the larger of
+    bytes over the memory rate and operations over the 32-bit rate."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / VECTOR_OPS_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda",
+        "source": kn.KERNEL_REGISTRY[name]["source"],
+        "replaces": kn.KERNEL_REGISTRY[name]["replaces"],
+        "launches": launches[name], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def _time_sum(dev, values, gid, cap, launches):
+    """grouped_sum_i64 at a main-path shape: bytes = 8-byte value + 8-byte
+    id a row read, cap sums written; one add a row."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    got = kn.grouped_sum_i64(values, gid, cap)
+    want = kn.grouped_sum_i64_plain(values, gid, cap)
+    err = int((got - want).abs().max())
+    n = values.shape[0]
+    return _row(
+        "grouped_sum_i64", launches, err,
+        _time_ms(lambda: kn.grouped_sum_i64(values, gid, cap), 15),
+        _time_ms(lambda: kn.grouped_sum_i64_plain(values, gid, cap), 5),
+        n * 16 + cap * 8, n,
+        _time_ms(lambda: torch.zeros(cap, dtype=torch.int64, device=dev)
+                 .index_add_(0, gid, values), 15),
+    )
+
+
+def _time_probe(table, key, ok, sel, lo, launches):
+    """direct_probe at a main-path shape: bytes = key, ok and sel read and
+    row and matched written per probe row, the table read once; about ten
+    integer operations a row (subtract, two compares, clip, three ands,
+    decrement)."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    got = kn.direct_probe(table, key, ok, sel, lo)
+    want = kn.direct_probe_plain(table, key, ok, sel, lo)
+    err = max(int((got[0] - want[0]).abs().max()) if key.numel() else 0,
+              int((got[1] != want[1]).sum()))
+    n, dom = key.shape[0], table.shape[0]
+    idx = torch.clamp(key.to(torch.int64) - lo, 0, dom - 1)
+    return _row(
+        "direct_probe", launches, err,
+        _time_ms(lambda: kn.direct_probe(table, key, ok, sel, lo), 15),
+        _time_ms(lambda: kn.direct_probe_plain(table, key, ok, sel, lo), 5),
+        n * (key.element_size() + 1 + 1 + 8 + 1) + dom * 4, 10 * n,
+        _time_ms(lambda: table[idx], 15),
+    )
+
+
 def phase_timing(dev):
     from trino_tpu_torch.ops import kernels as kn
 
     rec = MAIN["recorded"]
     launches = MAIN["launches"]
     rows = []
-    fused_keys = sorted(k for k in rec if k != "count")
+    fused_keys = sorted(k for k in rec if isinstance(k, tuple) and k[0] == "fused")
     for key in fused_keys:
         cols, live, prog, groups = rec[key]
         got = kn.fused_agg_sums(cols, live, prog, groups)
         want = kn.fused_agg_sums_plain(cols, live, prog, groups)
         err = int((got - want).abs().max())
         nbytes, ops = _fused_work(cols, live, prog, groups)
-        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / VECTOR_OPS_PER_S * 1e3
-        row = {
-            "name": "fused_agg_sums", "route": "cuda",
-            "source": kn.KERNEL_REGISTRY["fused_agg_sums"]["source"],
-            "replaces": kn.KERNEL_REGISTRY["fused_agg_sums"]["replaces"],
-            "launches": launches["fused_agg_sums"], "max_abs_err": err,
-            "ms": _time_ms(lambda: kn.fused_agg_sums(cols, live, prog, groups), 15),
-            "plain_ms": _time_ms(lambda: kn.fused_agg_sums_plain(cols, live, prog, groups), 5),
-            "bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": None,
-        }
+        row = _row(
+            "fused_agg_sums", launches, err,
+            _time_ms(lambda: kn.fused_agg_sums(cols, live, prog, groups), 15),
+            _time_ms(lambda: kn.fused_agg_sums_plain(cols, live, prog, groups), 5),
+            nbytes, ops, None,
+        )
         _log(f"[timing] fused_agg_sums {len(prog.terms)} terms x {groups} groups, "
              f"{live.shape[0]} rows, {nbytes} bytes, {ops} ops: {json.dumps(row)}")
         rows.append(row)
@@ -521,29 +798,39 @@ def phase_timing(dev):
     want = kn.grouped_count_plain(flags, gid, cap)
     err = int((got - want).abs().max())
     n = flags.shape[0]
-    nbytes, ops = n * (flags.element_size() + 8) + cap * 8, int(flags.sum())
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / VECTOR_OPS_PER_S * 1e3
-    row = {
-        "name": "grouped_count", "route": "cuda",
-        "source": kn.KERNEL_REGISTRY["grouped_count"]["source"],
-        "replaces": kn.KERNEL_REGISTRY["grouped_count"]["replaces"],
-        "launches": launches["grouped_count"], "max_abs_err": err,
-        "ms": _time_ms(lambda: kn.grouped_count(flags, gid, cap), 15),
-        "plain_ms": _time_ms(lambda: kn.grouped_count_plain(flags, gid, cap), 5),
-        "bound_ms": max(b_ms, o_ms),
-        "bound_by": "bytes" if b_ms >= o_ms else "operations",
-        "library_ms": _time_ms(lambda: torch.zeros(cap, dtype=torch.int64, device=dev)
-                               .index_add_(0, gid, flags.long()), 15),
-    }
+    row = _row(
+        "grouped_count", launches, err,
+        _time_ms(lambda: kn.grouped_count(flags, gid, cap), 15),
+        _time_ms(lambda: kn.grouped_count_plain(flags, gid, cap), 5),
+        n * (flags.element_size() + 8) + cap * 8, int(flags.sum()),
+        _time_ms(lambda: torch.zeros(cap, dtype=torch.int64, device=dev)
+                 .index_add_(0, gid, flags.long()), 15),
+    )
     _log(f"[timing] grouped_count cap {cap}, {n} rows: {json.dumps(row)}")
     rows.append(row)
+    line = [rows[-2], rows[-1]]
+    values, gid, cap = rec["sum"]
+    row = _time_sum(dev, values, gid, cap, launches)
+    _log(f"[timing] grouped_sum_i64 cap {cap}, {values.shape[0]} rows: "
+         f"{json.dumps(row)}")
+    rows.append(row)
+    line.append(row)
+    probes = sorted(k for k in rec if isinstance(k, tuple) and k[0] == "probe")
+    for key in probes:  # custkey join first, then orderkey
+        table, pkey, ok, sel, lo = rec[key]
+        row = _time_probe(table, pkey, ok, sel, lo, launches)
+        _log(f"[timing] direct_probe {table.shape[0]} slots, {pkey.shape[0]} "
+             f"{pkey.dtype} probes, {int(sel.sum())} selected: {json.dumps(row)}")
+        rows.append(row)
+    line.append(rows[-1])
     bad = [r for r in rows if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels disagree with plain at main-path shapes: {bad}")
     # one row per kernel in the result line.  The fused row is Q6's SF10
     # call (3 terms x 1 group): at SF10 Q1 is refused by the fusion proof
-    # (SUM_GATE) and runs unfused, so Q1's fused shape is timed at SF1 only
-    MAIN["kernels"] = [rows[-2], rows[-1]]
+    # (SUM_GATE) and runs unfused, so Q1's fused shape is timed at SF1 only.
+    # The direct_probe row is Q3's orderkey join, the larger of its two
+    MAIN["kernels"] = line
     MAIN["all_rows"] = rows
 
 

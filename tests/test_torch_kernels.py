@@ -1,5 +1,6 @@
 """The port's kernels (trino_tpu_torch/ops/kernels.py) against the JAX
-package's Pallas kernels.
+package's Pallas kernels (the direct probe's parity tests are in
+tests/test_torch_join.py).
 
 On the CPU each wrapper runs its plain PyTorch version; the JAX side
 runs its Pallas kernel in interpret mode, as its own tests do.  Inputs
@@ -143,6 +144,50 @@ def test_grouped_count_plain_matches_jax_interpret(n, groups, lo, hi):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("n,groups,lo,hi,vmag", [
+    (100_000, 12, 0, 12, 2**40),      # Q1's capacity, ordinary magnitudes
+    (50_000, 9, -3, 14, 2**40),       # out-of-range ids are skipped
+    (70_000, 32, 0, 32, 2**63),       # full int64 range: the sums wrap
+    (4096, 1, 0, 1, 2**63),           # one group of int64 extremes
+])
+def test_grouped_sum_i64_plain_matches_jax_interpret(n, groups, lo, hi, vmag):
+    rng = np.random.default_rng(n + groups)
+    vals = rng.integers(-vmag, vmag - 1, n, dtype=np.int64)
+    if groups == 1:
+        vals[:] = np.where(rng.random(n) < 0.5, 2**63 - 1, -(2**63))
+    gid = rng.integers(lo, hi, n)
+    got = kn.grouped_sum_i64(torch.as_tensor(vals), torch.as_tensor(gid), groups)
+    want = np.asarray(jpk.grouped_sum_i64(
+        jnp.asarray(vals), jnp.asarray(gid), groups, interpret=True
+    ))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_seg_sum_routes_small_int64_sums_to_the_kernel(monkeypatch):
+    """_seg_sum sends 1-D int64 sums at capacities <= 32 to
+    grouped_sum_i64; floats and larger capacities stay segment sums."""
+    from trino_tpu_torch.ops import aggregation as tagg
+
+    calls = []
+
+    def shim(v, g, cap):
+        calls.append(cap)
+        return kn.grouped_sum_i64_plain(v, g, cap)
+
+    monkeypatch.setattr(kn, "grouped_sum_i64", shim)
+    rng = np.random.default_rng(2)
+    g = torch.as_tensor(rng.integers(0, 40, 1000))
+    v = torch.as_tensor(rng.integers(-(2**62), 2**62, 1000))
+    small = g % 12
+    want = torch.zeros(12, dtype=torch.int64).index_add_(0, small, v)
+    assert torch.equal(tagg._seg_sum(v, small, 12), want)
+    assert calls == [12]
+    tagg._seg_sum(v, g, 40)
+    tagg._seg_sum(v.double(), small, 12)
+    assert calls == [12]
+
+
 def test_seg_count_gate_mirrors_capacity_bound():
     v = torch.zeros(10, dtype=torch.bool)
     g = torch.zeros(10, dtype=torch.int64)
@@ -163,6 +208,12 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         kn.grouped_count(torch.ones(3, dtype=torch.bool),
                          torch.zeros(4, dtype=torch.int64), 2)
+    with pytest.raises(ValueError):  # capacity above the shared table
+        kn.grouped_sum_i64(torch.zeros(3, dtype=torch.int64),
+                           torch.zeros(3, dtype=torch.int64), kn.MAX_GROUPS + 1)
+    with pytest.raises(ValueError):
+        kn.grouped_sum_i64(torch.zeros(3, dtype=torch.int64),
+                           torch.zeros(4, dtype=torch.int64), 2)
 
 
 @pytest.mark.cuda
@@ -181,3 +232,11 @@ def test_kernels_match_plain_on_the_card():
     gid = torch.as_tensor(rng.integers(-2, 14, 100_000), device=dev)
     assert torch.equal(kn.grouped_count(flags, gid, 12),
                        kn.grouped_count_plain(flags, gid, 12))
+    vals = torch.as_tensor(rng.integers(-(2**63), 2**63 - 1, 100_000), device=dev)
+    assert torch.equal(kn.grouped_sum_i64(vals, gid, 12),
+                       kn.grouped_sum_i64_plain(vals, gid, 12))
+    table = torch.as_tensor(rng.integers(0, 5000, 150_000).astype(np.int32), device=dev)
+    key = torch.as_tensor(rng.integers(-10, 150_010, 100_000), device=dev)
+    got = kn.direct_probe(table, key, flags, flags, 0)
+    want = kn.direct_probe_plain(table, key, flags, flags, 0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

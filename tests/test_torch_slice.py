@@ -1,8 +1,9 @@
-"""The port's TPC-H Q6/Q1 slice against the JAX package, end to end.
+"""The port's TPC-H Q6/Q1/Q3 slice against the JAX package, end to end.
 
 Both engines run the same SQL text (tests/tpch_sql.py) over the same
 generated data through their own `tpch_session`, with the fused
-megakernel on and off; the output pages must be byte-identical
+megakernel on and off (and Q3 with its direct-address joins on and
+off); the output pages must be byte-identical
 (trino_tpu_torch/convert.py) and agree with the sqlite oracle.  The
 port runs on the CPU (device="cpu"), i.e. with its kernels' plain
 versions.
@@ -19,10 +20,11 @@ from oracle import assert_rows_match, load_tpch
 from tpch_sql import QUERIES, oracle_dialect
 from trino_tpu.session import tpch_session as jax_session
 from trino_tpu_torch import convert
+from trino_tpu_torch.ops import kernels as kn
 from trino_tpu_torch.session import tpch_session as torch_session
 
 SF = 0.002
-Q = {"q6": QUERIES[6][0], "q1": QUERIES[1][0]}
+Q = {"q6": QUERIES[6][0], "q1": QUERIES[1][0], "q3": QUERIES[3][0]}
 PROFILE_KEYS = ("fusedAggregates", "fusedTerms", "fusionRejects",
                 "lastFusionReject")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +42,7 @@ def sessions():
 @pytest.fixture(scope="module")
 def oracle_conn():
     conn = sqlite3.connect(":memory:")
-    load_tpch(conn, SF, ["lineitem"])
+    load_tpch(conn, SF, ["lineitem", "orders", "customer"])
     return conn
 
 
@@ -86,6 +88,63 @@ def test_non_fusable_query_rejects_on_both_sides(sessions, sql):
 def test_explain_matches_reference_plan(sessions):
     js, ts = sessions["off"]
     assert js.explain(Q["q1"]) == ts.explain(Q["q1"])
+
+
+@pytest.mark.parametrize("direct", [True, False])
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_q3_pages_byte_identical_and_match_oracle(oracle_conn, mode, direct):
+    """Q3: two joins (direct-address, or the sorted unique kernel when
+    direct_address_joins is off), hash-sort grouping by l_orderkey with
+    two arbitrary() riders, and a top-N."""
+    js = jax_session(SF, megakernels=mode, result_cache=False,
+                     direct_address_joins=direct)
+    ts = torch_session(SF, device="cpu", megakernels=mode,
+                       direct_address_joins=direct)
+    a = js.execute(Q["q3"])
+    b = ts.execute(Q["q3"])
+    convert.assert_pages_identical(a, b)
+    assert b.count == 10
+    expected = oracle_conn.execute(oracle_dialect(Q["q3"])).fetchall()
+    assert_rows_match(b.to_pylist(), expected, tol=2e-2, ordered=True)
+    jp, tp = js.last_kernel_profile, ts.last_kernel_profile
+    assert {k: jp.get(k) for k in PROFILE_KEYS} == {
+        k: tp.get(k) for k in PROFILE_KEYS}
+    assert tp.get("fusedAggregates") is None  # grouped by a bigint key
+    assert ("direct=[" in ts.explain(Q["q3"])) == direct
+
+
+def test_explain_matches_reference_plan_q3(sessions):
+    js, ts = sessions["off"]
+    assert js.explain(Q["q3"]) == ts.explain(Q["q3"])
+
+
+def _counting(monkeypatch, name):
+    """Replace a kernel wrapper by a shim that counts its calls and runs
+    the plain version (the CPU wrappers do not count launches)."""
+    calls = []
+    plain = getattr(kn, f"{name}_plain")
+
+    def shim(*args):
+        calls.append(args)
+        return plain(*args)
+
+    monkeypatch.setattr(kn, name, shim)
+    return calls
+
+
+def test_q3_probes_both_joins_through_the_direct_probe(monkeypatch):
+    calls = _counting(monkeypatch, "direct_probe")
+    torch_session(SF, device="cpu").execute(Q["q3"])
+    assert len(calls) == 2
+    # the orderkey join probes lineitem's int64 keys against a table
+    # spanning the orderkey domain
+    assert max(c[0].shape[0] for c in calls) >= 11_983
+
+
+def test_q1_unfused_sums_through_grouped_sum_i64(monkeypatch):
+    calls = _counting(monkeypatch, "grouped_sum_i64")
+    torch_session(SF, device="cpu", megakernels="off").execute(Q["q1"])
+    assert calls and {c[2] for c in calls} == {12}
 
 
 def test_megakernels_auto_is_off_on_the_cpu():

@@ -1,18 +1,19 @@
 """Group-by aggregation on PyTorch tensors.
 
-Counterpart of trino_tpu/ops/aggregation.py, for the subset TPC-H Q1/Q6
-reach: the direct (mixed-radix dictionary/boolean key) grouping and the
-count / count_if / sum / avg / min / max accumulators, with the exact
-decimal(38) chunked sums of ops/wide_decimal.  Segment reductions are
-``index_add_`` (sums) and ``scatter_reduce`` (min/max); per-group counts
-at small capacities go through the grouped-count kernel
-(ops/kernels.seg_count_maybe).  The TPU-only masked one-hot reductions
-are gone: CUDA has native atomics.
+Counterpart of trino_tpu/ops/aggregation.py, for the subset TPC-H
+Q1/Q3/Q6 reach: the direct (mixed-radix dictionary/boolean key)
+grouping, the hash-sort grouping of high-cardinality keys
+(sort_group_ids + SortedSegments) and the count / count_if / sum / avg /
+min / max / arbitrary accumulators, with the exact decimal(38) chunked
+sums of ops/wide_decimal.  Segment reductions at small capacities go
+through the CUDA kernels (counts: ops/kernels.seg_count_maybe; int64
+sums: ops/kernels.grouped_sum_i64), the others are ``index_add_`` (sums)
+and ``scatter_reduce`` (min/max).  The TPU-only masked one-hot
+reductions are gone: CUDA has native atomics.
 
-Not in this slice (NotImplementedError): hash-sort grouping of
-high-cardinality keys, DISTINCT aggregates, moments, bitwise, checksum,
-arbitrary, min_by/max_by, sketches, host-staged aggregates and the
-PARTIAL/FINAL accumulator merge.
+Not in this slice (NotImplementedError): DISTINCT aggregates, moments,
+bitwise, checksum, min_by/max_by, sketches, host-staged aggregates and
+the PARTIAL/FINAL accumulator merge.
 
 NULL semantics: a NULL key is its own group (the validity bit is an
 extra radix slot); sum/min/max ignore NULL inputs and return NULL for
@@ -28,6 +29,7 @@ import torch
 from .. import types as T
 from ..expr.lower import Lane
 from . import kernels
+from .int128 import SIGN64, as_i64, srl
 
 I64_MAX = 2**62
 
@@ -110,7 +112,7 @@ class AggSpec:
         if self.kind == "sum" and self._wide_sum:
             return [f"{o}$c0", f"{o}$c1", f"{o}$c2", f"{o}$c3",
                     f"{o}$valid"]
-        if self.kind in ("sum", "min", "max"):
+        if self.kind in ("sum", "min", "max", "arbitrary"):
             return [f"{o}$val", f"{o}$valid"]
         if self.kind in ("count", "count_star", "count_if"):
             return [f"{o}$count"]
@@ -135,7 +137,175 @@ def direct_group_ids(
     return gid, cap
 
 
+# uint64 hash constants as the int64 values with the same bits
+_GOLDEN = as_i64(0x9E3779B97F4A7C15)
+_SALT_C = as_i64(0x632BE59BD9B4E019)
+_DBL_MIN = 2.2250738585072014e-308  # smallest normal double
+
+
+def f64_order_bits(v: torch.Tensor) -> torch.Tensor:
+    """The JAX package's order-preserving uint64 code of doubles (held
+    in int64): the IEEE-754 bit pattern of |v| (subnormals and -0 as 0,
+    one NaN above +inf), sign folded in by the radix-sortable transform.
+    The JAX package rebuilds the pattern arithmetically (no f64 bitcast
+    on its TPU); here it is a bit view, with the same result."""
+    v = v.to(torch.float64)
+    av = torch.abs(v)
+    bits = av.contiguous().view(torch.int64)
+    bits = torch.where(av < _DBL_MIN, 0, bits)
+    bits = torch.where(torch.isinf(av), 0x7FF0000000000000, bits)
+    bits = torch.where(torch.isnan(v), 0x7FF8000000000000, bits)
+    # XLA flushes subnormals in comparisons (both of the JAX package's
+    # backends), so a negative subnormal is not negative there
+    neg = v <= -_DBL_MIN
+    pattern = bits | torch.where(neg, SIGN64, 0)
+    return torch.where(neg, ~pattern, pattern | SIGN64)
+
+
+def _key_bits(v: torch.Tensor) -> torch.Tensor:
+    """Key column as uint64 bit material (held in int64): floats get the
+    injective order-preserving encoding, integers their two's-complement
+    bits."""
+    if v.is_floating_point():
+        return f64_order_bits(v)
+    return v.to(torch.int64)
+
+
+def _key_bit_lanes(v: torch.Tensor):
+    """Key column as one or two uint64 bit-material lanes (wide decimals
+    contribute each limb as its own hashing/verification round)."""
+    if v.dim() == 2:
+        return [v[:, 0].to(torch.int64), v[:, 1].to(torch.int64)]
+    return [_key_bits(v)]
+
+
+def _group_hash(key_lanes: Sequence[Lane], salt: int) -> torch.Tensor:
+    """Salted 64-bit key-tuple locator, bit-identical to the JAX
+    package's (uint64 arithmetic in int64: multiply/add wrap alike, the
+    right shift is logical, mod 2^61 keeps the low 61 bits).  The NULL
+    flag is mixed as its own round, so a salt change re-randomizes every
+    collision."""
+    n = key_lanes[0][0].shape[0]
+    dev = key_lanes[0][0].device
+    h = torch.full((n,), as_i64((salt * 2 + 1) * 0x9E3779B97F4A7C15),
+                   dtype=torch.int64, device=dev)
+    for v, ok in key_lanes:
+        h = h * _GOLDEN + ok.to(torch.int64) + _SALT_C
+        h = h ^ srl(h, 31)
+        for bits in _key_bit_lanes(v):
+            h = h * _GOLDEN + torch.where(ok, bits, 0)
+            h = h ^ srl(h, 29)
+    return h & (2**61 - 1)
+
+
+def sort_group_ids(
+    key_lanes: Sequence[Lane],
+    sel: torch.Tensor,
+    capacity: int,
+    salt: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hash-sort grouping: returns (perm, gid_sorted, ngroups, collisions).
+
+    Rows sort (stably) by one salted 64-bit locator of the key tuple, so
+    equal keys are adjacent and unselected rows last; gid_sorted[i] is
+    the group id of sorted row i (unselected rows get capacity-1 and are
+    excluded by weight later).  Adjacent rows of one hash run are
+    verified equal on the real key columns: `collisions` counts the
+    mismatches, and the executor re-runs under a fresh salt when it is
+    ever nonzero, so grouping is exact."""
+    n = key_lanes[0][0].shape[0]
+    dev = key_lanes[0][0].device
+    hk = _group_hash(key_lanes, salt)
+    key = torch.where(sel, hk, 2**61)  # dead rows sort last
+    sorted_key, perm = torch.sort(key, stable=True)
+    sel_sorted = sorted_key < 2**61
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    diff = torch.cat([one, sorted_key[1:] != sorted_key[:-1]])[:n]
+    boundary = diff & sel_sorted
+    # exact adjacent verification (PagesHashStrategy positionEquals analog)
+    prev = torch.cat([perm[:1], perm[:-1]])
+    same_run = (~diff) & sel_sorted
+    all_eq = torch.ones(n, dtype=torch.bool, device=dev)
+    for v, ok in key_lanes:
+        okp, okq = ok[perm], ok[prev]
+        vals_eq = torch.ones(n, dtype=torch.bool, device=dev)
+        for bits in _key_bit_lanes(v):
+            vals_eq = vals_eq & (bits[perm] == bits[prev])
+        lane_eq = (okp == okq) & (~okp | vals_eq)
+        all_eq = all_eq & lane_eq
+    collisions = torch.sum(same_run & ~all_eq)
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    ngroups = boundary.sum()
+    gid = torch.where(sel_sorted, torch.clamp(gid, 0, capacity - 1), capacity - 1)
+    return perm, gid, ngroups, collisions
+
+
+class SortedSegments:
+    """Grouped reductions over a SORTED gid lane (the hash-sort grouping
+    path: rows arrive permuted so equal groups are adjacent, gid
+    non-decreasing): each group's [start, end) row range from two ranks
+    of arange(cap) among the gids, then sums and counts as differences
+    of one prefix sum, and min/max as the extreme of the run that ends at
+    the group's last row, as the JAX package's segmented scan reads it."""
+
+    def __init__(self, gid: torch.Tensor, cap: int):
+        from .join import merge_rank
+
+        self.gid = gid
+        self.cap = cap
+        self.n = gid.shape[0]
+        probe = torch.arange(cap, dtype=torch.int64, device=gid.device)
+        self.starts = merge_rank(gid, probe, side="left")
+        self.ends = merge_rank(gid, probe, side="right")
+        self.counts_all = self.ends - self.starts  # incl. non-live rows
+
+    def _range_diff(self, cs: torch.Tensor) -> torch.Tensor:
+        """cs = inclusive prefix over rows -> per-group range totals."""
+        cs0 = torch.cat([torch.zeros(1, dtype=cs.dtype, device=cs.device), cs])
+        return cs0[self.ends] - cs0[self.starts]
+
+    def sum(self, v: torch.Tensor) -> torch.Tensor:
+        return self._range_diff(torch.cumsum(v, 0))
+
+    def count(self, mask: torch.Tensor) -> torch.Tensor:
+        return self._range_diff(torch.cumsum(mask.to(torch.int64), 0))
+
+    def _scan_extreme(self, v: torch.Tensor, take_min: bool) -> torch.Tensor:
+        """The JAX package's segmented running extreme read at each
+        group's last row ends-1 (clipped to row 0: an empty group reads
+        the previous run's extreme, or row 0 itself when none precedes
+        it).  The running extreme at a run's last row is the run's
+        extreme, so one scatter over run ids gives it."""
+        if self.n == 0:
+            return torch.zeros(self.cap, dtype=v.dtype, device=v.device)
+        g = self.gid
+        one = torch.ones(1, dtype=torch.bool, device=g.device)
+        boundary = torch.cat([one, g[1:] != g[:-1]])
+        run = torch.cumsum(boundary.to(torch.int64), 0) - 1
+        nruns = int(run[-1]) + 1
+        if v.is_floating_point():
+            sent = float("inf") if take_min else float("-inf")
+        else:
+            info = torch.iinfo(v.dtype)
+            sent = info.max if take_min else info.min
+        ext = torch.full((nruns,), sent, dtype=v.dtype, device=v.device)
+        ext = ext.scatter_reduce(0, run, v, "amin" if take_min else "amax")
+        last = self.ends - 1
+        safe = torch.clamp(last, 0, self.n - 1)
+        return torch.where(last >= 0, ext[run[safe]], v[0])
+
+    def min(self, v: torch.Tensor) -> torch.Tensor:
+        return self._scan_extreme(v, True)
+
+    def max(self, v: torch.Tensor) -> torch.Tensor:
+        return self._scan_extreme(v, False)
+
+
 def _seg_sum(v: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-group sum: the grouped int64 sum kernel for 1-D int64 values
+    at small capacities (ops/kernels), else a segment sum."""
+    if v.dtype == torch.int64 and v.dim() == 1 and cap <= kernels.MAX_GROUPS:
+        return kernels.grouped_sum_i64(v, gid.to(torch.int64), cap)
     out = torch.zeros((cap,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
     return out.index_add_(0, gid, v)
 
@@ -183,26 +353,42 @@ def accumulate(
 
     wide_flags/force_wide drive the decimal(38) sum fast path as in the
     JAX package: one int64 segment sum plus a shadow overflow flag, and
-    the chunked 128-bit sums when the executor's retry forces them."""
-    if seg is not None:
-        raise _not_in_slice("sorted-segment grouping")
+    the chunked 128-bit sums when the executor's retry forces them.
+    With `seg` (SortedSegments over a sorted gid) integer sums, counts
+    and min/max run as sorted-run reductions, as in the JAX package."""
     out: Dict[str, torch.Tensor] = {}
     cap = capacity
+
+    def seg_cnt(mask):
+        if seg is not None:
+            return seg.count(mask)
+        return _seg_count(mask, gid, cap)
+
+    def seg_isum(vv):
+        if seg is not None and not vv.is_floating_point():
+            return seg.sum(vv)
+        return _seg_sum(vv, gid, cap)
+
+    def seg_ext(vv, take_min):
+        if seg is not None and not vv.is_floating_point():
+            return seg.min(vv) if take_min else seg.max(vv)
+        return _seg_extreme(vv, gid, cap, take_min)
+
     for s in specs:
         o = s.output
         if getattr(s, "distinct", False):
             raise _not_in_slice(f"{s.kind}(DISTINCT)")
         if s.kind == "count_star":
-            out[f"{o}$count"] = _seg_count(sel, gid, cap)
+            out[f"{o}$count"] = seg_cnt(sel)
             continue
         v, ok = lanes[s.input]
         live = sel & ok
         if s.kind == "count":
-            out[f"{o}$count"] = _seg_count(live, gid, cap)
+            out[f"{o}$count"] = seg_cnt(live)
         elif s.kind == "count_if":
-            out[f"{o}$count"] = _seg_count(live & v.to(torch.bool), gid, cap)
+            out[f"{o}$count"] = seg_cnt(live & v.to(torch.bool))
         elif s.kind in ("sum", "avg"):
-            cnt = _seg_count(live, gid, cap)
+            cnt = seg_cnt(live)
             if s._wide_sum:
                 from . import wide_decimal as wd
 
@@ -215,7 +401,7 @@ def accumulate(
                     cs = wd.seg_sum_chunks(chunks, gid, cap)
                 else:
                     vv = torch.where(live, v.to(torch.int64), 0)
-                    ssum = _seg_sum(vv, gid, cap)
+                    ssum = seg_isum(vv)
                     if wide_flags is not None and _sum_could_overflow(
                         v.shape[0], s.input_type
                     ):
@@ -232,7 +418,7 @@ def accumulate(
                 vv = torch.where(live, v, 0.0)
             else:
                 vv = torch.where(live, v.to(torch.int64), 0)
-            ssum = _seg_sum(vv, gid, cap)
+            ssum = seg_isum(vv)
             if (
                 not v.is_floating_point()
                 and overflow_flags is not None
@@ -254,8 +440,21 @@ def accumulate(
             else:
                 sentinel = I64_MAX if s.kind == "min" else -I64_MAX
                 vv = torch.where(live, v.to(torch.int64), sentinel)
-            out[f"{o}$val"] = _seg_extreme(vv, gid, cap, s.kind == "min")
-            out[f"{o}$valid"] = _seg_count(live, gid, cap)
+            out[f"{o}$val"] = seg_ext(vv, s.kind == "min")
+            out[f"{o}$valid"] = seg_cnt(live)
+        elif s.kind == "arbitrary":
+            # the first live row of each group, in the caller's row order
+            n = gid.shape[0]
+            idx = torch.arange(n, dtype=torch.int64, device=gid.device)
+            ridx = _seg_min(torch.where(live, idx, n), gid, cap)
+            has = ridx < n
+            safe = torch.clamp(ridx, 0, max(n - 1, 0))
+            val = v[safe] if n else torch.zeros((cap,) + tuple(v.shape[1:]),
+                                                dtype=v.dtype, device=v.device)
+            out[f"{o}$val"] = torch.where(
+                has.reshape((cap,) + (1,) * (val.dim() - 1)), val,
+                torch.zeros_like(val))
+            out[f"{o}$valid"] = has.to(torch.int64)
         else:
             raise _not_in_slice(f"aggregate {s.kind}")
     return out
@@ -283,6 +482,8 @@ def finalize(
             v = accs[f"{o}$val"]
             has = accs[f"{o}$valid"] > 0
             out[o] = (torch.where(has, v, torch.zeros_like(v)), has)
+        elif s.kind == "arbitrary":
+            out[o] = (accs[f"{o}$val"], accs[f"{o}$valid"] > 0)
         elif s.kind == "avg":
             if s._wide_sum:
                 from . import wide_decimal as wd
@@ -323,9 +524,16 @@ def group_keys_output(
     gid: torch.Tensor,
     sel: torch.Tensor,
     capacity: int,
+    starts: Optional[torch.Tensor] = None,
 ) -> List[Lane]:
-    """Representative key values per group id (first selected row)."""
+    """Representative key values per group id (first selected row).
+    With `starts` (sorted-gid run starts from SortedSegments), the
+    representative is the run-head row — no segment pass."""
     n = gid.shape[0]
+    if starts is not None:
+        present = starts < n
+        safe = torch.clamp(starts, 0, max(n - 1, 0))
+        return [(v[safe], ok[safe] & present & sel[safe]) for v, ok in key_lanes]
     idx = torch.arange(n, dtype=torch.int64, device=gid.device)
     first = _seg_min(torch.where(sel, idx, n), gid, capacity)
     present = first < n

@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
-Counterpart of trino_tpu/ops/pallas_kernels.py.  Two kernels carry the
-TPC-H Q6/Q1 path:
+Counterpart of trino_tpu/ops/pallas_kernels.py and of the gather probe
+in scripts/micro_probe.py.  Four kernels carry the TPC-H Q6/Q1/Q3 path:
 
   fused_agg_sums  (csrc/fused_agg.cu)     replaces `_fused_agg_kernel`
   grouped_count   (csrc/grouped_count.cu) replaces `_count_kernel`
+  grouped_sum_i64 (csrc/grouped_sum.cu)   replaces `_plane_kernel`
+  direct_probe    (csrc/direct_probe.cu)  replaces the VMEM gather probe
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses
 the plain PyTorch version in this module only for CPU tensors.  Each
@@ -34,7 +36,10 @@ STACK_MAX = 16    # csrc/fused_agg.cu kStack
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = {"fused_agg": "fused_agg.cu", "grouped_count": "grouped_count.cu"}
+SOURCES = {
+    "fused_agg": "fused_agg.cu", "grouped_count": "grouped_count.cu",
+    "grouped_sum": "grouped_sum.cu", "direct_probe": "direct_probe.cu",
+}
 
 # -- postfix program opcodes (csrc/fused_agg.cu enum Op) ---------------
 LOAD, CONST, ADD, SUB, NEG, MUL, LO16, HI16 = range(8)
@@ -203,10 +208,40 @@ def grouped_count_plain(
     return out.index_add_(0, g[m], torch.ones_like(g[m]))
 
 
+def grouped_sum_i64_plain(
+    values: torch.Tensor, gid: torch.Tensor, cap: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the grouped int64 sum: int64 [cap] sums
+    (wrapping mod 2^64) of `values` per group id; ids outside [0, cap)
+    are skipped."""
+    g = gid.to(torch.int64)
+    m = (g >= 0) & (g < cap)
+    out = torch.zeros(cap, dtype=torch.int64, device=values.device)
+    return out.index_add_(0, g[m], values.to(torch.int64)[m])
+
+
+def direct_probe_plain(
+    table: torch.Tensor, key: torch.Tensor, ok: torch.Tensor,
+    sel: torch.Tensor, lo: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the direct-address probe (the function of
+    trino_tpu/ops/join.py probe_direct): (build row int64 [n], matched
+    bool [n]) for an int32 table of build row + 1 (0 = empty)."""
+    domain = table.shape[0]
+    kv = key.to(torch.int64) - lo
+    in_dom = (kv >= 0) & (kv < domain)
+    slot = table[torch.clamp(kv, 0, domain - 1)]
+    matched = sel & ok & in_dom & (slot > 0)
+    return (slot - 1).to(torch.int64), matched
+
+
 # -- build and binding --------------------------------------------------
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-LAUNCHES: Dict[str, int] = {"fused_agg_sums": 0, "grouped_count": 0}
+LAUNCHES: Dict[str, int] = {
+    "fused_agg_sums": 0, "grouped_count": 0, "grouped_sum_i64": 0,
+    "direct_probe": 0,
+}
 
 
 def _nvcc() -> str:
@@ -267,16 +302,22 @@ def _lib(name: str) -> ctypes.CDLL:
     if name == "fused_agg":
         lib.fused_agg_sums_launch.argtypes = [P, P, L, P, I, P, I, I, P, I, P]
         lib.fused_agg_sums_launch.restype = I
-    else:
+    elif name == "grouped_count":
         lib.grouped_count_launch.argtypes = [P, P, L, I, P, I, P]
         lib.grouped_count_launch.restype = I
+    elif name == "grouped_sum":
+        lib.grouped_sum_launch.argtypes = [P, P, L, I, P, I, P]
+        lib.grouped_sum_launch.restype = I
+    else:
+        lib.direct_probe_launch.argtypes = [P, L, P, I, P, P, L, L, P, P, I, P]
+        lib.direct_probe_launch.restype = I
     _LIBS[name] = lib
     return lib
 
 
-def _blocks(n: int, dev: torch.device) -> int:
+def _blocks(n: int, dev: torch.device, per_sm: int = 4) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-n // 256), 4 * sms))
+    return max(1, min(-(-n // 256), per_sm * sms))
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -357,6 +398,77 @@ def grouped_count(flags: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.Ten
     return out
 
 
+def grouped_sum_i64(values: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.Tensor:
+    """Exact int64 per-group sum of `values`, [cap], wrapping mod 2^64;
+    group ids outside [0, cap) are skipped."""
+    if values.dim() != 1 or gid.shape != values.shape:
+        raise ValueError("values and gid must be matching 1-D tensors")
+    if not 1 <= cap <= MAX_GROUPS:
+        raise ValueError(f"cap {cap} outside [1, {MAX_GROUPS}]")
+    if values.device != gid.device:
+        raise ValueError("values and gid lie on different devices")
+    if values.device.type == "cpu":
+        return grouped_sum_i64_plain(values, gid, cap)
+    if values.device.type != "cuda":
+        raise ValueError(f"unsupported device {values.device}")
+    if values.dtype != torch.int64 or gid.dtype != torch.int64:
+        raise ValueError("grouped_sum_i64 takes int64 values and int64 gid")
+    values = values.contiguous()
+    gid = gid.contiguous()
+    dev = values.device
+    lib = _lib("grouped_sum")
+    n = values.shape[0]
+    out = torch.zeros(cap, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.grouped_sum_launch(
+        values.data_ptr(), gid.data_ptr(), n, cap, out.data_ptr(),
+        _blocks(n, dev), stream,
+    )
+    _check_rc(rc, "grouped_sum_i64")
+    LAUNCHES["grouped_sum_i64"] += 1
+    return out
+
+
+def direct_probe(
+    table: torch.Tensor, key: torch.Tensor, ok: torch.Tensor,
+    sel: torch.Tensor, lo: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Direct-address join probe: (build row int64 [n], matched bool [n])
+    from an int32 [domain] table of build row + 1 (0 = empty slot),
+    int64 or int32 probe keys, their validity `ok` and the probe side's
+    selection `sel`; `lo` is the key the table's slot 0 stands for."""
+    n = key.shape[0]
+    if table.dim() != 1 or table.dtype != torch.int32 or table.shape[0] < 1:
+        raise ValueError("table must be a non-empty 1-D int32 tensor")
+    if key.dim() != 1 or key.dtype not in (torch.int64, torch.int32):
+        raise ValueError("key must be a 1-D int64 or int32 tensor")
+    for t in (ok, sel):
+        if t.dtype != torch.bool or t.shape != (n,):
+            raise ValueError("ok and sel must be bool tensors shaped like key")
+    if len({t.device for t in (table, key, ok, sel)}) != 1:
+        raise ValueError("table, key, ok and sel lie on different devices")
+    if not -(2**63) <= lo < 2**63:
+        raise ValueError("lo outside int64")
+    if key.device.type == "cpu":
+        return direct_probe_plain(table, key, ok, sel, lo)
+    if key.device.type != "cuda":
+        raise ValueError(f"unsupported device {key.device}")
+    table, key, ok, sel = (t.contiguous() for t in (table, key, ok, sel))
+    dev = key.device
+    lib = _lib("direct_probe")
+    row = torch.empty(n, dtype=torch.int64, device=dev)
+    matched = torch.empty(n, dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.direct_probe_launch(
+        table.data_ptr(), table.shape[0], key.data_ptr(), key.element_size(),
+        ok.data_ptr(), sel.data_ptr(), lo, n, row.data_ptr(),
+        matched.data_ptr(), _blocks(n, dev, per_sm=8), stream,
+    )
+    _check_rc(rc, "direct_probe")
+    LAUNCHES["direct_probe"] += 1
+    return row, matched
+
+
 def seg_count_maybe(flags: torch.Tensor, gid: torch.Tensor, cap: int):
     """Kernel-or-None per-group count of 0/1 flags; None = the caller
     runs its generic segment sum.  Mirrors the TPU gate for cap <= 32
@@ -383,5 +495,13 @@ KERNEL_REGISTRY = {
     "grouped_count": {
         "source": "trino_tpu_torch/csrc/grouped_count.cu",
         "replaces": "trino_tpu/ops/pallas_kernels.py:128",
+    },
+    "grouped_sum_i64": {
+        "source": "trino_tpu_torch/csrc/grouped_sum.cu",
+        "replaces": "trino_tpu/ops/pallas_kernels.py:61",
+    },
+    "direct_probe": {
+        "source": "trino_tpu_torch/csrc/direct_probe.cu",
+        "replaces": "scripts/micro_probe.py:100",
     },
 }
