@@ -566,10 +566,8 @@ def phase_sf10(dev, do_profile=False):
     qs, _ = _queries()
     sf = MAIN_SF
     s = tpch_session(sf)
-    # the four queries' scans take ~6.44 GB of host arrays at SF10, at the
-    # edge of the default 6 GiB scan-cache budget: size the budget so the
-    # warm runs keep every scan resident instead of evicting in turn
-    s._scan_cache.max_bytes = 16 << 30
+    _log(f"[sf{sf:g}] scan cache budget {s._scan_cache.max_bytes} bytes "
+         f"(the session's default on this card)")
     runs = [("Q6", "auto"), ("Q1", "auto"), ("Q1", "off"), ("Q3", "auto")]
     for q, mode in runs:  # cold: generation, upload, first run
         s.properties.set("megakernels", mode)
@@ -578,6 +576,8 @@ def phase_sf10(dev, do_profile=False):
         torch.cuda.synchronize()
         _log(f"[sf{sf:g}] cold {q} megakernels={mode}: "
              f"{time.perf_counter() - t0:.3f} s")
+    _log(f"[sf{sf:g}] scan cache after the cold runs: "
+         f"{len(s._scan_cache.entries)} scans, {s._scan_cache.bytes} bytes")
     recorded = {}
     real = {name: getattr(kn, name) for name in KERNEL_FNS}
 
@@ -743,9 +743,11 @@ def _time_sum(dev, values, gid, cap, launches):
 
 def _time_probe(table, key, ok, sel, lo, launches):
     """direct_probe at a main-path shape: bytes = key, ok and sel read and
-    row and matched written per probe row, the table read once; about ten
+    row and matched written per probe row, and of the table only the
+    32-byte sectors that this run's keys touch, each once (TPC-H order
+    keys fill one sector in four of the orderkey table); about ten
     integer operations a row (subtract, two compares, clip, three ands,
-    decrement)."""
+    decrement).  Returns the row and the table bytes counted."""
     from trino_tpu_torch.ops import kernels as kn
 
     got = kn.direct_probe(table, key, ok, sel, lo)
@@ -754,13 +756,14 @@ def _time_probe(table, key, ok, sel, lo, launches):
               int((got[1] != want[1]).sum()))
     n, dom = key.shape[0], table.shape[0]
     idx = torch.clamp(key.to(torch.int64) - lo, 0, dom - 1)
+    table_bytes = min(dom * 4, torch.unique(idx // 8).numel() * 32)
     return _row(
         "direct_probe", launches, err,
         _time_ms(lambda: kn.direct_probe(table, key, ok, sel, lo), 15),
         _time_ms(lambda: kn.direct_probe_plain(table, key, ok, sel, lo), 5),
-        n * (key.element_size() + 1 + 1 + 8 + 1) + dom * 4, 10 * n,
+        n * (key.element_size() + 1 + 1 + 8 + 1) + table_bytes, 10 * n,
         _time_ms(lambda: table[idx], 15),
-    )
+    ), table_bytes
 
 
 def phase_timing(dev):
@@ -818,9 +821,10 @@ def phase_timing(dev):
     probes = sorted(k for k in rec if isinstance(k, tuple) and k[0] == "probe")
     for key in probes:  # custkey join first, then orderkey
         table, pkey, ok, sel, lo = rec[key]
-        row = _time_probe(table, pkey, ok, sel, lo, launches)
+        row, table_bytes = _time_probe(table, pkey, ok, sel, lo, launches)
         _log(f"[timing] direct_probe {table.shape[0]} slots, {pkey.shape[0]} "
-             f"{pkey.dtype} probes, {int(sel.sum())} selected: {json.dumps(row)}")
+             f"{pkey.dtype} probes, {int(sel.sum())} selected, {table_bytes} "
+             f"table bytes touched: {json.dumps(row)}")
         rows.append(row)
     line.append(rows[-1])
     bad = [r for r in rows if r["max_abs_err"] != 0]

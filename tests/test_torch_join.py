@@ -361,6 +361,20 @@ def port_session():
     return tpch_session(0.002, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def jax_session():
+    from trino_tpu.session import tpch_session
+
+    return tpch_session(0.002, result_cache=False)
+
+
+def _same_as_reference(jax_session, port_page, sql):
+    """The port's page is byte-identical to the JAX package's on `sql`."""
+    from trino_tpu_torch import convert
+
+    convert.assert_pages_identical(jax_session.execute(sql), port_page)
+
+
 @pytest.fixture()
 def weak_hash(monkeypatch):
     """Every composite key collides into 4 buckets in the port's join
@@ -381,8 +395,13 @@ def weak_hash(monkeypatch):
      "as l(a, b, lv) join (values (1, cast(null as bigint), 7), (2, 2, 9)) "
      "as r(a, b, rv) on l.a = r.a and l.b = r.b order by l.lv", [(20, 9)]),
 ])
-def test_multikey_joins_stay_exact_under_a_weak_hash(port_session, weak_hash, sql, want):
-    assert port_session.execute(sql).to_pylist() == want
+def test_multikey_joins_stay_exact_under_a_weak_hash(port_session, jax_session,
+                                                     weak_hash, sql, want):
+    # the patched hash moves which build row an unmatched probe row
+    # carries under NULL, so the rows, not the bytes, match the reference
+    rows = port_session.execute(sql).to_pylist()
+    assert rows == want
+    assert rows == jax_session.execute(sql).to_pylist()
 
 
 @pytest.mark.parametrize("sql,want", [
@@ -403,23 +422,28 @@ def test_multikey_joins_stay_exact_under_a_weak_hash(port_session, weak_hash, sq
      f"l(a, lv) join (values ({2**62}, 10), (cast(null as bigint), 99), (3, 30)) "
      "as r(a, rv) on l.a = r.a order by l.lv", [(1, 10), (3, 30)]),
 ])
-def test_join_edge_cases_on_the_port(port_session, sql, want):
-    assert port_session.execute(sql).to_pylist() == want
+def test_join_edge_cases_on_the_port(port_session, jax_session, sql, want):
+    page = port_session.execute(sql)
+    assert page.to_pylist() == want
+    _same_as_reference(jax_session, page, sql)
 
 
 @pytest.mark.parametrize("domain", [(1, 70000), (1, 100)])
-def test_stale_stats_reroute_keeps_results_exact(port_session, domain):
+def test_stale_stats_reroute_keeps_results_exact(port_session, jax_session, domain):
     """A forged direct_domain annotation (stats that lied: the JAX
     package's test forges (1, 70000); (1, 100) leaves most build keys
     outside the domain) reroutes through the violation/duplicate retry
-    to the exact sorted kernels, never a wrong row."""
+    to the exact sorted kernels, never a wrong row: the forged and the
+    unforged plans give the JAX package's page, byte for byte."""
+    from trino_tpu_torch import convert
     from trino_tpu_torch.exec.local import LocalExecutor
     from trino_tpu_torch.plan import nodes as P
 
     s = port_session
     sql = ("select count(*), sum(l_quantity) from orders, lineitem "
            "where o_orderkey = l_orderkey")
-    expected = s.execute(sql).to_pylist()
+    expected = jax_session.execute(sql)
+    convert.assert_pages_identical(expected, s.execute(sql))
     plan = s.plan(sql)
 
     def forge(n):
@@ -446,7 +470,7 @@ def test_stale_stats_reroute_keeps_results_exact(port_session, domain):
 
     find(forged)
     ex = LocalExecutor(s.catalogs, {"device": "cpu"})
-    assert ex.execute(forged).to_pylist() == expected
+    convert.assert_pages_identical(expected, ex.execute(forged))
     if domain == (1, 100):
         # out-of-domain build keys: the join left the direct table
         assert {id(j) for j in joins} <= ex.force_no_direct

@@ -53,9 +53,16 @@ class DeviceScanCache:
 
     Repeated scans of an unchanged (connector-versioned) table reuse the
     uploaded device tensors.  Entries evict in insertion order once the
-    host byte budget is exceeded."""
+    byte budget is exceeded: by default a quarter of the card's memory on
+    CUDA (the lanes stay resident there beside the queries' working
+    memory), 6 GiB of host arrays on the CPU."""
 
-    def __init__(self, max_bytes: int = 6 << 30):
+    def __init__(self, max_bytes: Optional[int] = None,
+                 device: Optional[torch.device] = None):
+        if max_bytes is None:
+            max_bytes = 6 << 30
+            if device is not None and device.type == "cuda":
+                max_bytes = torch.cuda.get_device_properties(device).total_memory // 4
         self.max_bytes = max_bytes
         self.entries: Dict[tuple, dict] = {}
         self.bytes = 0

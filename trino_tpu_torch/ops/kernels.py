@@ -315,9 +315,9 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _blocks(n: int, dev: torch.device, per_sm: int = 4) -> int:
+def _blocks(n: int, dev: torch.device) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-n // 256), per_sm * sms))
+    return max(1, min(-(-n // 256), 4 * sms))
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -462,7 +462,7 @@ def direct_probe(
     rc = lib.direct_probe_launch(
         table.data_ptr(), table.shape[0], key.data_ptr(), key.element_size(),
         ok.data_ptr(), sel.data_ptr(), lo, n, row.data_ptr(),
-        matched.data_ptr(), _blocks(n, dev, per_sm=8), stream,
+        matched.data_ptr(), _blocks(n, dev), stream,
     )
     _check_rc(rc, "direct_probe")
     LAUNCHES["direct_probe"] += 1

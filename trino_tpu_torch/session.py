@@ -45,7 +45,7 @@ class Session:
         self.metadata = Metadata(self.catalogs)
         self.sql_functions: dict = {}
         # cross-query scan cache (device-resident scan lanes)
-        self._scan_cache = DeviceScanCache()
+        self._scan_cache = DeviceScanCache(device=self.device)
         self._plan_cache: dict = {}
         self._capacity_hints: dict = {}
         self.last_kernel_profile: Optional[dict] = None
