@@ -38,7 +38,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 VECTOR_OPS_PER_S = 67e12       # H100 SXM non-tensor-core 32-bit rate
 SEED = 20261016
 MAIN_SF = 10.0                 # TPC-H scale of the main path
-MAIN_REPS = 3                  # warm repetitions of each main-path query
+MAIN_REPS = 3                  # warm repetitions of each main-path query (--reps)
 
 
 def _log(msg: str) -> None:
@@ -142,6 +142,32 @@ def _fused_cases(dev):
     return cases
 
 
+def _dev_view(a, off, dev, fill):
+    """`a` on the card as a contiguous view `off` elements into a larger
+    tensor whose first `off` elements hold `fill`; its base pointer is
+    off the 16-byte alignment of a fresh allocation unless off x itemsize
+    is a multiple of 16."""
+    pad = np.full(off, fill, dtype=a.dtype)
+    return torch.as_tensor(np.concatenate([pad, a]), device=dev)[off:]
+
+
+# rows in one unrolled step of a thread and of a block: 2 rows a vector x
+# kUnroll (x 256 threads) in csrc/grouped_sum.cu and csrc/grouped_count.cu
+SUM_STEP_ROWS = (8, 2048)
+COUNT_STEP_ROWS = (16, 4096)
+CAP_EDGES = (1, 4, 5, 8, 9, 16, 17, 32)
+# (value or flag offset, id offset) of the misaligned views, in elements:
+# int64 offsets 1 and 3 lie 8 bytes off 16, flag offsets 1 to 15 off too
+VIEW_OFFSETS = ((1, 0), (0, 1), (1, 1), (2, 3), (3, 2), (5, 0), (5, 1), (3, 3))
+
+
+def _edge_ns(step_rows):
+    ns = {1, 2, 3, 15, 16, 17, 33}
+    for s in step_rows:
+        ns |= {s - 1, s, s + 1}
+    return sorted(ns)
+
+
 def _count_cases(dev):
     rng = np.random.default_rng(SEED + 1)
     cases = []
@@ -156,14 +182,41 @@ def _count_cases(dev):
         cases.append((f"random {r} (out-of-range ids)", flags, gid, cap))
     cases.append(("all one group", np.ones(1 << 20, bool),
                   np.zeros(1 << 20, np.int64), 1))
-    return [(lbl, torch.as_tensor(f, device=dev),
-             torch.as_tensor(g.astype(np.int64), device=dev), c)
-            for lbl, f, g, c in cases]
+    out = [(lbl, torch.as_tensor(f, device=dev),
+            torch.as_tensor(g.astype(np.int64), device=dev), c)
+           for lbl, f, g, c in cases]
+    # edges of the private-counter design: ragged sizes around the
+    # unrolled steps, every cap bucket edge, misaligned views
+    edge = []
+    for n in _edge_ns(COUNT_STEP_ROWS):
+        for off in ((0, 0), (1, 1), (5, 0)):
+            edge.append((f"n={n} flags[{off[0]}:] gid[{off[1]}:]",
+                         rng.random(n) < 0.7, rng.integers(-1, 13, n), 12, off))
+    for cap in CAP_EDGES:
+        edge.append((f"cap edge {cap}", rng.random(100_001) < 0.6,
+                     rng.integers(-2, cap + 2, 100_001), cap, (0, 0)))
+    for off in VIEW_OFFSETS:
+        edge.append((f"view flags[{off[0]}:], gid[{off[1]}:]",
+                     rng.random(200_003) < 0.5,
+                     rng.integers(-1, 13, 200_003), 12, off))
+    n = (1 << 20) + 3
+    edge.append(("all rows in group 7 of 12", np.ones(n, bool),
+                 np.full(n, 7, np.int64), 12, (1, 1)))
+    edge.append(("all ids out of range", np.ones(n, bool),
+                 np.where(rng.random(n) < 0.5, -1, 12), 12, (0, 0)))
+    edge.append(("all flags false", np.zeros(n, bool),
+                 rng.integers(0, 12, n), 12, (5, 1)))
+    # a view's hidden leading elements would count if read: set flags
+    # and in-range ids
+    return out + [(lbl, _dev_view(f, fo, dev, True),
+                   _dev_view(g.astype(np.int64), go, dev, 0), c)
+                  for lbl, f, g, c, (fo, go) in edge]
 
 
 def _sum_cases(dev):
     """(label, values, gid, cap) for grouped_sum_i64: random, ids outside
-    [0, cap), values near +-2^63 whose sums wrap, empty and one group."""
+    [0, cap), values near +-2^63 whose sums wrap, empty and one group,
+    ragged sizes, cap bucket edges and misaligned views."""
     rng = np.random.default_rng(SEED + 2)
     cases = []
     for r in range(6):
@@ -182,9 +235,31 @@ def _sum_cases(dev):
     cases.append(("full range, cap 32", rng.integers(-(2**63), 2**63 - 1, 500_000),
                   rng.integers(0, 32, 500_000), 32))
     cases.append(("no rows", np.zeros(0, np.int64), np.zeros(0, np.int64), 5))
-    return [(lbl, torch.as_tensor(v.astype(np.int64), device=dev),
-             torch.as_tensor(g.astype(np.int64), device=dev), c)
-            for lbl, v, g, c in cases]
+    cases = [(lbl, v, g, c, (0, 0)) for lbl, v, g, c in cases]
+    for n in _edge_ns(SUM_STEP_ROWS):
+        for off in ((0, 0), (1, 1), (1, 0)):
+            cases.append((f"n={n} values[{off[0]}:] gid[{off[1]}:]",
+                          rng.integers(-(2**62), 2**62, n),
+                          rng.integers(-1, 13, n), 12, off))
+    for cap in CAP_EDGES:
+        cases.append((f"cap edge {cap}",
+                      rng.integers(-(2**63), 2**63 - 1, 100_001),
+                      rng.integers(-2, cap + 2, 100_001), cap, (0, 0)))
+    for off in VIEW_OFFSETS:
+        cases.append((f"view values[{off[0]}:], gid[{off[1]}:]",
+                      rng.integers(-(2**63), 2**63 - 1, 200_003),
+                      rng.integers(-1, 13, 200_003), 12, off))
+    n = (1 << 20) + 3
+    cases.append(("all rows in group 7 of 12 (wrapping)",
+                  np.concatenate([near, [1, 2, 3]]),
+                  np.full(n, 7, np.int64), 12, (1, 1)))
+    cases.append(("all ids out of range", rng.integers(-(2**40), 2**40, n),
+                  np.where(rng.random(n) < 0.5, -1, 12), 12, (0, 0)))
+    # a view's hidden leading elements would count if read: large values
+    # and in-range ids
+    return [(lbl, _dev_view(np.asarray(v, np.int64), vo, dev, 2**62 + 1),
+             _dev_view(np.asarray(g, np.int64), go, dev, 0), c)
+            for lbl, v, g, c, (vo, go) in cases]
 
 
 def _probe_cases(dev):
@@ -556,6 +631,13 @@ def _profile(s, sql, label):
          f"{100 * (1 - busy / wall):.1f}%)")
     for e in sorted(evs, key=dev_us, reverse=True)[:10]:
         _log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    ours = ("fused_agg_kernel", "grouped_count_kernel", "grouped_sum_kernel",
+            "direct_probe_kernel")
+    for e in evs:
+        hit = next((k for k in ours if k in e.key), None)
+        if hit:
+            _log(f"[profile]   the port's {hit}: {dev_us(e) / 1e3:.3f} ms "
+                 f"x{e.count}")
 
 
 def phase_sf10(dev, do_profile=False):
@@ -673,6 +755,10 @@ def phase_sf10(dev, do_profile=False):
 
 
 def _time_ms(fn, reps):
+    """The median of `reps` calls each timed alone between its own events
+    on an idle card, after a warm-up call: each time also holds the
+    host's launch time before the card starts.  The kernels line's
+    method."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -685,6 +771,24 @@ def _time_ms(fn, reps):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def _time_queued_ms(fn, reps=15):
+    """The mean over `reps` calls queued back to back between one pair of
+    CUDA events, after a warm-up call: the host queues each launch while
+    the card runs the one before, so its launch time stays out wherever
+    a call keeps the card busier than the host.  Logged beside the
+    kernels line's times."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _fused_work(cols, live, prog, groups):
@@ -747,7 +851,11 @@ def _time_probe(table, key, ok, sel, lo, launches):
     32-byte sectors that this run's keys touch, each once (TPC-H order
     keys fill one sector in four of the orderkey table); about ten
     integer operations a row (subtract, two compares, clip, three ands,
-    decrement).  Returns the row and the table bytes counted."""
+    decrement).  No single PyTorch call computes probe_direct, so the row
+    has no library time.  Returns the row, the table bytes counted and a
+    partial yardstick: the slot gather alone, table[clamp(key - lo)] with
+    its index computed inside the timed window, and its own byte bound
+    (key read and int32 slot written a probe, plus the same sectors)."""
     from trino_tpu_torch.ops import kernels as kn
 
     got = kn.direct_probe(table, key, ok, sel, lo)
@@ -757,13 +865,16 @@ def _time_probe(table, key, ok, sel, lo, launches):
     n, dom = key.shape[0], table.shape[0]
     idx = torch.clamp(key.to(torch.int64) - lo, 0, dom - 1)
     table_bytes = min(dom * 4, torch.unique(idx // 8).numel() * 32)
+    del idx
+    gather_ms = _time_ms(
+        lambda: table[torch.clamp(key.to(torch.int64) - lo, 0, dom - 1)], 15)
+    gather_bytes = n * (key.element_size() + 4) + table_bytes
     return _row(
         "direct_probe", launches, err,
         _time_ms(lambda: kn.direct_probe(table, key, ok, sel, lo), 15),
         _time_ms(lambda: kn.direct_probe_plain(table, key, ok, sel, lo), 5),
-        n * (key.element_size() + 1 + 1 + 8 + 1) + table_bytes, 10 * n,
-        _time_ms(lambda: table[idx], 15),
-    ), table_bytes
+        n * (key.element_size() + 1 + 1 + 8 + 1) + table_bytes, 10 * n, None,
+    ), table_bytes, gather_ms, gather_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def phase_timing(dev):
@@ -785,8 +896,10 @@ def phase_timing(dev):
             _time_ms(lambda: kn.fused_agg_sums_plain(cols, live, prog, groups), 5),
             nbytes, ops, None,
         )
+        queued = _time_queued_ms(lambda: kn.fused_agg_sums(cols, live, prog, groups))
         _log(f"[timing] fused_agg_sums {len(prog.terms)} terms x {groups} groups, "
-             f"{live.shape[0]} rows, {nbytes} bytes, {ops} ops: {json.dumps(row)}")
+             f"{live.shape[0]} rows, {nbytes} bytes, {ops} ops: {json.dumps(row)}; "
+             f"back to back: {queued} ms")
         rows.append(row)
     if "sf1_fused" in MAIN:  # Q1's fused call at SF1 (logged, not in the line)
         cols, live, prog, groups = MAIN["sf1_fused"]
@@ -809,22 +922,30 @@ def phase_timing(dev):
         _time_ms(lambda: torch.zeros(cap, dtype=torch.int64, device=dev)
                  .index_add_(0, gid, flags.long()), 15),
     )
-    _log(f"[timing] grouped_count cap {cap}, {n} rows: {json.dumps(row)}")
+    queued = _time_queued_ms(lambda: kn.grouped_count(flags, gid, cap))
+    _log(f"[timing] grouped_count cap {cap}, {n} rows: {json.dumps(row)}; "
+         f"back to back: {queued} ms")
     rows.append(row)
     line = [rows[-2], rows[-1]]
     values, gid, cap = rec["sum"]
     row = _time_sum(dev, values, gid, cap, launches)
+    queued = _time_queued_ms(lambda: kn.grouped_sum_i64(values, gid, cap))
     _log(f"[timing] grouped_sum_i64 cap {cap}, {values.shape[0]} rows: "
-         f"{json.dumps(row)}")
+         f"{json.dumps(row)}; back to back: {queued} ms")
     rows.append(row)
     line.append(row)
     probes = sorted(k for k in rec if isinstance(k, tuple) and k[0] == "probe")
     for key in probes:  # custkey join first, then orderkey
         table, pkey, ok, sel, lo = rec[key]
-        row, table_bytes = _time_probe(table, pkey, ok, sel, lo, launches)
+        row, table_bytes, g_ms, g_bound = _time_probe(table, pkey, ok, sel, lo,
+                                                      launches)
+        queued = _time_queued_ms(lambda: kn.direct_probe(table, pkey, ok, sel, lo))
         _log(f"[timing] direct_probe {table.shape[0]} slots, {pkey.shape[0]} "
              f"{pkey.dtype} probes, {int(sel.sum())} selected, {table_bytes} "
-             f"table bytes touched: {json.dumps(row)}")
+             f"table bytes touched: {json.dumps(row)}; back to back: {queued} ms; "
+             f"partial yardstick, "
+             f"the slot gather table[clamp(key - lo)] alone: ms {g_ms} "
+             f"bound_ms {g_bound} (bytes)")
         rows.append(row)
     line.append(rows[-1])
     bad = [r for r in rows if r["max_abs_err"] != 0]
@@ -842,17 +963,21 @@ def phase_timing(dev):
 
 
 def main(argv=None) -> int:
+    global MAIN_REPS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all", choices=["all", "kernels"],
                     help="run only the build and kernel phases (debugging)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each main-path query")
+    ap.add_argument("--reps", type=int, default=MAIN_REPS,
+                    help="warm repetitions of each main-path query")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     import trino_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    MAIN_REPS = args.reps
     dev = torch.device("cuda")
     smi = _smi()
     _log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "

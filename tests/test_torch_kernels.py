@@ -128,10 +128,21 @@ def test_fused_agg_sums_plain_matches_jax_interpret(case):
     assert np.array_equal(got.numpy(), want)
 
 
+# Sizes around the CUDA kernels' unrolled steps (rows a thread and rows a
+# block in one step: 8 and 2048 for grouped_sum_i64, 16 and 4096 for
+# grouped_count), tiny sizes and the cap bucket edges 1/4/5/8/9/16/17/32.
 @pytest.mark.parametrize("n,groups,lo,hi", [
     (300_000, 9, 0, 9),      # tests/test_pallas.py::test_grouped_count_exact
     (50_000, 12, -3, 15),    # out-of-range ids are skipped on both sides
     (4096, 32, 0, 32),       # the largest capacity the kernel takes
+    (1, 12, 0, 12), (2, 12, -1, 13), (3, 12, 0, 12), (15, 12, -1, 13),
+    (16, 12, 0, 12), (17, 12, -1, 13), (33, 12, 0, 12),
+    (4095, 12, -1, 13), (4097, 12, -1, 13),
+    (10_001, 1, -1, 2), (10_001, 4, 0, 4), (10_001, 5, -1, 6),
+    (10_001, 8, 0, 8), (10_001, 9, 0, 9), (10_001, 16, 0, 16),
+    (10_001, 17, -2, 19),
+    (20_000, 12, 7, 8),      # every row in one group
+    (20_000, 12, 12, 16),    # every id out of range
 ])
 def test_grouped_count_plain_matches_jax_interpret(n, groups, lo, hi):
     rng = np.random.default_rng(3)
@@ -149,6 +160,16 @@ def test_grouped_count_plain_matches_jax_interpret(n, groups, lo, hi):
     (50_000, 9, -3, 14, 2**40),       # out-of-range ids are skipped
     (70_000, 32, 0, 32, 2**63),       # full int64 range: the sums wrap
     (4096, 1, 0, 1, 2**63),           # one group of int64 extremes
+    (1, 12, 0, 12, 2**40), (2, 12, -1, 13, 2**40), (3, 12, 0, 12, 2**40),
+    (7, 12, -1, 13, 2**40), (8, 12, 0, 12, 2**40), (9, 12, -1, 13, 2**40),
+    (15, 12, 0, 12, 2**40), (16, 12, -1, 13, 2**40), (17, 12, 0, 12, 2**40),
+    (33, 12, -1, 13, 2**40), (2047, 12, 0, 12, 2**63),
+    (2048, 12, -1, 13, 2**63), (2049, 12, 0, 12, 2**63),
+    (10_001, 4, 0, 4, 2**63), (10_001, 5, -1, 6, 2**63),
+    (10_001, 8, 0, 8, 2**63), (10_001, 9, 0, 9, 2**63),
+    (10_001, 16, -2, 18, 2**63), (10_001, 17, 0, 17, 2**63),
+    (20_000, 12, 7, 8, 2**63),        # every row in one group (wrapping)
+    (20_000, 12, -3, 0, 2**40),       # every id out of range
 ])
 def test_grouped_sum_i64_plain_matches_jax_interpret(n, groups, lo, hi, vmag):
     rng = np.random.default_rng(n + groups)
@@ -162,6 +183,37 @@ def test_grouped_sum_i64_plain_matches_jax_interpret(n, groups, lo, hi, vmag):
     ))
     assert got.dtype == torch.int64
     assert np.array_equal(got.numpy(), want)
+
+
+def test_grouped_count_all_flags_false_matches_jax_interpret():
+    rng = np.random.default_rng(4)
+    gid = rng.integers(0, 12, 4097)
+    got = kn.grouped_count(torch.zeros(4097, dtype=torch.bool), torch.as_tensor(gid), 12)
+    want = np.asarray(jpk.grouped_count(
+        jnp.zeros(4097, bool), jnp.asarray(gid), 12, interpret=True
+    ))
+    assert np.array_equal(got.numpy(), want) and not want.any()
+
+
+@pytest.mark.parametrize("voff,goff", [(1, 0), (0, 1), (1, 1), (5, 3)])
+def test_grouped_kernels_on_views_match_jax_interpret(voff, goff):
+    """Views at element offsets into larger tensors (on the card their
+    base pointers lie off 16-byte alignment) give the same sums and
+    counts as the JAX kernels on the same rows."""
+    rng = np.random.default_rng(voff * 10 + goff)
+    n = 4099
+    vals = rng.integers(-(2**63), 2**63 - 1, n + voff, dtype=np.int64)
+    flags = rng.random(n + voff) < 0.5
+    gid = rng.integers(-1, 13, n + goff)
+    tv, tf, tg = (torch.as_tensor(a) for a in (vals, flags, gid))
+    got_s = kn.grouped_sum_i64(tv[voff:], tg[goff:], 12)
+    got_c = kn.grouped_count(tf[voff:], tg[goff:], 12)
+    want_s = np.asarray(jpk.grouped_sum_i64(
+        jnp.asarray(vals[voff:]), jnp.asarray(gid[goff:]), 12, interpret=True))
+    want_c = np.asarray(jpk.grouped_count(
+        jnp.asarray(flags[voff:]), jnp.asarray(gid[goff:]), 12, interpret=True))
+    assert np.array_equal(got_s.numpy(), want_s)
+    assert np.array_equal(got_c.numpy(), want_c)
 
 
 def test_seg_sum_routes_small_int64_sums_to_the_kernel(monkeypatch):
@@ -235,6 +287,16 @@ def test_kernels_match_plain_on_the_card():
     vals = torch.as_tensor(rng.integers(-(2**63), 2**63 - 1, 100_000), device=dev)
     assert torch.equal(kn.grouped_sum_i64(vals, gid, 12),
                        kn.grouped_sum_i64_plain(vals, gid, 12))
+    # aligned and misaligned views (int64 offsets 1 and 3 lie 8 bytes off
+    # 16, flag offsets 1 to 15 off too) at ragged lengths and cap edges
+    for voff, goff in ((0, 0), (1, 0), (0, 1), (1, 1), (2, 3), (5, 1)):
+        for n in (1, 2, 17, 2049, 4097, 99_991):
+            for cap in (1, 5, 12, 17, 32):
+                v, f, g = vals[voff:voff + n], flags[voff:voff + n], gid[goff:goff + n]
+                assert torch.equal(kn.grouped_sum_i64(v, g, cap),
+                                   kn.grouped_sum_i64_plain(v, g, cap))
+                assert torch.equal(kn.grouped_count(f, g, cap),
+                                   kn.grouped_count_plain(f, g, cap))
     table = torch.as_tensor(rng.integers(0, 5000, 150_000).astype(np.int32), device=dev)
     key = torch.as_tensor(rng.integers(-10, 150_010, 100_000), device=dev)
     got = kn.direct_probe(table, key, flags, flags, 0)

@@ -303,10 +303,10 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.fused_agg_sums_launch.argtypes = [P, P, L, P, I, P, I, I, P, I, P]
         lib.fused_agg_sums_launch.restype = I
     elif name == "grouped_count":
-        lib.grouped_count_launch.argtypes = [P, P, L, I, P, I, P]
+        lib.grouped_count_launch.argtypes = [P, P, L, I, P, P]
         lib.grouped_count_launch.restype = I
     elif name == "grouped_sum":
-        lib.grouped_sum_launch.argtypes = [P, P, L, I, P, I, P]
+        lib.grouped_sum_launch.argtypes = [P, P, L, I, P, P]
         lib.grouped_sum_launch.restype = I
     else:
         lib.direct_probe_launch.argtypes = [P, L, P, I, P, P, L, L, P, P, I, P]
@@ -316,6 +316,8 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _blocks(n: int, dev: torch.device) -> int:
+    """Grid of fused_agg_sums and direct_probe: 4 blocks of 256 threads
+    an SM at most (the grouped count and sum size their own grids)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(-(-n // 256), 4 * sms))
 
@@ -384,14 +386,23 @@ def grouped_count(flags: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.Ten
         raise ValueError("grouped_count takes bool flags and int64 gid")
     flags = flags.contiguous()
     gid = gid.contiguous()
+    # the kernel reads each id pair's two flags as one 2-byte word after
+    # a one-row head that aligns the ids to 16 bytes: where the flags
+    # then lie at an odd address, copy the stream that is off (a copy
+    # starts at the allocator's alignment)
+    head = gid.data_ptr() % 16 != 0
+    if (flags.data_ptr() + head) % 2:
+        if head:
+            gid = gid.clone()
+        else:
+            flags = flags.clone()
     dev = flags.device
     lib = _lib("grouped_count")
     n = flags.shape[0]
     out = torch.zeros(cap, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.grouped_count_launch(
-        flags.data_ptr(), gid.data_ptr(), n, cap, out.data_ptr(),
-        _blocks(n, dev), stream,
+        flags.data_ptr(), gid.data_ptr(), n, cap, out.data_ptr(), stream,
     )
     _check_rc(rc, "grouped_count")
     LAUNCHES["grouped_count"] += 1
@@ -415,14 +426,22 @@ def grouped_sum_i64(values: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.
         raise ValueError("grouped_sum_i64 takes int64 values and int64 gid")
     values = values.contiguous()
     gid = gid.contiguous()
+    # the kernel reads both streams in 16-byte vectors after one common
+    # head row, so they must share their 16-byte phase: where they do
+    # not, copy the one that is off (a copy starts at the allocator's
+    # alignment)
+    if (values.data_ptr() - gid.data_ptr()) % 16:
+        if values.data_ptr() % 16:
+            values = values.clone()
+        else:
+            gid = gid.clone()
     dev = values.device
     lib = _lib("grouped_sum")
     n = values.shape[0]
     out = torch.zeros(cap, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.grouped_sum_launch(
-        values.data_ptr(), gid.data_ptr(), n, cap, out.data_ptr(),
-        _blocks(n, dev), stream,
+        values.data_ptr(), gid.data_ptr(), n, cap, out.data_ptr(), stream,
     )
     _check_rc(rc, "grouped_sum_i64")
     LAUNCHES["grouped_sum_i64"] += 1
