@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel from trino_tpu_torch/csrc with nvcc (sm_90a);
   2. hold each kernel against its plain PyTorch version on the card,
-     on random and edge inputs (exact equality);
+     on random and edge inputs (exact equality); one fused call runs
+     under torch.cuda.set_sync_debug_mode("error");
   3. TPC-H SF1: Q6, Q1 and Q3 through Session.execute with megakernels
      on (fused kernel), off (grouped-count and grouped-sum kernels) and
      with every kernel function replaced by its plain version: the pages
@@ -93,14 +94,99 @@ def _rand_code(rng, n_cols, depth, k=None):
             + _rand_code(rng, n_cols, depth - 1) + ((op, 0),))
 
 
+def _tpch_programs():
+    """(cols, valids, live, program, groups) of the port's own fused Q6
+    and Q1 calls, on the CPU at SF 0.002 (megakernels on)."""
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.session import tpch_session
+
+    qs, _ = _queries()
+    calls = []
+    real = kn.fused_agg_sums
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    kn.fused_agg_sums = rec
+    try:
+        s = tpch_session(0.002, device="cpu", megakernels="on")
+        for q in ("Q6", "Q1"):
+            s.execute(qs[q])
+    finally:
+        kn.fused_agg_sums = real
+    return {"Q6": calls[0], "Q1": calls[1]}
+
+
+def _longest_program(rng, k, groups):
+    """64 terms over k columns plus a group-id column, encoded to exactly
+    the kernel's MAX_INS instructions: chains of distinct constants that
+    neither fold nor share."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    ops = [kn.ADD, kn.SUB, kn.MUL]
+    pred = ((kn.LOAD, 0), (kn.CONST, -(2**30)), (kn.GT, 0))
+    gid = ((kn.LOAD, k), (kn.CLIP, groups))
+    terms = [[(kn.LOAD, t % k)] for t in range(kn.MAX_TERMS)]
+    # pred 1 + gid 1 + one ACC a term, the rest spread over the chains
+    left = kn.MAX_INS - 2 - kn.MAX_TERMS
+    for i in range(left):
+        terms[i % kn.MAX_TERMS] += [(kn.CONST, int(rng.integers(2, 2**31))),
+                                    (ops[i % 3], 0)]
+    prog = kn.Program(pred, gid, tuple(tuple(t) for t in terms))
+    assert len(kn.encode(prog).ins) == kn.MAX_INS
+    return prog
+
+
+def _deep_ops(cols, k0):
+    """Products of columns and distinct constants summed right to left:
+    stack depth len(cols) + 1, every operand a temporary."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    return (sum((((kn.LOAD, c), (kn.CONST, k0 + i), (kn.MUL, 0))
+                 for i, c in enumerate(cols)), ())
+            + ((kn.ADD, 0),) * (len(cols) - 1))
+
+
+def _widest_program(k, groups):
+    """k columns (the last the group id), 64 terms, a predicate and a
+    term at the postfix kernel's stack limit of 16: at 73 int64 columns
+    with validity lanes, the widest program check_program lets through,
+    in blocks of 32 threads."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    terms = [((kn.LOAD, t % (k - 1)),) for t in range(kn.MAX_TERMS)]
+    terms[0] = _deep_ops(range(15), 101)
+    return kn.Program(_deep_ops(range(k - 16, k - 1), 3) + ((kn.CONST, 0), (kn.GT, 0)),
+                      ((kn.LOAD, k - 1), (kn.CLIP, groups)), tuple(terms))
+
+
+def _slot_pressure_program(n=250):
+    """Two terms summing the same n products in opposite orders: shared,
+    all n products would stay live from one term to the other, so the
+    encoder evaluates each term on its own."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    v = [((kn.LOAD, j % 16), (kn.CONST, 1000 + j), (kn.MUL, 0)) for j in range(n)]
+    return kn.Program((), (), tuple(
+        w[0] + sum((x + ((kn.ADD, 0),) for x in w[1:]), ()) for w in (v, v[::-1])))
+
+
 def _fused_cases(dev):
-    """(label, cols, live, program, groups): the cases of the JAX
-    package's megakernel unit tests, random programs, and edges."""
+    """(label, cols, valids, live, program, groups): the cases of the JAX
+    package's megakernel unit tests, random programs, the lanes as the
+    scan stores them (int64 values outside int32, validity lanes with
+    false entries), Q6's and Q1's own programs, folding, ragged sizes
+    around the tile and grid steps, misaligned views (which the wrapper
+    copies), the longest and the widest programs the launch takes, and
+    one whose shared values would overflow the slots."""
     from trino_tpu_torch.ops import kernels as kn
 
     rng = np.random.default_rng(SEED)
     i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32), device=dev)  # noqa: E731
+    i64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)  # noqa: E731
     ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)  # noqa: E731
+    rand_ok = lambda n, p=0.9: torch.as_tensor(rng.random(n) < p, device=dev)  # noqa: E731
     L, C = kn.LOAD, kn.CONST
     planes = ((((L, 0), (kn.LO16, 0)), ((L, 0), (kn.HI16, 0))))
     cases = []
@@ -139,6 +225,101 @@ def _fused_cases(dev):
         live = torch.as_tensor(rng.random(n) < 0.9, device=dev)
         cases.append((f"random program {r}", cols, live,
                       kn.Program(pred, gid, terms), groups))
+    cases = [(lbl, cols, [None] * len(cols), live, prog, g)
+             for lbl, cols, live, prog, g in cases]
+
+    # lanes as stored: int64 values outside int32 narrow like
+    # .to(torch.int32); validity lanes with false entries
+    for r in range(6):
+        n = int(rng.integers(1, 300_000))
+        k = int(rng.integers(1, 5))
+        groups = int(rng.integers(1, 33))
+        cols = [i64(rng.integers(-(2**62), 2**62, size=n)) if j % 2 == 0
+                else i32(rng.integers(-(2**31), 2**31, size=n)) for j in range(k)]
+        cols.append(i64(rng.integers(-1, groups + 2, size=n) + (rng.integers(-2, 3, n) << 32)))
+        gid = ((L, k), (kn.CLIP, groups)) if groups > 1 else ()
+        pred = _rand_code(rng, k, 3) if r % 2 else ()
+        terms = tuple(_rand_code(rng, k, 3) for _ in range(int(rng.integers(1, 12))))
+        valids = [rand_ok(n) if j % 3 != 1 else None for j in range(k + 1)]
+        cases.append((f"int64 lanes beyond int32, validity lanes {r}", cols, valids,
+                      rand_ok(n, 0.95), kn.Program(pred, gid, terms), groups))
+    # constants that fold with int32 wrap (constant predicate and terms)
+    big = ((C, 2**31 - 1), (C, 2), (kn.MUL, 0))
+    v = i64(rng.integers(-(2**40), 2**40, 100_000))
+    cases.append(("folding with wrap", [v], [rand_ok(100_000)], ones(100_000),
+                  kn.Program(big + ((C, -2), (kn.EQ, 0)), (),
+                             (big, big + ((kn.NEG, 0),), ((C, -(2**31)), (kn.NEG, 0)),
+                              ((L, 0), (C, 3), (C, 4), (kn.MUL, 0), (kn.SUB, 0)))), 1))
+    cases.append(("predicate folds to false", [v], [None], ones(100_000),
+                  kn.Program(((L, 0), (C, 0), (C, 1), (kn.GT, 0), (kn.AND, 0)), (),
+                             (((C, 1),),)), 1))
+    # Q6's and Q1's own programs (shared subexpressions) over their own
+    # lanes' types, the SF 0.002 rows repeated to 1 M rows, with random
+    # validity and live lanes
+    for q, (cols, valids, live, prog, groups) in _tpch_programs().items():
+        reps = -(-1_000_003 // live.shape[0])
+        tile = lambda t: t.repeat(reps)[:1_000_003].to(dev)  # noqa: E731
+        cols = [tile(c) for c in cols]
+        cases.append((f"{q}'s program ({len(kn.encode(prog).ins)} instructions)", cols,
+                      [rand_ok(1_000_003, 0.97) for _ in cols], rand_ok(1_000_003, 0.95),
+                      prog, groups))
+        if q == "Q6":  # l_quantity (column 2) at 25: quantity < 24 fails everywhere
+            big_qty = [c if j != 2 else torch.full_like(c, 2500) for j, c in enumerate(cols)]
+            cases.append(("Q6's program, no row passes", big_qty,
+                          [None] * len(cols), ones(1_000_003), prog, groups))
+    # sizes around a thread's 4 rows, the tiles of 256 / 512 / 1024 rows
+    # (64, 128 or 256 threads) and one step of a 2-blocks-an-SM grid;
+    # views one element in (int64 8 bytes and int32 4 bytes off 16,
+    # bools off 4), 0 rows
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ns = {0, 1, 2, 3, 4, 5, 7, 8, 9}
+    for s in (256, 512, 1024, 2 * sms * 1024):
+        ns |= {s - 1, s, s + 1}
+    prog = kn.Program(((L, 1), (C, 3), (kn.GT, 0)), ((L, 2), (kn.CLIP, 5)),
+                      (((C, 1),), ((L, 0), (kn.LO16, 0)), ((L, 0), (L, 1), (kn.MUL, 0))))
+    for n in sorted(ns):
+        for off in (0, 1):
+            a = rng.integers(-(2**40), 2**40, n)
+            b = rng.integers(-10, 10, n)
+            g = rng.integers(-1, 6, n)
+            cols = [_dev_view(a, off, dev, 2**40 + 7), _dev_view(b.astype(np.int32), off, dev, 9),
+                    _dev_view(g, off, dev, 1)]
+            valids = [_dev_view(rng.random(n) < 0.9, off, dev, True), None,
+                      _dev_view(rng.random(n) < 0.9, off, dev, True)]
+            cases.append((f"n={n}, views {off} element in", cols, valids,
+                          _dev_view(rng.random(n) < 0.9, off, dev, True), prog, 5))
+    for off in (2, 3, 5):
+        n = 300_001
+        cols = [_dev_view(rng.integers(-(2**40), 2**40, n), off, dev, 2**40 + 7),
+                _dev_view(rng.integers(-10, 10, n).astype(np.int32), off + 1, dev, 9),
+                _dev_view(rng.integers(-1, 6, n), 0, dev, 1)]
+        cases.append((f"views {off}/{off + 1}/0 elements in", cols,
+                      [_dev_view(rng.random(n) < 0.9, off, dev, True), None, None],
+                      _dev_view(rng.random(n) < 0.9, off + 2, dev, True), prog, 5))
+    # the longest programs: 64 terms, MAX_INS instructions, 32 groups and
+    # one group
+    n = 500_000
+    for groups in (32, 1):
+        cols = [i64(rng.integers(-(2**62), 2**62, n)),
+                i32(rng.integers(-(2**31), 2**31, n)), i32(rng.integers(-1, 34, n))]
+        cases.append((f"64 terms, {groups} groups, {kn.MAX_INS} instructions", cols,
+                      [rand_ok(n), None, rand_ok(n)], rand_ok(n),
+                      _longest_program(rng, 2, groups), groups))
+    # the widest: 73 int64 columns with validity lanes (blocks of 32
+    # threads); shared values beyond the slots
+    n = 300_001
+    for groups in (32, 1):
+        cols = [i64(rng.integers(-(2**62), 2**62, n)) for _ in range(72)]
+        cols.append(i64(rng.integers(-1, 34, n)))
+        cases.append((f"73 int64 columns with validity, {groups} groups", cols,
+                      [rand_ok(n) for _ in cols], rand_ok(n),
+                      _widest_program(73, groups), groups))
+    cols = [i32(rng.integers(-(2**31), 2**31, n)) for _ in range(16)]
+    for k, how in ((120, "shared: slots past 127"), (250, "unshared encoding")):
+        prog = _slot_pressure_program(k)
+        cases.append((f"{k} products live across two terms ({how}, "
+                      f"{kn.encode(prog).n_slots} slots)", cols, [None] * 16,
+                      rand_ok(n), prog, 1))
     return cases
 
 
@@ -308,15 +489,32 @@ def phase_kernels(dev):
     from trino_tpu_torch.ops import kernels as kn
 
     bad = 0
-    for lbl, cols, live, prog, groups in _fused_cases(dev):
-        got = kn.fused_agg_sums(cols, live, prog, groups)
-        want = kn.fused_agg_sums_plain(cols, live, prog, groups)
+    cases = _fused_cases(dev)
+    for lbl, cols, valids, live, prog, groups in cases:
+        got = kn.fused_agg_sums(cols, valids, live, prog, groups)
+        want = kn.fused_agg_sums_plain(cols, valids, live, prog, groups)
         torch.cuda.synchronize()
-        ok = torch.equal(got, want)
+        ok = torch.equal(got, want) and not ("no row passes" in lbl and want.any())
         bad += not ok
         _log(f"[kernels] fused_agg_sums {lbl}: "
              f"{'exact' if ok else 'MISMATCH'} ({len(prog.terms)} terms, "
-             f"{groups} groups, {live.shape[0]} rows)")
+             f"{groups} groups, {live.shape[0]} rows, "
+             f"{len(kn.encode(prog).ins)} instructions)")
+    # the wrapper queues its launch without a host sync or a host copy
+    # (a view off 16 bytes only gets a device copy): run it with PyTorch's
+    # sync debug mode raising on any synchronising call
+    for pick in ("Q6", "n=1025, views 1 element in"):
+        lbl, cols, valids, live, prog, groups = next(c for c in cases if c[0].startswith(pick))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = kn.fused_agg_sums(cols, valids, live, prog, groups)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ok = torch.equal(got, kn.fused_agg_sums_plain(cols, valids, live, prog, groups))
+        bad += not ok
+        _log(f"[kernels] fused_agg_sums under set_sync_debug_mode('error'), {lbl}: "
+             f"{'no sync, exact' if ok else 'MISMATCH'}")
     for lbl, flags, gid, cap in _count_cases(dev):
         got = kn.grouped_count(flags, gid, cap)
         want = kn.grouped_count_plain(flags, gid, cap)
@@ -550,9 +748,9 @@ def phase_sf1(dev, sf=1.0):
     pages = {}
     real = kn.fused_agg_sums
 
-    def rec_fused(cols, live, prog, groups):
-        MAIN["sf1_fused"] = (cols, live, prog, groups)  # the last: Q1's
-        return real(cols, live, prog, groups)
+    def rec_fused(*args):
+        MAIN["sf1_fused"] = args  # the last: Q1's
+        return real(*args)
 
     for mode in ("on", "off"):
         s.properties.set("megakernels", mode)
@@ -602,30 +800,67 @@ def phase_sf1(dev, sf=1.0):
 
 
 MAIN = {}
+FUSED_RANGE = "chip_smoke.fused_aggregate"
 
 
 def _profile(s, sql, label):
     """One traced run: device time by kernel name and the device's busy
     share of the wall."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from trino_tpu_torch.ops import megakernel
+
+    # the fused aggregate's PyTorch ops (any cast, AND or copy the runner
+    # launches around the kernel) under one host range
+    real_run = megakernel._run
+
+    def traced_run(ctx, node):
+        with record_function(FUSED_RANGE):
+            return real_run(ctx, node)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s.execute(sql)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    megakernel._run = traced_run
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        megakernel._run = real_run
 
     def dev_us(e):
         v = getattr(e, "self_device_time_total", None)
         return v if v is not None else getattr(e, "self_cuda_time_total", 0)
 
     # device-side events only (kernels, copies): the host-side aten ops
-    # carry their kernels' time too and would count it twice
+    # and the range carry their kernels' time too and would count it twice
     cuda = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in evs) / 1e6
+           if getattr(e, "device_type", None) == cuda and dev_us(e) > 0
+           and e.key != FUSED_RANGE]
+    # busy time and the fused aggregate's time from one list of device
+    # events, so the part never exceeds the whole: the aggregate is the
+    # device work of the runtime calls (launches, memsets, copies) made
+    # inside its host range, matched by correlation id, and the fused
+    # kernel (launched through ctypes)
+    events = list(prof.events())
+    dev_evs = [e for e in events if getattr(e, "device_type", None) == cuda
+               and e.name != FUSED_RANGE and not getattr(e, "is_user_annotation", False)]
+    span = lambda e: e.time_range.end - e.time_range.start  # noqa: E731
+    busy = sum(span(e) for e in dev_evs) / 1e6
+    for r in (e for e in events if e.name == FUSED_RANGE and e.device_type != cuda):
+        inside = {e.id for e in events
+                  if e.device_type != cuda and e.name.startswith("cuda")
+                  and r.time_range.start <= e.time_range.start <= r.time_range.end}
+        kern = [e for e in dev_evs if "fused_agg_kernel" in e.name]
+        ops = [e for e in dev_evs if e.id in inside and "fused_agg_kernel" not in e.name]
+        k_us, o_us = sum(span(e) for e in kern), sum(span(e) for e in ops)
+        if not kern and not ops:
+            continue  # the aggregate was refused (Reject) and ran unfused
+        _log(f"[profile] {label}: fused aggregate {(k_us + o_us) / 1e3:.3f} ms device "
+             f"time = fused_agg_kernel {k_us / 1e3:.3f} ms (x{len(kern)}) + other device "
+             f"work launched inside the aggregate {o_us / 1e3:.3f} ms (x{len(ops)}: "
+             f"{', '.join(sorted({e.name[:40] for e in ops}))})")
     _log(f"[profile] {label}: wall {wall * 1e3:.3f} ms, device busy "
          f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall, idle "
          f"{100 * (1 - busy / wall):.1f}%)")
@@ -663,9 +898,9 @@ def phase_sf10(dev, do_profile=False):
     recorded = {}
     real = {name: getattr(kn, name) for name in KERNEL_FNS}
 
-    def rec_fused(cols, live, prog, groups):
-        recorded[("fused", len(prog.terms))] = (cols, live, prog, groups)
-        return real["fused_agg_sums"](cols, live, prog, groups)
+    def rec_fused(*args):  # (cols, valids, live, prog, groups)
+        recorded[("fused", len(args[-2].terms))] = args
+        return real["fused_agg_sums"](*args)
 
     def rec_count(flags, gid, cap):
         recorded["count"] = (flags, gid, cap)
@@ -791,20 +1026,28 @@ def _time_queued_ms(fn, reps=15):
     return a.elapsed_time(b) / reps
 
 
-def _fused_work(cols, live, prog, groups):
+def _fused_work(cols, valids, live, prog, groups):
     """(bytes, operations) the fused function needs on these inputs:
-    each column and the live mask read once, the sums written once; one
-    operation per program instruction for the rows that evaluate it."""
+    each lane it reads once at its own element size (the values of the
+    columns the program reads, every validity lane, live), the sums
+    written once; one operation per encoded instruction for the rows
+    that evaluate it (the predicate and group id for every row, the
+    terms for the rows that pass)."""
     from trino_tpu_torch.ops import kernels as kn
 
-    nbytes = sum(c.numel() * 4 for c in cols) + live.numel() + len(prog.terms) * groups * 8
-    n_live = int(live.sum())
+    enc = kn.encode(prog)
+    n = live.numel()
+    nbytes = (sum(cols[k].element_size() * n for k, _s in enc.col_slots)
+              + n * (1 + sum(ok is not None for ok in valids))
+              + len(prog.terms) * groups * 8)
     mask = live.clone()
+    for ok in valids:
+        if ok is not None:
+            mask &= ok
     if prog.pred:
-        mask &= kn._run_plain(prog.pred, cols, live) != 0
+        mask &= kn._run_plain(prog.pred, [c.to(torch.int32) for c in cols], live) != 0
     n_pass = int(mask.sum())
-    ops = len(prog.pred) * n_live + (
-        len(prog.gid) + sum(len(t) + 1 for t in prog.terms)) * n_pass
+    ops = enc.n_pre * n + (len(enc.ins) - enc.n_pre) * n_pass
     return nbytes, ops
 
 
@@ -885,30 +1128,35 @@ def phase_timing(dev):
     rows = []
     fused_keys = sorted(k for k in rec if isinstance(k, tuple) and k[0] == "fused")
     for key in fused_keys:
-        cols, live, prog, groups = rec[key]
-        got = kn.fused_agg_sums(cols, live, prog, groups)
-        want = kn.fused_agg_sums_plain(cols, live, prog, groups)
+        args = rec[key]
+        cols, valids, live, prog, groups = args
+        got = kn.fused_agg_sums(*args)
+        want = kn.fused_agg_sums_plain(*args)
         err = int((got - want).abs().max())
-        nbytes, ops = _fused_work(cols, live, prog, groups)
+        nbytes, ops = _fused_work(*args)
         row = _row(
             "fused_agg_sums", launches, err,
-            _time_ms(lambda: kn.fused_agg_sums(cols, live, prog, groups), 15),
-            _time_ms(lambda: kn.fused_agg_sums_plain(cols, live, prog, groups), 5),
+            _time_ms(lambda: kn.fused_agg_sums(*args), 15),
+            _time_ms(lambda: kn.fused_agg_sums_plain(*args), 5),
             nbytes, ops, None,
         )
-        queued = _time_queued_ms(lambda: kn.fused_agg_sums(cols, live, prog, groups))
+        queued = _time_queued_ms(lambda: kn.fused_agg_sums(*args))
         _log(f"[timing] fused_agg_sums {len(prog.terms)} terms x {groups} groups, "
-             f"{live.shape[0]} rows, {nbytes} bytes, {ops} ops: {json.dumps(row)}; "
-             f"back to back: {queued} ms")
+             f"{live.shape[0]} rows, lanes {[str(c.dtype) for c in cols]}, "
+             f"{len(kn.encode(prog).ins)} instructions, {nbytes} bytes, {ops} ops: "
+             f"{json.dumps(row)}; back to back: {queued} ms")
         rows.append(row)
     if "sf1_fused" in MAIN:  # Q1's fused call at SF1 (logged, not in the line)
-        cols, live, prog, groups = MAIN["sf1_fused"]
-        nbytes, ops = _fused_work(cols, live, prog, groups)
-        ms = _time_ms(lambda: kn.fused_agg_sums(cols, live, prog, groups), 15)
-        pms = _time_ms(lambda: kn.fused_agg_sums_plain(cols, live, prog, groups), 5)
+        args = MAIN["sf1_fused"]
+        cols, valids, live, prog, groups = args
+        nbytes, ops = _fused_work(*args)
+        ms = _time_ms(lambda: kn.fused_agg_sums(*args), 15)
+        pms = _time_ms(lambda: kn.fused_agg_sums_plain(*args), 5)
+        queued = _time_queued_ms(lambda: kn.fused_agg_sums(*args))
         _log(f"[timing] fused_agg_sums SF1 Q1 {len(prog.terms)} terms x {groups} "
              f"groups, {live.shape[0]} rows: ms {ms} plain_ms {pms} bound_ms "
-             f"{nbytes / HBM_BYTES_PER_S * 1e3} ({nbytes} bytes, {ops} ops)")
+             f"{nbytes / HBM_BYTES_PER_S * 1e3} ({nbytes} bytes, {ops} ops); "
+             f"back to back: {queued} ms")
     flags, gid, cap = rec["count"]
     got = kn.grouped_count(flags, gid, cap)
     want = kn.grouped_count_plain(flags, gid, cap)
@@ -965,8 +1213,10 @@ def phase_timing(dev):
 def main(argv=None) -> int:
     global MAIN_REPS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", default="all", choices=["all", "kernels"],
-                    help="run only the build and kernel phases (debugging)")
+    ap.add_argument("--phase", default="all", choices=["all", "kernels", "main"],
+                    help="run only the build and kernel phases, or only the build "
+                         "and the SF10 main path (which also runs on the package "
+                         "of an earlier commit, for comparisons)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each main-path query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -982,7 +1232,11 @@ def main(argv=None) -> int:
     smi = _smi()
     _log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
          f"{torch.__version__} cuda {torch.version.cuda}")
-    phases = [("build", phase_build), ("kernels", lambda: phase_kernels(dev))]
+    phases = [("build", phase_build)]
+    if args.phase == "main":
+        phases.append(("main", lambda: phase_sf10(dev, args.profile)))
+    else:
+        phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
         phases += [
             ("sf1", lambda: phase_sf1(dev)),

@@ -8,6 +8,8 @@ are made with numpy from fixed seeds and every comparison is exact
 (integer sums and counts).  The fused kernel's per-row work is a postfix
 program on the port's side and the equivalent closure on the JAX side;
 the closure is built by interpreting the same program over jnp tiles.
+The straight-line encoding that the CUDA kernel runs is held against the
+postfix programs by a test-only evaluator of its own.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -111,21 +113,301 @@ def _fused_cases():
              ((L, 0), (C, 70000), (kn.MUL, 0), (kn.HI16, 0)))
     out.append(("every_opcode", cols, rng.random(n) < 0.8,
                 kn.Program(pred, gid, terms), 20))
+    # a SUM list wider than lineitem: 40 columns, one term each and one
+    # over all of them
+    n = 3000
+    cols = [rng.integers(0, 1000, n) for _ in range(40)]
+    every = ((L, 0),) + sum((((L, i), (kn.ADD, 0)) for i in range(1, 40)), ())
+    out.append(("wide_sum_list_40_columns", cols, rng.random(n) < 0.9,
+                kn.Program(((L, 0), (C, 500), (kn.LT, 0), (L, 39), (C, 10), (kn.GE, 0),
+                            (kn.AND, 0)), ((L, 1), (kn.CLIP, 3)),
+                           tuple(((L, i),) for i in range(40)) + (every,)), 3))
     return out
+
+
+def _jax_fused(cols, live, prog, groups):
+    """The JAX fused_agg_sums in interpret mode on lanes prepared as the
+    reference's runner prepares them: astype(int32), live & ok."""
+    jcols = {f"c{i}": jnp.asarray(np.asarray(c).astype(np.int32))
+             for i, c in enumerate(cols)}
+    return np.asarray(jpk.fused_agg_sums(
+        jcols, jnp.asarray(live), _emit(prog), len(prog.terms), groups,
+        interpret=True,
+    ))
 
 
 @pytest.mark.parametrize("case", _fused_cases(), ids=lambda c: c[0])
 def test_fused_agg_sums_plain_matches_jax_interpret(case):
     _label, cols, live, prog, groups = case
     tcols = [torch.as_tensor(np.asarray(c, np.int32)) for c in cols]
-    got = kn.fused_agg_sums(tcols, torch.as_tensor(live), prog, groups)
-    jcols = {f"c{i}": jnp.asarray(np.asarray(c, np.int32)) for i, c in enumerate(cols)}
-    want = np.asarray(jpk.fused_agg_sums(
-        jcols, jnp.asarray(live), _emit(prog), len(prog.terms), groups,
-        interpret=True,
-    ))
+    got = kn.fused_agg_sums(tcols, [None] * len(cols), torch.as_tensor(live),
+                            prog, groups)
     assert got.dtype == torch.int64
-    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), _jax_fused(cols, live, prog, groups))
+
+
+@pytest.mark.parametrize("case", _fused_cases(), ids=lambda c: c[0])
+def test_fused_agg_sums_lanes_as_stored_match_jax_interpret(case):
+    """int64 lanes holding values outside int32 (their low words are the
+    case's values) and validity lanes with false entries, against the
+    JAX kernel on the narrowed lanes and live & ok."""
+    _label, cols, live, prog, groups = case
+    rng = np.random.default_rng(len(live))
+    wide = [np.asarray(c, np.int64) + (rng.integers(-3, 4, len(c)) << 32)
+            for c in cols]
+    oks = [rng.random(len(live)) < 0.9 for _ in cols]
+    oks[0] = None  # a lane without validity
+    got = kn.fused_agg_sums(
+        [torch.as_tensor(c) for c in wide],
+        [None if ok is None else torch.as_tensor(ok) for ok in oks],
+        torch.as_tensor(live), prog, groups)
+    jlive = live & np.logical_and.reduce([ok for ok in oks[1:]] or [live])
+    assert any(int(c.max()) > 2**31 for c in wide)
+    assert np.array_equal(got.numpy(), _jax_fused(wide, jlive, prog, groups))
+
+
+def _rand_code(rng, n_cols, depth):
+    """A random well-formed postfix program (chip_smoke.py's generator):
+    full-range int32 constants, so folding wraps."""
+    if depth == 0 or rng.random() < 0.25:
+        if rng.random() < 0.6:
+            return ((L, int(rng.integers(0, n_cols))),)
+        return ((C, int(rng.integers(-(2**31), 2**31))),)
+    if rng.random() < 0.3:
+        op = int(rng.choice([kn.NEG, kn.LO16, kn.HI16, kn.NOT, kn.CLIP]))
+        imm = int(rng.integers(1, 40)) if op == kn.CLIP else 0
+        return _rand_code(rng, n_cols, depth - 1) + ((op, imm),)
+    op = int(rng.choice([kn.ADD, kn.SUB, kn.MUL, kn.EQ, kn.NE, kn.LT,
+                         kn.LE, kn.GT, kn.GE, kn.AND, kn.OR]))
+    return (_rand_code(rng, n_cols, depth - 1)
+            + _rand_code(rng, n_cols, depth - 1) + ((op, 0),))
+
+
+def _run_encoded(enc, cols, live, groups, n_terms):
+    """Test-only evaluator of the kernel's straight-line encoding
+    (csrc/fused_agg.cu's semantics over whole numpy int32 columns)."""
+    n = live.shape[0]
+    slots = {s: np.asarray(cols[k]).astype(np.int32) for k, s in enc.col_slots}
+    mask = live.copy()
+    sums = np.zeros((n_terms, groups), np.int64)
+    gid = None
+    for i, (op, fl, dst, a, b) in enumerate(enc.ins):
+        if i == enc.n_pre:
+            gf, gv = enc.gid
+            gid = np.full(n, gv, np.int32) if gf & kn.F_IMM else slots[gv]
+            mask &= (gid >= 0) & (gid < groups)
+        y = np.full(n, b, np.int32) if fl & kn.F_IMM else slots[b]
+        if op == kn.ACC:
+            np.add.at(sums[dst], gid[mask].astype(np.int64),
+                      y[mask].astype(np.int64))
+            continue
+        x = slots.get(a)
+        with np.errstate(over="ignore"):
+            r = {
+                kn.ADD: lambda: x + y, kn.SUB: lambda: x - y,
+                kn.RSUB: lambda: y - x, kn.MUL: lambda: x * y,
+                kn.EQ: lambda: x == y, kn.NE: lambda: x != y,
+                kn.LT: lambda: x < y, kn.LE: lambda: x <= y,
+                kn.GT: lambda: x > y, kn.GE: lambda: x >= y,
+                kn.AND: lambda: (x != 0) & (y != 0),
+                kn.OR: lambda: (x != 0) | (y != 0),
+                kn.CLIP: lambda: np.clip(x, 0, y - 1),
+                kn.NEG: lambda: -y, kn.LO16: lambda: y & 0xFFFF,
+                kn.HI16: lambda: y >> 16, kn.NOT: lambda: y == 0,
+                kn.MOV: lambda: y,
+            }[op]().astype(np.int32)
+        if fl & kn.F_MASK:
+            mask &= r != 0
+        if dst != kn.NO_DST:
+            slots[dst] = r
+    return sums
+
+
+def _random_programs():
+    rng = np.random.default_rng(2026)
+    out = []
+    for r in range(24):
+        n, k = 3000, int(rng.integers(1, 5))
+        groups = int(rng.integers(1, 33))
+        cols = [rng.integers(-(2**31), 2**31, n) for _ in range(k)]
+        cols.append(rng.integers(-1, groups + 2, n))
+        gid = ((L, k), (kn.CLIP, groups)) if r % 3 else _rand_code(rng, k + 1, 2)
+        pred = _rand_code(rng, k, 3) if r % 2 else ()
+        terms = tuple(_rand_code(rng, k, int(rng.integers(1, 5)))
+                      for _ in range(int(rng.integers(1, 12))))
+        if r % 4 == 0:  # repeated subexpressions across every part
+            shared = _rand_code(rng, k, 3)
+            pred = shared + ((C, 7), (kn.GT, 0)) + (pred + ((kn.AND, 0),) if pred else ())
+            terms = terms + tuple(shared + t + ((kn.ADD, 0),) for t in terms)
+        out.append((f"random_{r}", cols, rng.random(n) < 0.9,
+                    kn.Program(pred, gid, terms), groups))
+    # constants that fold, with int32 wrap, down to a constant predicate
+    # and constant terms
+    big = ((C, 2**31 - 1), (C, 2), (kn.MUL, 0))
+    out.append(("folding_with_wrap", [rng.integers(-5, 5, 500)],
+                np.ones(500, bool),
+                kn.Program(big + ((C, -2), (kn.EQ, 0)), (),
+                           (big, big + ((kn.NEG, 0),), ((C, -(2**31)), (kn.NEG, 0)),
+                            ((L, 0), (C, 3), (C, 4), (kn.MUL, 0), (kn.SUB, 0)))), 1))
+    out.append(("predicate_never_true", [rng.integers(0, 9, 500)],
+                np.ones(500, bool),
+                kn.Program(((L, 0), (C, 0), (C, 1), (kn.GT, 0), (kn.AND, 0)), (),
+                           (((C, 1),),)), 1))
+    return out
+
+
+@pytest.mark.parametrize("case", _random_programs() + _fused_cases(),
+                         ids=lambda c: c[0])
+def test_encoding_matches_postfix_programs(case):
+    """The straight-line encoding, run by a test-only evaluator, gives
+    exactly the sums of the postfix programs' plain version."""
+    _label, cols, live, prog, groups = case
+    kn.check_program(prog, len(cols), groups)
+    enc = kn.encode(prog)
+    want = kn.fused_agg_sums_plain(
+        [torch.as_tensor(np.asarray(c, np.int64)) for c in cols],
+        [None] * len(cols), torch.as_tensor(live), prog, groups)
+    got = _run_encoded(enc, cols, live, groups, len(prog.terms))
+    assert np.array_equal(got, want.numpy())
+    assert len(enc.ins) <= kn.MAX_INS and enc.n_slots <= kn.MAX_SLOTS
+
+
+def _deep_ops(cols, k0):
+    """Products of columns and distinct constants summed right to left:
+    stack depth len(cols) + 1, every operand a temporary."""
+    return (sum((((L, c), (C, k0 + i), (kn.MUL, 0)) for i, c in enumerate(cols)), ())
+            + ((kn.ADD, 0),) * (len(cols) - 1))
+
+
+def _widest_program(k, groups):
+    """k columns (the last the group id), 64 terms, a predicate and a
+    term at the postfix kernel's stack limit of 16."""
+    terms = [((L, t % (k - 1)),) for t in range(kn.MAX_TERMS)]
+    terms[0] = _deep_ops(range(15), 101)
+    return kn.Program(_deep_ops(range(k - 16, k - 1), 3) + ((C, 0), (kn.GT, 0)),
+                      ((L, k - 1), (kn.CLIP, groups)), tuple(terms))
+
+
+def _slot_pressure_program(n=250):
+    """Two terms summing the same n products in opposite orders: shared,
+    all n products stay live from one term to the other."""
+    v = [((L, j % 16), (C, 1000 + j), (kn.MUL, 0)) for j in range(n)]
+    return kn.Program((), (), tuple(
+        w[0] + sum((x + ((kn.ADD, 0),) for x in w[1:]), ()) for w in (v, v[::-1])))
+
+
+def _postfix_limit_programs():
+    """(label, n_cols, program, groups): programs within the limits of
+    the postfix kernel this one replaced (2,048 instructions, stack depth
+    16, 64 terms, 32 groups), up to 73 columns."""
+    rng = np.random.default_rng(99)
+    out = [(f"73_columns_{g}_groups", 73, _widest_program(73, g), g) for g in (1, 32)]
+    out.append(("250_products_live_across_terms", 16, _slot_pressure_program(), 1))
+    terms, left = [], 2048 - 40
+    for _ in range(kn.MAX_TERMS):  # lineitem's 16 columns, random programs
+        t = _rand_code(rng, 16, 4)
+        if len(t) <= left - (kn.MAX_TERMS - len(terms)):
+            terms.append(t)
+            left -= len(t)
+        else:
+            terms.append(((L, len(terms) % 16),))
+            left -= 1
+    out.append(("16_columns_64_random_terms", 16, kn.Program(
+        _deep_ops(range(15), 7) + ((C, 0), (kn.NE, 0)), ((L, 15), (kn.CLIP, 32)),
+        tuple(terms)), 32))
+    return out
+
+
+@pytest.mark.parametrize("case", _postfix_limit_programs(), ids=lambda c: c[0])
+def test_programs_within_the_postfix_limits_fit_the_launch(case):
+    """Every program the postfix kernel took over at most 73 columns
+    passes check_program (no new Reject), encodes to no more instructions
+    than its postfix code, and its encoding gives the plain sums."""
+    _label, k, prog, groups = case
+    codes = (prog.pred, prog.gid) + prog.terms
+    assert sum(len(c) for c in codes) <= 2048
+    assert max(kn.stack_depth(c) for c in codes) <= 16
+    kn.check_program(prog, k, groups)
+    enc = kn.encode(prog)
+    assert len(enc.ins) <= sum(len(c) for c in codes)
+    rng = np.random.default_rng(k)
+    n = 2000
+    cols = [rng.integers(-(2**31), 2**31, n) for _ in range(k - 1)]
+    cols.append(rng.integers(-1, groups + 1, n))
+    live = rng.random(n) < 0.9
+    want = kn.fused_agg_sums_plain([torch.as_tensor(c) for c in cols], [None] * k,
+                                   torch.as_tensor(live), prog, groups)
+    assert np.array_equal(_run_encoded(enc, cols, live, groups, len(prog.terms)),
+                          want.numpy())
+
+
+def test_code_words_decode_as_the_kernel_reads_them():
+    """Slots past 127 set the top bit of an instruction's first word:
+    the kernel's signed shifts and masks still give each field back."""
+    enc = kn.encode(_slot_pressure_program(120))
+    assert enc.n_slots > 128
+    words = list(kn._code_words(_slot_pressure_program(120)))
+    assert any(w < 0 for w in words[0::2])
+    got = [(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, (x >> 24) & 0xFF, y)
+           for x, y in zip(words[0::2], words[1::2])]
+    assert got == list(enc.ins)
+
+
+def test_encoding_without_sharing_matches_postfix_programs():
+    """The encoding a program falls back to when shared values would
+    take more than MAX_SLOTS slots, over the random programs: exact, and
+    never more temporaries than the postfix stack depth."""
+    for _label, cols, live, prog, groups in _random_programs() + _fused_cases():
+        enc = kn._encode(prog, share=False)
+        codes = (prog.pred, prog.gid) + prog.terms
+        depth = max(kn.stack_depth(c) for c in codes)
+        assert enc.n_slots <= len(enc.col_slots) + depth + 1
+        want = kn.fused_agg_sums_plain(
+            [torch.as_tensor(np.asarray(c, np.int64)) for c in cols],
+            [None] * len(cols), torch.as_tensor(live), prog, groups)
+        assert np.array_equal(_run_encoded(enc, cols, live, groups, len(prog.terms)),
+                              want.numpy())
+
+
+@pytest.fixture(scope="module")
+def tpch_fused_calls():
+    """The fused calls of the port's Q6 and Q1 (CPU, megakernels on)."""
+    from tpch_sql import QUERIES
+    from trino_tpu_torch.session import tpch_session
+
+    calls = []
+    real = kn.fused_agg_sums
+
+    def shim(*args):
+        calls.append(args)
+        return real(*args)
+
+    kn.fused_agg_sums = shim
+    try:
+        s = tpch_session(0.002, device="cpu", megakernels="on")
+        for q in (6, 1):
+            s.execute(QUERIES[q][0])
+    finally:
+        kn.fused_agg_sums = real
+    return {"q6": calls[0], "q1": calls[1]}
+
+
+@pytest.mark.parametrize("q,want", [("q6", (4, 11, 30)), ("q1", (7, 29, 93))])
+def test_encoding_of_tpch_programs(tpch_fused_calls, q, want):
+    """Q6's and Q1's programs: lanes as stored (int64 decimals, bool
+    validity), folded and shared down to the instruction counts below,
+    and the encoding's sums equal to the plain version's."""
+    cols, valids, live, prog, groups = tpch_fused_calls[q]
+    assert {c.dtype for c in cols} == {torch.int32, torch.int64}
+    assert all(ok is not None and ok.dtype == torch.bool for ok in valids)
+    enc = kn.encode(prog)
+    postfix = len(prog.pred) + len(prog.gid) + sum(len(t) for t in prog.terms)
+    assert (len(enc.col_slots), len(enc.ins), postfix) == want
+    mask = live.numpy() & np.logical_and.reduce([ok.numpy() for ok in valids])
+    got = _run_encoded(enc, [c.numpy() for c in cols], mask, groups,
+                       len(prog.terms))
+    assert np.array_equal(got, kn.fused_agg_sums_plain(
+        cols, valids, live, prog, groups).numpy())
 
 
 # Sizes around the CUDA kernels' unrolled steps (rows a thread and rows a
@@ -251,12 +533,27 @@ def test_seg_count_gate_mirrors_capacity_bound():
 def test_wrappers_check_their_inputs():
     prog = kn.Program((), (), (((L, 0),),))
     live = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(ValueError):  # int64 column
-        kn.fused_agg_sums([torch.zeros(4, dtype=torch.int64)], live, prog, 1)
+    with pytest.raises(ValueError):  # int16 column
+        kn.fused_agg_sums([torch.zeros(4, dtype=torch.int16)], [None], live, prog, 1)
+    with pytest.raises(ValueError):  # a validity lane that is not bool
+        kn.fused_agg_sums([torch.zeros(4, dtype=torch.int64)],
+                          [torch.ones(4, dtype=torch.uint8)], live, prog, 1)
+    with pytest.raises(ValueError):  # no validity entry for the column
+        kn.fused_agg_sums([torch.zeros(4, dtype=torch.int64)], [], live, prog, 1)
     with pytest.raises(ValueError):  # LOAD beyond the column list
-        kn.fused_agg_sums([], live, prog, 1)
+        kn.fused_agg_sums([], [], live, prog, 1)
     with pytest.raises(ValueError):  # stack underflow
         kn.check_program(kn.Program((), (), (((kn.ADD, 0),),)), 1, 1)
+    with pytest.raises(ValueError):  # more columns than the launch takes
+        kn.check_program(prog, kn.MAX_COLS + 1, 1)
+    with pytest.raises(ValueError):  # lanes beyond shared memory at 32 threads
+        kn.check_program(_widest_program(74, 1), 74, 1)
+    long = ((L, 0),) + sum((((C, 1000 + i), (kn.ADD, 0)) for i in range(40)), ())
+    with pytest.raises(ValueError):  # more instructions than the launch takes
+        kn.check_program(kn.Program((), (), tuple(
+            ((L, 0),) + sum((((C, 7919 * t + i), (kn.ADD, 0)) for i in range(40)), ())
+            for t in range(kn.MAX_TERMS))), 1, 1)
+    assert len(kn.encode(kn.Program((), (), (long,))).ins) == 41
     with pytest.raises(ValueError):
         kn.grouped_count(torch.ones(3, dtype=torch.bool),
                          torch.zeros(4, dtype=torch.int64), 2)
@@ -274,11 +571,14 @@ def test_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python3 chip_smoke.py)")
     dev = torch.device("cuda")
-    for _label, cols, live, prog, groups in _fused_cases():
-        tcols = [torch.as_tensor(np.asarray(c, np.int32), device=dev) for c in cols]
-        tl = torch.as_tensor(live, device=dev)
-        assert torch.equal(kn.fused_agg_sums(tcols, tl, prog, groups),
-                           kn.fused_agg_sums_plain(tcols, tl, prog, groups))
+    for _label, cols, live, prog, groups in _fused_cases() + _random_programs():
+        for dt in (np.int32, np.int64):
+            tcols = [torch.as_tensor(np.asarray(c).astype(dt), device=dev) for c in cols]
+            oks = [torch.as_tensor(np.arange(len(live)) % 7 != k, device=dev)
+                   for k in range(len(cols))]
+            tl = torch.as_tensor(live, device=dev)
+            assert torch.equal(kn.fused_agg_sums(tcols, oks, tl, prog, groups),
+                               kn.fused_agg_sums_plain(tcols, oks, tl, prog, groups))
     rng = np.random.default_rng(3)
     flags = torch.as_tensor(rng.integers(0, 2, 100_000).astype(bool), device=dev)
     gid = torch.as_tensor(rng.integers(-2, 14, 100_000), device=dev)

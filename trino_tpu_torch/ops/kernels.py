@@ -21,17 +21,24 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import shutil
 import subprocess
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 MAX_GROUPS = 32   # shared accumulator table bound (as the TPU kernels)
-MAX_TERMS = 64    # csrc/fused_agg.cu kMaxTerms
-MAX_CODE = 2048   # csrc/fused_agg.cu kMaxCode (instructions)
-STACK_MAX = 16    # csrc/fused_agg.cu kStack
+# limits of csrc/fused_agg.cu's launch parameters (struct Params)
+MAX_TERMS = 64    # kMaxTerms
+MAX_COLS = 128    # kMaxCols: columns of one fused call
+MAX_INS = 2048    # kMaxIns: encoded instructions
+MAX_SLOTS = 255   # kMaxSlots: value slots (columns + temporaries)
+# its shared memory: kR rows a thread, kStages tiles in flight, and the
+# dynamic shared memory a block may opt in to on sm_90 (227 KiB)
+FUSED_ROWS, FUSED_STAGES = 4, 2
+SMEM_OPTIN = 232_448
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -83,39 +90,276 @@ def stack_depth(code: Code) -> int:
     return best
 
 
+@functools.lru_cache(maxsize=256)
 def check_program(prog: Program, n_cols: int, groups: int) -> None:
-    """Raise ValueError unless the kernel can run `prog` as given."""
+    """Raise ValueError unless the kernel can run `prog` as given (a pass
+    is remembered: the wrapper checks every call)."""
     if not 1 <= groups <= MAX_GROUPS:
         raise ValueError(f"groups {groups} outside [1, {MAX_GROUPS}]")
     if not 1 <= len(prog.terms) <= MAX_TERMS:
         raise ValueError(f"{len(prog.terms)} terms outside [1, {MAX_TERMS}]")
+    if n_cols > MAX_COLS:
+        raise ValueError(f"{n_cols} columns, the launch takes {MAX_COLS}")
     codes = (prog.pred, prog.gid) + tuple(prog.terms)
-    if sum(len(c) for c in codes) > MAX_CODE:
-        raise ValueError("postfix program longer than the kernel's table")
     for i, c in enumerate(codes):
         if i >= 2 and not c:
             raise ValueError("a term program is empty")
-        if stack_depth(c) > STACK_MAX:
-            raise ValueError(f"postfix stack deeper than {STACK_MAX}")
+        stack_depth(c)  # raises on a malformed program
         for op, imm in c:
             if op == LOAD and not 0 <= imm < n_cols:
                 raise ValueError(f"LOAD of column {imm} of {n_cols}")
             if op == CONST and not -(2**31) <= imm < 2**31:
                 raise ValueError(f"constant {imm} outside int32")
-            if op == CLIP and imm < 1:
+            if op == CLIP and not 1 <= imm < 2**31:
                 raise ValueError("CLIP domain must be positive")
+    enc = encode(prog)
+    if len(enc.ins) > MAX_INS:
+        raise ValueError(f"{len(enc.ins)} encoded instructions, the kernel "
+                         f"takes {MAX_INS}")
+    if enc.n_slots > MAX_SLOTS:
+        raise ValueError(f"{enc.n_slots} value slots, the kernel has {MAX_SLOTS}")
+    # the lanes' element sizes are not known here: count each column read
+    # as int64 and every column with a validity lane
+    lane_bytes = 8 * len(enc.col_slots) + n_cols + 1
+    need = fused_smem_bytes(32, enc.n_slots, lane_bytes, len(prog.terms), groups)
+    if need > SMEM_OPTIN:
+        raise ValueError(f"{need} bytes of shared memory at 32 threads a block, "
+                         f"the card has {SMEM_OPTIN}")
 
 
-def encode(prog: Program) -> Tuple[List[int], List[int]]:
-    """(flat (op, imm) int32 words, (start, len) per program) as the
-    kernel reads them."""
-    words: List[int] = []
-    seg: List[int] = []
-    for c in (prog.pred, prog.gid) + tuple(prog.terms):
-        seg += [len(words) // 2, len(c)]
-        for op, imm in c:
-            words += [int(op), int(imm)]
-    return words, seg
+def fused_smem_bytes(threads: int, n_slots: int, lane_bytes: int, n_terms: int,
+                     groups: int) -> int:
+    """Dynamic shared memory of one block of csrc/fused_agg.cu (its
+    fill_and_launch): the value slots, kStages tiles of every lane
+    (`lane_bytes` = the lanes' element sizes summed) and the accumulators."""
+    per_thread = (n_slots * FUSED_ROWS * 4 + FUSED_STAGES * FUSED_ROWS * lane_bytes
+                  + (n_terms * 8 if groups == 1 else 0))
+    return threads * per_thread + (0 if groups == 1 else n_terms * groups * 8)
+
+
+# -- straight-line encoding (csrc/fused_agg.cu) --------------------------
+#
+# The kernel does not interpret the postfix code.  `encode` compiles a
+# Program into one straight-line list of instructions with explicit
+# operands: constants folded (int32 wrap), common subexpressions shared
+# across the predicate, the group id and every term (where that keeps at
+# most MAX_SLOTS values live), the predicate's top-level conjuncts ANDed
+# into a row mask one by one, and every value in a slot chosen here
+# (columns take slots 0.., temporaries the rest, reused once dead), so
+# the kernel keeps no stack.
+#
+# An instruction is (op, flags, dst, a, b): a is a slot; b is a slot, or
+# the immediate when flags has F_IMM; binary ops compute a op b, unary
+# ops and MOV read b; CLIP clamps a to [0, b - 1]; ACC adds b to term dst
+# for the rows of the mask.  F_MASK ANDs (result != 0) into the row mask;
+# dst NO_DST keeps the result nowhere else.  The first n_pre instructions
+# (predicate and group id) run for every row; the rest (terms) only in
+# warps where some row passed.
+
+RSUB, MOV, ACC = 18, 19, 20   # kernel-only opcodes: b - a, copy, accumulate
+F_IMM, F_MASK = 1, 2
+NO_DST = 255
+_COMMUTE = {ADD, MUL, EQ, NE, AND, OR}
+_MIRROR = {SUB: RSUB, LT: GT, LE: GE, GT: LT, GE: LE}  # k op x == x op' k
+
+
+def _wrap(v: int) -> int:
+    return (v + 2**31) % 2**32 - 2**31
+
+
+def _fold(op: int, a: int, b: int = 0) -> int:
+    """`op` on int32 constants, wrapping as the kernel and torch do."""
+    if op == ADD:
+        return _wrap(a + b)
+    if op == SUB:
+        return _wrap(a - b)
+    if op == RSUB:
+        return _wrap(b - a)
+    if op == MUL:
+        return _wrap(a * b)
+    if op == NEG:
+        return _wrap(-a)
+    if op == LO16:
+        return a & 0xFFFF
+    if op == HI16:
+        return a >> 16
+    if op == NOT:
+        return int(a == 0)
+    if op == CLIP:
+        return min(max(a, 0), b - 1)
+    return int({
+        EQ: a == b, NE: a != b, LT: a < b, LE: a <= b, GT: a > b, GE: a >= b,
+        AND: a != 0 and b != 0, OR: a != 0 or b != 0,
+    }[op])
+
+
+@dataclasses.dataclass(frozen=True)
+class Encoded:
+    """A Program as csrc/fused_agg.cu runs it (see the note above)."""
+
+    ins: Tuple[Tuple[int, int, int, int, int], ...]  # (op, flags, dst, a, b)
+    n_pre: int                                       # predicate + group id
+    gid: Tuple[int, int]                             # (flags, slot or immediate)
+    col_slots: Tuple[Tuple[int, int], ...]           # (column, slot) read
+    n_slots: int
+
+    def words(self) -> List[int]:
+        """Two int32 words an instruction, as the kernel decodes them."""
+        out: List[int] = []
+        for op, fl, dst, a, b in self.ins:
+            out += [op | fl << 8 | dst << 16 | a << 24, b]
+        return out
+
+
+class _Values:
+    """Value numbering with constant folding.  A value is ("k", v) for an
+    int32 constant or an int id of a node: ("col", k) or (op, x, y), with
+    a constant, if any, always in y (commuted or mirrored there).  Without
+    `share`, every operation is a node of its own, its operands in postfix
+    order."""
+
+    def __init__(self, share: bool):
+        self.share = share
+        self.ids: Dict[tuple, int] = {}
+        self.node: List[tuple] = []
+
+    def _id(self, key: tuple) -> int:
+        i = self.ids.get(key)
+        if i is None or not (self.share or key[0] == "col"):
+            i = self.ids[key] = len(self.node)
+            self.node.append(key)
+        return i
+
+    def col(self, k: int) -> int:
+        return self._id(("col", k))
+
+    def apply(self, op: int, x, y=None):
+        xk, yk = isinstance(x, tuple), isinstance(y, tuple)
+        if y is None:
+            return ("k", _fold(op, x[1])) if xk else self._id((op, x, None))
+        if xk and yk:
+            return ("k", _fold(op, x[1], y[1]))
+        if xk:
+            x, y = y, x
+            op = op if op in _COMMUTE else _MIRROR[op]
+        elif self.share and op in _COMMUTE and not yk and y < x:
+            x, y = y, x
+        return self._id((op, x, y))
+
+    def tree(self, code: Code):
+        st: list = []
+        for op, imm in code:
+            if op == LOAD:
+                st.append(self.col(imm))
+            elif op == CONST:
+                st.append(("k", _wrap(imm)))
+            elif op == CLIP:
+                st.append(self.apply(CLIP, st.pop(), ("k", imm)))
+            elif op in _UNARY:
+                st.append(self.apply(op, st.pop()))
+            else:
+                b = st.pop()
+                st.append(self.apply(op, st.pop(), b))
+        return st[-1]
+
+    def conjuncts(self, v, out: list) -> None:
+        if not isinstance(v, tuple) and self.node[v][0] == AND:
+            self.conjuncts(self.node[v][1], out)
+            self.conjuncts(self.node[v][2], out)
+        elif v not in out:
+            out.append(v)
+
+
+@functools.lru_cache(maxsize=256)
+def encode(prog: Program) -> Encoded:
+    """Compile a well-formed Program (check_program) for the kernel, its
+    common subexpressions shared unless that keeps more than MAX_SLOTS
+    values live; then each program is evaluated on its own, in postfix
+    order, with no more temporaries than its stack depth."""
+    enc = _encode(prog, share=True)
+    return enc if enc.n_slots <= MAX_SLOTS else _encode(prog, share=False)
+
+
+def _encode(prog: Program, share: bool) -> Encoded:
+    vals = _Values(share)
+    # [op, flags, value defined (or None), a (or None), b, term (ACC)]
+    code: List[list] = []
+    at: Dict[int, int] = {}
+
+    def emit(v) -> None:
+        if v is None or isinstance(v, tuple) or v in at or vals.node[v][0] == "col":
+            return
+        op, x, y = vals.node[v]
+        emit(x)
+        emit(y)
+        at[v] = len(code)
+        code.append([op, 0, v, None, x, 0] if y is None else [op, 0, v, x, y, 0])
+
+    conj: list = []
+    if prog.pred:
+        vals.conjuncts(vals.tree(prog.pred), conj)
+    for c in conj:
+        if isinstance(c, tuple):
+            if c[1] == 0:  # never true
+                code.append([MOV, F_MASK, None, None, c, 0])
+        elif c in at or vals.node[c][0] == "col":
+            code.append([MOV, F_MASK, None, None, c, 0])
+        else:
+            emit(c)
+            code[at[c]][1] |= F_MASK
+    gid = vals.tree(prog.gid) if prog.gid else ("k", 0)
+    emit(gid)
+    n_pre = len(code)
+    for t, tc in enumerate(prog.terms):
+        v = vals.tree(tc)
+        emit(v)
+        code.append([ACC, 0, None, None, v, t])
+
+    def operands(a, b):
+        return {x for x in (a, b) if x is not None and not isinstance(x, tuple)}
+
+    # register allocation: the last use of every value decides when its
+    # slot is free again; the group id stays live up to the mask point
+    last: Dict[int, float] = {}
+    for i, (_op, _fl, _v, a, b, _t) in enumerate(code):
+        for x in operands(a, b):
+            last[x] = i
+    if not isinstance(gid, tuple):
+        last[gid] = max(last.get(gid, -1), n_pre - 0.5)
+    cols = sorted(vals.node[v][1] for v in last if vals.node[v][0] == "col")
+    slot = {vals.col(k): s for s, k in enumerate(cols)}
+    free: List[int] = []
+    top = len(cols)
+
+    def release(v) -> None:
+        if vals.node[v][0] != "col":
+            free.append(slot[v])
+            free.sort()
+
+    out = []
+    for i, (op, fl, v, a, b, t) in enumerate(code):
+        if i == n_pre and not isinstance(gid, tuple) and last[gid] < i:
+            release(gid)
+        for x in operands(a, b):
+            if last[x] == i:
+                release(x)
+        if op == ACC:
+            dst = t
+        elif v is not None and last.get(v, -1) > i:
+            if free:
+                slot[v] = free.pop(0)
+            else:
+                slot[v] = top
+                top += 1
+            dst = slot[v]
+        else:
+            dst = NO_DST
+        bk = isinstance(b, tuple)
+        out.append((op, fl | (F_IMM if bk else 0), dst,
+                    0 if a is None else slot[a], b[1] if bk else slot[b]))
+    g = (F_IMM, gid[1]) if isinstance(gid, tuple) else (0, slot[gid])
+    return Encoded(tuple(out), n_pre, g,
+                   tuple((k, s) for s, k in enumerate(cols)), top)
 
 
 # -- plain versions -----------------------------------------------------
@@ -173,15 +417,20 @@ def _run_plain(code: Code, cols: Sequence[torch.Tensor], live: torch.Tensor) -> 
 
 
 def fused_agg_sums_plain(
-    cols: Sequence[torch.Tensor], live: torch.Tensor, prog: Program,
-    groups: int,
+    cols: Sequence[torch.Tensor], valids: Sequence[Optional[torch.Tensor]],
+    live: torch.Tensor, prog: Program, groups: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the fused kernel: the same postfix
-    programs over whole columns, then exact int64 per-(term, group)
-    sums.  Returns int64 [n_terms, groups]."""
+    """Plain PyTorch version of the fused kernel: each column narrowed to
+    int32 as `.to(torch.int32)` narrows, every validity lane ANDed into
+    `live`, the postfix programs over whole columns, then exact int64
+    per-(term, group) sums.  Returns int64 [n_terms, groups]."""
     n = live.shape[0]
     dev = live.device
     mask = live.to(torch.bool)
+    for ok in valids:
+        if ok is not None:
+            mask = mask & ok
+    cols = [c.to(torch.int32) for c in cols]
     if prog.pred:
         mask = mask & (_run_plain(prog.pred, cols, live) != 0)
     if prog.gid:
@@ -300,7 +549,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(_lib_path(name))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "fused_agg":
-        lib.fused_agg_sums_launch.argtypes = [P, P, L, P, I, P, I, I, P, I, P]
+        lib.fused_agg_sums_launch.argtypes = [P, I, L, P, I, I, I, I, I, I, I, P, P]
         lib.fused_agg_sums_launch.restype = I
     elif name == "grouped_count":
         lib.grouped_count_launch.argtypes = [P, P, L, I, P, P]
@@ -316,8 +565,8 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _blocks(n: int, dev: torch.device) -> int:
-    """Grid of fused_agg_sums and direct_probe: 4 blocks of 256 threads
-    an SM at most (the grouped count and sum size their own grids)."""
+    """Grid of direct_probe: 4 blocks of 256 threads an SM at most (the
+    other kernels size their own grids)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(-(-n // 256), 4 * sms))
 
@@ -330,39 +579,66 @@ def _check_rc(rc: int, what: str) -> None:
 # -- wrappers -----------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=256)
+def _code_words(prog: Program):
+    words = encode(prog).words()
+    return (ctypes.c_int * max(len(words), 1))(*words)
+
+
 def fused_agg_sums(
-    cols: Sequence[torch.Tensor], live: torch.Tensor, prog: Program,
-    groups: int,
+    cols: Sequence[torch.Tensor], valids: Sequence[Optional[torch.Tensor]],
+    live: torch.Tensor, prog: Program, groups: int,
 ) -> torch.Tensor:
     """Fused scan->filter->aggregate: exact int64 per-(term, group) sums,
-    [n_terms, groups].  `cols` are int32 [n] columns (LOAD k reads
-    cols[k]), `live` a bool [n] mask."""
+    [n_terms, groups], over the lanes as the scan holds them.  `cols` are
+    int32 or int64 [n] columns, narrowed to int32 as `.to(torch.int32)`
+    narrows (LOAD k reads cols[k]); `valids` holds each column's bool [n]
+    validity lane or None; `live` is a bool [n] mask.  A row counts where
+    live, every validity lane and the predicate hold and its group id
+    lies in [0, groups).  On the card the encoded program and the lane
+    pointers travel in the launch's parameters: no copy, no host sync."""
     check_program(prog, len(cols), groups)
     n = live.shape[0]
     if live.dtype != torch.bool or live.dim() != 1:
         raise ValueError("live must be a 1-D bool tensor")
+    if len(valids) != len(cols):
+        raise ValueError("one validity lane (or None) per column")
     for c in cols:
-        if c.dtype != torch.int32 or c.shape != (n,) or c.device != live.device:
-            raise ValueError("columns must be int32 [n] on live's device")
+        if (c.dtype not in (torch.int32, torch.int64) or c.shape != (n,)
+                or c.device != live.device):
+            raise ValueError("columns must be int32 or int64 [n] on live's device")
+    for ok in valids:
+        if ok is not None and (ok.dtype != torch.bool or ok.shape != (n,)
+                               or ok.device != live.device):
+            raise ValueError("validity lanes must be bool [n] on live's device")
     if live.device.type == "cpu":
-        return fused_agg_sums_plain(cols, live, prog, groups)
+        return fused_agg_sums_plain(cols, valids, live, prog, groups)
     if live.device.type != "cuda":
         raise ValueError(f"unsupported device {live.device}")
-    cols = [c.contiguous() for c in cols]
-    live = live.contiguous()
+    enc = encode(prog)
+    # the kernel copies whole 16-byte chunks of every lane: a view whose
+    # start lies off 16 bytes, or that is not contiguous, is copied (a
+    # copy starts at the allocator's alignment; the copies live until the
+    # launch is queued behind them)
+    def lane(t: torch.Tensor) -> torch.Tensor:
+        if t.data_ptr() % 16 or (n > 1 and t.stride(0) != 1):
+            t = t.clone(memory_format=torch.contiguous_format)
+        return t
+    values = [(lane(cols[k]), s) for k, s in enc.col_slots]
+    masks = [lane(ok) for ok in list(valids) + [live] if ok is not None]
+    lanes: List[int] = []
+    for c, s in values:
+        lanes += [c.data_ptr(), c.element_size(), s]
+    for ok in masks:
+        lanes += [ok.data_ptr(), 1, -1]
     dev = live.device
     lib = _lib("fused_agg")
-    words, seg = encode(prog)
-    ptrs = torch.tensor([c.data_ptr() for c in cols] or [0],
-                        dtype=torch.int64).to(dev)
-    code_t = torch.tensor(words or [0, 0], dtype=torch.int32).to(dev)
-    seg_t = torch.tensor(seg, dtype=torch.int32).to(dev)
     out = torch.zeros((len(prog.terms), groups), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_agg_sums_launch(
-        ptrs.data_ptr(), live.data_ptr(), n, code_t.data_ptr(),
-        len(words) // 2, seg_t.data_ptr(), len(prog.terms), groups,
-        out.data_ptr(), _blocks(n, dev), stream,
+        (ctypes.c_longlong * len(lanes))(*lanes), len(lanes) // 3, n,
+        _code_words(prog), len(enc.ins), enc.n_pre, enc.gid[0], enc.gid[1],
+        enc.n_slots, len(prog.terms), groups, out.data_ptr(), stream,
     )
     _check_rc(rc, "fused_agg_sums")
     LAUNCHES["fused_agg_sums"] += 1

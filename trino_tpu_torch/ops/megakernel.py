@@ -13,9 +13,11 @@ oversized products against a <= 15-bit factor, whole-table sums below
 layout, so fusedAggregates / fusionRejects and the output pages match
 the reference.  What differs is what the compiler emits: where the TPU
 kernel traced a Python closure into Mosaic, this compiler emits a
-postfix program over int32 values (ops/kernels.Program) that the one
-prebuilt CUDA kernel interprets per row, and whose plain version
-evaluates the same program with torch ops over whole columns.
+postfix program over int32 values (ops/kernels.Program), which
+ops/kernels.encode turns into the straight-line program the one
+prebuilt CUDA kernel runs (constants folded, common subexpressions
+shared, slots allocated), and whose plain version evaluates the same
+program with torch ops over whole columns.
 
 Anything unproven raises Reject and the executor falls back to the
 unfused path -- fusion is an optimization, never a semantics change.
@@ -494,19 +496,22 @@ def _run(ctx, node: P.Aggregate):
         raise Reject(f"kernel limits: {err}")
 
     # -- runner ----------------------------------------------------------
+    # the kernel reads the int64/int32 lanes, their validity lanes and
+    # the selection as the scan holds them (narrowing and the validity
+    # AND happen in the kernel, as the reference's runner does them)
     b = ctx.visit(scan)
-    live = b.sel
-    cols32 = []
+    cols, valids = [], []
     for nm in names:
         v, ok = b.lanes[nm]
         if v.dim() != 1 or v.is_floating_point() or v.dtype == torch.bool:
             raise Reject(f"column {nm} lane is not a narrow integer")
-        if ok is not None:
-            live = live & ok
-        cols32.append(v.to(torch.int32))
+        if v.dtype not in (torch.int32, torch.int64):
+            v = v.to(torch.int32)  # 8/16-bit lanes widen exactly
+        cols.append(v)
+        valids.append(ok)
 
     n_terms = len(terms)
-    sums = pk.fused_agg_sums(cols32, live, prog, cap)
+    sums = pk.fused_agg_sums(cols, valids, b.sel, prog, cap)
     cnt = sums[0]
 
     specs = [a.to_spec() for a in node.aggs]
