@@ -20,12 +20,17 @@ Phases (any failure exits non-zero and prints no result line):
      its bound, its plain version and, where one exists, one PyTorch call
      computing the same function.
 
+With --parent DIR (a checkout of an earlier commit), that commit's
+direct_probe also runs the kernel cases and is timed beside this one's.
+
 The line before the last is the kernels JSON, the last line the result.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +73,12 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 _log(f"[ptxas {name}] {line.strip()}")
+                if (name == "direct_probe" and "spill" in line
+                        and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)):
+                    raise AssertionError(f"direct_probe spills: {line.strip()}")
+    if "parent" in PARENT:
+        PARENT["kn"] = _parent_kernels(PARENT["parent"])
+        _log(f"[build] the parent's kernels from {PARENT['parent']}")
     _log(f"[build] {len(reports)} kernel sources compiled in "
          f"{time.perf_counter() - t0:.1f} s")
 
@@ -446,7 +457,11 @@ def _sum_cases(dev):
 def _probe_cases(dev):
     """(label, table, key, ok, sel, lo) for direct_probe: the micro-probe's
     own shape, random tables and keys, out-of-domain, negative and
-    extreme keys, NULL keys, int32 keys and empty inputs."""
+    extreme keys, NULL keys, int32 keys and empty inputs; lengths around
+    the kernel's tiles and grid, wrapping slots, views off 16 bytes, and
+    Q3's two joins at their SF10 sizes."""
+    from trino_tpu_torch.ops import kernels as kn
+
     rng = np.random.default_rng(SEED + 3)
     cases = []
     # scripts/micro_probe.py: 150,000-entry table (30,000 build rows),
@@ -480,9 +495,73 @@ def _probe_cases(dev):
                   np.arange(100), np.zeros(100, bool), np.ones(100, bool), 0))
     cases.append(("no rows", np.arange(4, dtype=np.int32), np.zeros(0, np.int64),
                   np.zeros(0, bool), np.zeros(0, bool), 0))
-    return [(lbl, torch.as_tensor(t, device=dev), torch.as_tensor(k, device=dev),
-             torch.as_tensor(o, device=dev), torch.as_tensor(s, device=dev), lo)
-            for lbl, t, k, o, s, lo in cases]
+    cases = [(lbl, t, k, o, s, lo, (0, 0, 0)) for lbl, t, k, o, s, lo in cases]
+    # the redesign's edges (csrc/direct_probe.cu): lengths around a warp's
+    # tile, a block's tiles and one step of the full grid, and fewer
+    # rows than one tile an SM; tables whose slots wrap (INT32_MIN - 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = kn.PROBE_TILE_ROWS
+    block = tile * kn.PROBE_WARPS
+    ns = {1, 2, 15, 16, 17, 31, 32, 33, sms * tile // 3, sms * tile - 1}
+    for s in (tile, block, kn._probe_grid(torch.cuda.current_device()) * block):
+        ns |= {s - 1, s, s + 1}
+    slots = np.array([-(2**31), 2**31 - 1, 0, -1, 1, 2, 3], np.int32)
+    for n in sorted(ns):
+        for kdt in (np.int64, np.int32):
+            lo = int(rng.integers(-3000, 3000))
+            cases.append((f"n={n} {np.dtype(kdt).name} keys, wrapping slots",
+                          rng.choice(slots, 5000), (lo + rng.integers(-40, 5040, n)).astype(kdt),
+                          rng.random(n) < 0.9, rng.random(n) < 0.7, lo, (0, 0, 0)))
+    # views off 16 bytes (the wrapper copies them): ok and sel 1 to 15
+    # bytes off, int64 keys 8 bytes off, int32 keys 4 bytes off
+    for o in range(1, 16):
+        n = 100_003 + o
+        kdt = np.int64 if o % 2 else np.int32
+        koff = 1 if o % 3 else 0
+        lo = -777
+        cases.append((f"views: ok[{o}:], sel[{(o * 7) % 16}:], {np.dtype(kdt).name} "
+                      f"key[{koff}:]", rng.choice(slots, 20_000),
+                      (lo + rng.integers(-100, 20_100, n)).astype(kdt),
+                      rng.random(n) < 0.8, rng.random(n) < 0.6, lo, (koff, o, (o * 7) % 16)))
+    # Q3's orderkey join at 30 M probes: TPC-H order keys use 8 of every
+    # 32 values, so the sorted lineitem keys touch one table sector in
+    # four; a build side holding about a fifth of the orders
+    orders = 7_600_000
+    okeys = (np.arange(orders) // 8) * 32 + np.arange(orders) % 8 + 1
+    key = np.repeat(okeys, rng.integers(1, 8, orders))[:30_000_000]
+    table = np.zeros(int(okeys[-1]) + 1, np.int32)
+    build = okeys[rng.random(orders) < 0.2]
+    table[build] = np.arange(1, build.shape[0] + 1, dtype=np.int32)
+    n = key.shape[0]
+    cases.append((f"orderkey-like: {n} sorted int64 probes, one table sector in four",
+                  table, key, np.ones(n, bool), rng.random(n) < 0.54, 0, (0, 0, 0)))
+    r = rng.random(1_500_001)
+    table = np.where(r < 0.2, np.arange(1_500_001, dtype=np.int32),
+                     np.where(r < 0.3, -(2**31), 0)).astype(np.int32)
+    n = 7_780_000
+    cases.append((f"custkey-like: {n} random int64 probes, INT32_MIN slots",
+                  table, rng.integers(0, 1_500_001, n), rng.random(n) < 0.99,
+                  np.ones(n, bool), 0, (1, 3, 0)))
+    views = {np.dtype(np.int32): 2**31 - 1, np.dtype(np.int64): 2**62, np.dtype(bool): True}
+    return [(lbl, torch.as_tensor(np.asarray(t, np.int32), device=dev),
+             _dev_view(k, ko, dev, views[k.dtype]), _dev_view(o, oo, dev, True),
+             _dev_view(s, so, dev, True), lo)
+            for lbl, t, k, o, s, lo, (ko, oo, so) in cases]
+
+
+def _parent_kernels(path):
+    """The ops/kernels.py of an earlier checkout of the repository at
+    `path`, loaded on its own (it imports nothing else of its package)
+    and built into that checkout's build directory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", os.path.join(path, "trino_tpu_torch", "ops", "kernels.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod
 
 
 def phase_kernels(dev):
@@ -532,19 +611,22 @@ def phase_kernels(dev):
         bad += not ok
         _log(f"[kernels] grouped_sum_i64 {lbl}: "
              f"{'exact' if ok else 'MISMATCH'} (cap {cap}, {vals.shape[0]} rows)")
+    kernels = [("direct_probe", kn)] + ([("parent's direct_probe", PARENT["kn"])]
+                                        if "kn" in PARENT else [])
     for lbl, table, key, okl, sel, lo in _probe_cases(dev):
-        got = kn.direct_probe(table, key, okl, sel, lo)
         want = kn.direct_probe_plain(table, key, okl, sel, lo)
-        torch.cuda.synchronize()
-        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        if lbl.startswith("micro-probe"):
-            # the micro-probe's own check: out[i] = table[probe[i]] (its
-            # table held build row, ours build row + 1)
-            ok = ok and torch.equal(got[0], (table[key.long()] - 1).long())
-        bad += not ok
-        _log(f"[kernels] direct_probe {lbl}: "
-             f"{'exact' if ok else 'MISMATCH'} ({table.shape[0]} slots, "
-             f"{key.shape[0]} {key.dtype} probes, {int(got[1].sum())} matched)")
+        for name, mod in kernels:
+            got = mod.direct_probe(table, key, okl, sel, lo)
+            torch.cuda.synchronize()
+            ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            if lbl.startswith("micro-probe"):
+                # the micro-probe's own check: out[i] = table[probe[i]] (its
+                # table held build row, ours build row + 1)
+                ok = ok and torch.equal(got[0], (table[key.long()] - 1).long())
+            bad += not ok
+            _log(f"[kernels] {name} {lbl}: "
+                 f"{'exact' if ok else 'MISMATCH'} ({table.shape[0]} slots, "
+                 f"{key.shape[0]} {key.dtype} probes, {int(got[1].sum())} matched)")
     if bad:
         raise AssertionError(f"{bad} kernel cases disagree with the plain versions")
 
@@ -800,6 +882,7 @@ def phase_sf1(dev, sf=1.0):
 
 
 MAIN = {}
+PARENT = {}  # --parent: the earlier checkout's path and its kernels module
 FUSED_RANGE = "chip_smoke.fused_aggregate"
 
 
@@ -1026,6 +1109,20 @@ def _time_queued_ms(fn, reps=15):
     return a.elapsed_time(b) / reps
 
 
+def _enqueue_us(fn, calls=300):
+    """Host time of one call in microseconds: `calls` calls on the host
+    clock with no synchronisation between them (the card runs behind),
+    after a warm-up call and a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _fused_work(cols, valids, live, prog, groups):
     """(bytes, operations) the fused function needs on these inputs:
     each lane it reads once at its own element size (the values of the
@@ -1187,13 +1284,23 @@ def phase_timing(dev):
         table, pkey, ok, sel, lo = rec[key]
         row, table_bytes, g_ms, g_bound = _time_probe(table, pkey, ok, sel, lo,
                                                       launches)
-        queued = _time_queued_ms(lambda: kn.direct_probe(table, pkey, ok, sel, lo))
+        call = lambda mod: lambda: mod.direct_probe(table, pkey, ok, sel, lo)  # noqa: E731
+        queued = _time_queued_ms(call(kn))
         _log(f"[timing] direct_probe {table.shape[0]} slots, {pkey.shape[0]} "
              f"{pkey.dtype} probes, {int(sel.sum())} selected, {table_bytes} "
              f"table bytes touched: {json.dumps(row)}; back to back: {queued} ms; "
-             f"partial yardstick, "
+             f"wrapper enqueue {_enqueue_us(call(kn))} us a call; partial yardstick, "
              f"the slot gather table[clamp(key - lo)] alone: ms {g_ms} "
              f"bound_ms {g_bound} (bytes)")
+        if "kn" in PARENT:  # the earlier commit's kernel on the same inputs
+            old = PARENT["kn"]
+            got = old.direct_probe(table, pkey, ok, sel, lo)
+            want = kn.direct_probe_plain(table, pkey, ok, sel, lo)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError("the parent's direct_probe disagrees with plain")
+            _log(f"[timing] parent's direct_probe {table.shape[0]} slots: ms "
+                 f"{_time_ms(call(old), 15)}; back to back: {_time_queued_ms(call(old))} ms; "
+                 f"wrapper enqueue {_enqueue_us(call(old))} us a call")
         rows.append(row)
     line.append(rows[-1])
     bad = [r for r in rows if r["max_abs_err"] != 0]
@@ -1221,6 +1328,9 @@ def main(argv=None) -> int:
                     help="trace one warm run of each main-path query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
                     help="warm repetitions of each main-path query")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of an earlier commit: its direct_probe runs the "
+                         "kernel cases and is timed beside this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1228,6 +1338,8 @@ def main(argv=None) -> int:
     import trino_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     MAIN_REPS = args.reps
+    if args.parent:
+        PARENT["parent"] = args.parent
     dev = torch.device("cuda")
     smi = _smi()
     _log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "

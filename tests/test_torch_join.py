@@ -332,6 +332,104 @@ def test_direct_probe_plain_is_the_micro_probe_gather():
     assert np.array_equal(matched.numpy(), table[probe] >= 0)
 
 
+I32_MIN, I32_MAX, I64_MIN, I64_MAX = -(2**31), 2**31 - 1, -(2**63), 2**63 - 1
+
+
+def _edge_probe(case):
+    """(table, keys, ok, sel, lo) at an edge the kernel must keep."""
+    rng = np.random.default_rng(len(case))
+    slots = np.array([I32_MIN, I32_MAX, 0, -1, -7, 1, 2], np.int32)
+    if case == "wrapping slots":
+        table = rng.choice(slots, 5000).astype(np.int32)
+        keys, lo = rng.integers(-100, 5100, 20_000), 0
+    elif case == "lo near -2^63":
+        table = rng.choice(slots, 300).astype(np.int32)
+        lo = I64_MIN + 5
+        keys = np.concatenate([lo + rng.integers(-5, 310, 3000),
+                               [I64_MIN, I64_MAX, 0, -1, lo - 1, lo + 299, lo + 300]])
+    elif case == "lo near +2^63":
+        table = rng.choice(slots, 300).astype(np.int32)
+        lo = I64_MAX - 200
+        keys = np.concatenate([lo + rng.integers(-300, 201, 3000),
+                               [I64_MIN, I64_MAX, 0, -1, lo, lo - 1]])
+    elif case == "int32 keys":
+        table = rng.choice(slots, 900).astype(np.int32)
+        lo = -450
+        keys = np.concatenate([rng.integers(-1000, 1000, 4000),
+                               [I32_MIN, I32_MAX]]).astype(np.int32)
+    elif case == "int32 keys, lo beyond int32":
+        table = rng.choice(slots, 64).astype(np.int32)
+        lo = I32_MIN - 10
+        keys = np.concatenate([rng.integers(I32_MIN, I32_MIN + 80, 2000),
+                               [I32_MAX]]).astype(np.int32)
+    elif case == "domain 1":
+        table = np.array([I32_MIN], np.int32)
+        lo = 42
+        keys = rng.integers(40, 45, 500)
+    elif case == "domain 1, empty slot":
+        table = np.zeros(1, np.int32)
+        lo = 0
+        keys = rng.integers(-2, 3, 500)
+    else:  # no rows
+        table = np.arange(1, 5, dtype=np.int32)
+        keys, lo = np.zeros(0, np.int64), 0
+    if keys.dtype != np.int32:
+        keys = keys.astype(np.int64)
+    n = keys.shape[0]
+    return table, keys, rng.random(n) > 0.2, rng.random(n) > 0.3, lo
+
+
+@pytest.mark.parametrize("case", [
+    "wrapping slots", "lo near -2^63", "lo near +2^63", "int32 keys",
+    "int32 keys, lo beyond int32", "domain 1", "domain 1, empty slot", "no rows",
+])
+def test_direct_probe_matches_probe_direct_at_the_edges(case):
+    """kn.direct_probe (the plain version on CPU tensors) against the JAX
+    package's probe_direct on a hand-built DirectLookupSource: slots
+    INT32_MIN (slot - 1 wraps), INT32_MAX, 0 and negatives; key - lo
+    wrapping near +-2^63; int32 keys; a one-slot domain; no rows."""
+    table, keys, ok, sel, lo = _edge_probe(case)
+    src = jjoin.DirectLookupSource(jnp.asarray(table), lo, jnp.int64(0))
+    want = jjoin.probe_direct(src, (jnp.asarray(keys), jnp.asarray(ok)), jnp.asarray(sel))
+    got = kn.direct_probe(torch.as_tensor(table), torch.as_tensor(keys),
+                          torch.as_tensor(ok), torch.as_tensor(sel), lo)
+    assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    if case == "wrapping slots":  # the edges are present and some rows match
+        assert (got[0] == I32_MAX).any() and got[1].any() and not got[1].all()
+
+
+@pytest.mark.parametrize("n,grid,want", [
+    (0, 264, 1), (1, 264, 1), (kn.PROBE_TILE_ROWS, 264, 1),
+    (kn.PROBE_TILE_ROWS * kn.PROBE_WARPS, 264, 1),
+    (kn.PROBE_TILE_ROWS * kn.PROBE_WARPS + 1, 264, 2),
+    (30_480_000, 660, 660), (7_780_000, 660, 660), (100_000, 660, 49),
+])
+def test_probe_blocks_sizes_the_persistent_grid(n, grid, want):
+    """One warp a tile, PROBE_WARPS warps a block, never more blocks than
+    the card's full grid, never none."""
+    assert kn.probe_blocks(n, grid) == want
+
+
+@pytest.mark.parametrize("dtype,off", [
+    (torch.int64, 0), (torch.int64, 1), (torch.int64, 2), (torch.int32, 1),
+    (torch.int32, 4), (torch.bool, 3), (torch.bool, 16), (torch.bool, 15),
+])
+def test_aligned_lane_copies_only_lanes_off_16_bytes(dtype, off):
+    """A lane that starts 16-byte aligned and is contiguous is used as it
+    is; any other is copied to a fresh (aligned) tensor with equal
+    values."""
+    base = torch.arange(64).to(dtype)
+    t = base[off:]
+    got = kn.aligned_lane(t)
+    assert torch.equal(got, t) and got.data_ptr() % 16 == 0
+    assert (got.data_ptr() == t.data_ptr()) == (t.data_ptr() % 16 == 0)
+    strided = base[::2]
+    assert kn.aligned_lane(strided).stride(0) == 1
+    assert torch.equal(kn.aligned_lane(strided), strided)
+
+
 def test_direct_probe_wrapper_checks_its_inputs():
     t = torch.zeros(4, dtype=torch.int32)
     k = torch.zeros(3, dtype=torch.int64)

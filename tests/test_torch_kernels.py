@@ -602,3 +602,18 @@ def test_kernels_match_plain_on_the_card():
     got = kn.direct_probe(table, key, flags, flags, 0)
     want = kn.direct_probe_plain(table, key, flags, flags, 0)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the probe's edges: slots that wrap (INT32_MIN), int32 keys, lengths
+    # around a warp's tile and a block's tiles, views whose ok/sel start
+    # 1-15 bytes off and whose keys start 8 (int64) or 4 (int32) bytes off
+    table[::7] = -(2**31)
+    table[1::7] = 2**31 - 1
+    tile, block = kn.PROBE_TILE_ROWS, kn.PROBE_TILE_ROWS * kn.PROBE_WARPS
+    for kdt in (torch.int64, torch.int32):
+        k = key.to(kdt)
+        for n in (0, 1, 15, 17, tile - 1, tile, tile + 1, block - 1, block + 1, 99_000):
+            for koff, ooff, soff in ((0, 0, 0), (1, 1, 15), (1, 7, 3), (0, 13, 0)):
+                args = (table, k[koff:koff + n], flags[ooff:ooff + n],
+                        flags[soff:soff + n], -5)
+                got = kn.direct_probe(*args)
+                want = kn.direct_probe_plain(*args)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -39,6 +39,8 @@ MAX_SLOTS = 255   # kMaxSlots: value slots (columns + temporaries)
 # dynamic shared memory a block may opt in to on sm_90 (227 KiB)
 FUSED_ROWS, FUSED_STAGES = 4, 2
 SMEM_OPTIN = 232_448
+# csrc/direct_probe.cu: rows a warp tile (32 lanes x kR) and warps a block
+PROBE_TILE_ROWS, PROBE_WARPS = 256, 8
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -560,15 +562,53 @@ def _lib(name: str) -> ctypes.CDLL:
     else:
         lib.direct_probe_launch.argtypes = [P, L, P, I, P, P, L, L, P, P, I, P]
         lib.direct_probe_launch.restype = I
+        lib.direct_probe_grid.argtypes = [I, ctypes.POINTER(I)]
+        lib.direct_probe_grid.restype = I
     _LIBS[name] = lib
     return lib
 
 
-def _blocks(n: int, dev: torch.device) -> int:
-    """Grid of direct_probe: 4 blocks of 256 threads an SM at most (the
-    other kernels size their own grids)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-n // 256), 4 * sms))
+def probe_blocks(n: int, grid: int) -> int:
+    """Persistent grid of csrc/direct_probe.cu for n probe rows: one warp
+    a tile of PROBE_TILE_ROWS rows, PROBE_WARPS warps a block, at most the
+    card's `grid` blocks (_probe_grid), at least one."""
+    tiles = -(-n // PROBE_TILE_ROWS)
+    return max(1, min(grid, -(-tiles // PROBE_WARPS)))
+
+
+def aligned_lane(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself, or a contiguous copy where it starts off 16 bytes or
+    is not contiguous (a copy starts at the allocator's alignment): the
+    kernels copy whole 16-byte chunks of their streams."""
+    if t.data_ptr() % 16 or (t.shape[0] > 1 and t.stride(0) != 1):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+_PROBE_GRID: Dict[int, int] = {}
+
+
+def _probe_grid(index: int) -> int:
+    """The direct probe's full grid on card `index` (its launcher's
+    blocks an SM times the SMs), asked once a card."""
+    got = _PROBE_GRID.get(index)
+    if got is None:
+        blocks = ctypes.c_int(0)
+        _check_rc(_lib("direct_probe").direct_probe_grid(index, ctypes.byref(blocks)),
+                  "direct_probe grid query")
+        got = _PROBE_GRID[index] = blocks.value
+    return got
+
+
+# the current CUDA stream of a card as an int: PyTorch's raw query where
+# it has one (no Stream object built), else the public one
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(index: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -616,16 +656,10 @@ def fused_agg_sums(
     if live.device.type != "cuda":
         raise ValueError(f"unsupported device {live.device}")
     enc = encode(prog)
-    # the kernel copies whole 16-byte chunks of every lane: a view whose
-    # start lies off 16 bytes, or that is not contiguous, is copied (a
-    # copy starts at the allocator's alignment; the copies live until the
+    # a lane that starts off 16 bytes is copied (the copies live until the
     # launch is queued behind them)
-    def lane(t: torch.Tensor) -> torch.Tensor:
-        if t.data_ptr() % 16 or (n > 1 and t.stride(0) != 1):
-            t = t.clone(memory_format=torch.contiguous_format)
-        return t
-    values = [(lane(cols[k]), s) for k, s in enc.col_slots]
-    masks = [lane(ok) for ok in list(valids) + [live] if ok is not None]
+    values = [(aligned_lane(cols[k]), s) for k, s in enc.col_slots]
+    masks = [aligned_lane(ok) for ok in list(valids) + [live] if ok is not None]
     lanes: List[int] = []
     for c, s in values:
         lanes += [c.data_ptr(), c.element_size(), s]
@@ -731,33 +765,41 @@ def direct_probe(
     """Direct-address join probe: (build row int64 [n], matched bool [n])
     from an int32 [domain] table of build row + 1 (0 = empty slot),
     int64 or int32 probe keys, their validity `ok` and the probe side's
-    selection `sel`; `lo` is the key the table's slot 0 stands for."""
+    selection `sel`; `lo` is the key the table's slot 0 stands for.  On
+    the card a key, ok or sel lane that starts off 16 bytes is copied
+    first (aligned_lane); the launch needs no host sync."""
     n = key.shape[0]
     if table.dim() != 1 or table.dtype != torch.int32 or table.shape[0] < 1:
         raise ValueError("table must be a non-empty 1-D int32 tensor")
     if key.dim() != 1 or key.dtype not in (torch.int64, torch.int32):
         raise ValueError("key must be a 1-D int64 or int32 tensor")
-    for t in (ok, sel):
-        if t.dtype != torch.bool or t.shape != (n,):
-            raise ValueError("ok and sel must be bool tensors shaped like key")
-    if len({t.device for t in (table, key, ok, sel)}) != 1:
-        raise ValueError("table, key, ok and sel lie on different devices")
+    if (ok.dtype != torch.bool or sel.dtype != torch.bool or ok.shape != key.shape
+            or sel.shape != key.shape):
+        raise ValueError("ok and sel must be bool tensors shaped like key")
     if not -(2**63) <= lo < 2**63:
         raise ValueError("lo outside int64")
-    if key.device.type == "cpu":
+    # the card's index, -1 off the card: ints, cheaper than device objects
+    # on a path whose host time the card waits for
+    d = key.get_device()
+    if d < 0:
+        dev = key.device
+        if table.device != dev or ok.device != dev or sel.device != dev:
+            raise ValueError("table, key, ok and sel lie on different devices")
+        if dev.type != "cpu":
+            raise ValueError(f"unsupported device {dev}")
         return direct_probe_plain(table, key, ok, sel, lo)
-    if key.device.type != "cuda":
-        raise ValueError(f"unsupported device {key.device}")
-    table, key, ok, sel = (t.contiguous() for t in (table, key, ok, sel))
-    dev = key.device
+    if table.get_device() != d or ok.get_device() != d or sel.get_device() != d:
+        raise ValueError("table, key, ok and sel lie on different devices")
+    table = table.contiguous()
+    key, ok, sel = aligned_lane(key), aligned_lane(ok), aligned_lane(sel)
     lib = _lib("direct_probe")
-    row = torch.empty(n, dtype=torch.int64, device=dev)
-    matched = torch.empty(n, dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks = probe_blocks(n, _probe_grid(d))
+    row = torch.empty(n, dtype=torch.int64, device=key.device)
+    matched = torch.empty(n, dtype=torch.bool, device=key.device)
     rc = lib.direct_probe_launch(
         table.data_ptr(), table.shape[0], key.data_ptr(), key.element_size(),
         ok.data_ptr(), sel.data_ptr(), lo, n, row.data_ptr(),
-        matched.data_ptr(), _blocks(n, dev), stream,
+        matched.data_ptr(), blocks, _current_stream(d),
     )
     _check_rc(rc, "direct_probe")
     LAUNCHES["direct_probe"] += 1
