@@ -9,16 +9,29 @@ Phases (any failure exits non-zero and prints no result line):
   2. hold each kernel against its plain PyTorch version on the card,
      on random and edge inputs (exact equality); one fused call runs
      under torch.cuda.set_sync_debug_mode("error");
-  3. TPC-H SF1: Q6, Q1 and Q3 through Session.execute with megakernels
-     on (fused kernel), off (grouped-count and grouped-sum kernels) and
-     with every kernel function replaced by its plain version: the pages
-     must be byte-identical and agree with exact numpy references;
+  3. TPC-H SF1: all 22 queries of tests/tpch_sql.py, plus UNION,
+     INTERSECT, EXCEPT and two window statements of the CPU tests,
+     through Session.execute with megakernels on (fused kernel), off
+     (grouped-count and grouped-sum kernels) and with every kernel
+     function replaced by its plain version: the pages must be
+     byte-identical, and Q6, Q1 and Q3 agree with exact numpy references;
   4. TPC-H SF10, the main path: Q6, Q1 and Q3 warm with megakernels=auto
      and Q1 with megakernels=off, held against the numpy references;
      every kernel's launch count must move (direct_probe twice per Q3);
-  5. each kernel timed with CUDA events at the main path's shapes beside
+  5. TPC-H SF10, the relational path in the same session: Q4 (EXISTS),
+     Q16 (NOT IN, count DISTINCT), Q18 (IN over a 15 M-group aggregate),
+     Q21 (EXISTS with a residual, NOT EXISTS), Q22 (scalar subquery, NOT
+     EXISTS, substring) and a running sum over all 15 M orders (its
+     first 100 rows, and its count, sum, min and max over every row),
+     warm, with their launches and peak device memory; Q4, Q18, Q22 and
+     both window statements against exact numpy references, Q16 and Q21
+     byte-identical to runs on the plain kernel versions;
+  6. each kernel timed with CUDA events at the main path's shapes beside
      its bound, its plain version and, where one exists, one PyTorch call
      computing the same function.
+
+--profile traces one warm run of every SF10 query (busy and idle share
+of the device).  The last log line gives the run's seconds.
 
 With --parent DIR (a checkout of an earlier commit), that commit's
 direct_probe also runs the kernel cases and is timed beside this one's.
@@ -28,6 +41,7 @@ The line before the last is the kernels JSON, the last line the result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -635,45 +649,30 @@ def phase_kernels(dev):
 # TPC-H reference (numpy, exact integers) and the queries
 
 
+def _tpch_sql():
+    """The 22 TPC-H statements of tests/tpch_sql.py (a file of plain
+    strings that imports neither package), as {"Q1": sql, ...}."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "tpch_sql.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_tpch_sql", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {f"Q{n}": entry[0] for n, entry in sorted(mod.QUERIES.items())}
+
+
 def _queries():
+    """Q6, Q1 and Q3 of the main path and their date cuts."""
     from trino_tpu_torch.expr.functions import days_from_civil
 
     q1_cut = days_from_civil(1998, 12, 1) - 90
     q6_lo = days_from_civil(1994, 1, 1)
     q6_hi = days_from_civil(1995, 1, 1)
     q3_cut = days_from_civil(1995, 3, 15)
-    q1 = f"""
-select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
-       sum(l_extendedprice) as sum_base_price,
-       sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
-       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
-       avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
-       avg(l_discount) as avg_disc, count(*) as count_order
-from lineitem
-where l_shipdate <= date '1998-12-01' - interval '90' day
-group by l_returnflag, l_linestatus
-order by l_returnflag, l_linestatus
-"""
-    q6 = """
-select sum(l_extendedprice * l_discount) as revenue
-from lineitem
-where l_shipdate >= date '1994-01-01'
-  and l_shipdate < date '1994-01-01' + interval '1' year
-  and l_discount between 0.06 - 0.01 and 0.06 + 0.01
-  and l_quantity < 24
-"""
-    q3 = """
-select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
-       o_orderdate, o_shippriority
-from customer, orders, lineitem
-where c_mktsegment = 'BUILDING'
-  and c_custkey = o_custkey and l_orderkey = o_orderkey
-  and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
-group by l_orderkey, o_orderdate, o_shippriority
-order by revenue desc, o_orderdate
-limit 10
-"""
-    return {"Q6": q6, "Q1": q1, "Q3": q3}, (q1_cut, q6_lo, q6_hi, q3_cut)
+    qs = _tpch_sql()
+    return ({q: qs[q] for q in ("Q6", "Q1", "Q3")},
+            (q1_cut, q6_lo, q6_hi, q3_cut))
 
 
 def _raw(col, i):
@@ -798,17 +797,194 @@ def check_q3_page(session, page):
     check_q3(page, li, orders, cust, cdicts)
 
 
+def _expect_rows(label, got, want):
+    if len(got) != len(want):
+        raise AssertionError(f"{label} has {len(got)} rows, reference {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise AssertionError(f"{label} row {i}: {g} != reference {w}")
+
+
+def check_q4(session, page):
+    """Q4 (EXISTS): orders of 1993 Q3 with a line committed before its
+    receipt, counted by priority."""
+    from trino_tpu_torch.expr.functions import days_from_civil
+
+    li, _ = _scan_host_columns(session, ["l_orderkey", "l_commitdate", "l_receiptdate"])
+    orders, odicts = _scan_host_columns(session, ["o_orderpriority", "o_orderdate"],
+                                        "orders")
+    late = np.unique(li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]])
+    od = orders["o_orderdate"]
+    om = (od >= days_from_civil(1993, 7, 1)) & (od < days_from_civil(1993, 10, 1))
+    hit = np.isin(orders["o_orderkey"][om], late)
+    d = odicts["o_orderpriority"]
+    counts = {}
+    for code, n in enumerate(np.bincount(orders["o_orderpriority"][om][hit],
+                                         minlength=len(d))):
+        if n:
+            counts[str(d[code])] = counts.get(str(d[code]), 0) + int(n)
+    _expect_rows("Q4", page.to_pylist(), sorted(counts.items()))
+
+
+def check_q18(session, page):
+    """Q18 (IN over a grouped subquery): orders whose lines hold more than
+    300 units, top 100 by total price desc, order date.  Rows tied on
+    both keys may come in any order, so each row is checked against its
+    own order's values and the sequence of keys against the
+    reference's."""
+    li, _ = _scan_host_columns(session, ["l_orderkey", "l_quantity"])
+    orders, _ = _scan_host_columns(session, ["o_orderkey", "o_custkey", "o_totalprice",
+                                             "o_orderdate"], "orders")
+    cust, cdicts = _scan_host_columns(session, ["c_custkey", "c_name"], "customer")
+    # quantities are x100 lanes: at most 7 lines of 5000 an order, exact
+    # in float64
+    qsum = np.bincount(li["l_orderkey"], weights=li["l_quantity"])
+    big = np.nonzero(qsum > 30000)[0]
+    ok_sorted = np.argsort(orders["o_orderkey"])
+    at = ok_sorted[np.searchsorted(orders["o_orderkey"], big, sorter=ok_sorted)]
+    price = orders["o_totalprice"][at].astype(np.int64)
+    date = orders["o_orderdate"][at].astype(np.int64)
+    cust_of = orders["o_custkey"][at]
+    c_sorted = np.argsort(cust["c_custkey"])
+    crow = c_sorted[np.searchsorted(cust["c_custkey"], cust_of, sorter=c_sorted)]
+    names = cdicts["c_name"]
+    by_key = {int(k): (str(names[cust["c_name"][r]]), int(c), int(d), int(p),
+                       int(round(qsum[k])))
+              for k, r, c, d, p in zip(big, crow, cust_of, date, price)}
+    top = np.lexsort((date, -price))[:100]
+    want = [(int(price[i]), int(date[i])) for i in top]
+    if page.count != len(want):
+        raise AssertionError(f"Q18 has {page.count} rows, reference {len(want)}")
+    names_out = page.columns[0].to_python(page.count)
+    got = []
+    for i in range(page.count):
+        k = _raw(page.columns[2], i)
+        row = (names_out[i], _raw(page.columns[1], i), _raw(page.columns[3], i),
+               _raw(page.columns[4], i), _raw(page.columns[5], i))
+        if by_key.get(k) != row:
+            raise AssertionError(f"Q18 row {i}: order {k} {row} != reference "
+                                 f"{by_key.get(k)}")
+        got.append((row[3], row[2]))
+    if got != want:
+        raise AssertionError(f"Q18 (price, date) sequence {got[:5]}... != "
+                             f"reference {want[:5]}...")
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def check_q22(session, page):
+    """Q22 (scalar subquery, NOT EXISTS, substring): customers of seven
+    country codes with a balance above the codes' average positive
+    balance (avg is decimal(18, 6), rounded half away) and no orders,
+    counted and summed by code."""
+    cust, cdicts = _scan_host_columns(session, ["c_custkey", "c_phone", "c_acctbal"],
+                                      "customer")
+    orders, _ = _scan_host_columns(session, ["o_custkey"], "orders")
+    code_of = np.array([str(p)[:2] for p in cdicts["c_phone"]])
+    cc = code_of[cust["c_phone"]]
+    inset = np.isin(cc, Q22_CODES)
+    bal = cust["c_acctbal"].astype(np.int64)
+    pos = inset & (bal > 0)
+    avg6 = _half_away(int(bal[pos].sum()) * 10**4, int(pos.sum()))
+    buyers = np.isin(cust["c_custkey"], np.unique(orders["o_custkey"]))
+    m = inset & (bal * 10**4 > avg6) & ~buyers
+    want = [(c, int((m & (cc == c)).sum()), int(bal[m & (cc == c)].sum()))
+            for c in sorted(Q22_CODES) if (m & (cc == c)).any()]
+    codes_out = page.columns[0].to_python(page.count)
+    got = [(codes_out[i], _raw(page.columns[1], i), _raw(page.columns[2], i))
+           for i in range(page.count)]
+    _expect_rows("Q22", got, want)
+
+
+def check_window(session, page):
+    """The running sum over orders: sum(o_totalprice) by customer in
+    order-key order, the first 100 rows by (customer, order key)."""
+    orders, _ = _scan_host_columns(session, ["o_custkey", "o_orderkey", "o_totalprice"],
+                                   "orders")
+    ck, okey = orders["o_custkey"], orders["o_orderkey"]
+    first = np.lexsort((okey, ck))[:100]
+    price = orders["o_totalprice"][first].astype(np.int64)
+    want, run, prev = [], 0, None
+    for i, p in zip(first, price):
+        run = int(p) + (run if ck[i] == prev else 0)
+        prev = ck[i]
+        want.append((int(ck[i]), int(okey[i]), run))
+    got = [(_raw(page.columns[0], i), _raw(page.columns[1], i), _raw(page.columns[2], i))
+           for i in range(page.count)]
+    _expect_rows("window", got, want)
+
+
+def check_window_all(session, page):
+    """The same running sum over every order, reduced to its row count,
+    sum, least and greatest value: a wrong reset or bound in any
+    partition moves the sum."""
+    orders, _ = _scan_host_columns(session, ["o_custkey", "o_orderkey", "o_totalprice"],
+                                   "orders")
+    ck = orders["o_custkey"]
+    order = np.lexsort((orders["o_orderkey"], ck))
+    ck = ck[order]
+    price = orders["o_totalprice"][order].astype(np.int64)
+    run = np.cumsum(price)
+    n = len(run)
+    head = np.ones(n, dtype=bool)
+    head[1:] = ck[1:] != ck[:-1]
+    start = np.maximum.accumulate(np.where(head, np.arange(n), 0))
+    s = run - run[start] + price[start]
+    if n and int(np.abs(s).max()) * n >= 2**63:
+        raise AssertionError("window reference sum would overflow int64")
+    want = [(n, int(s.sum()), int(s.min()), int(s.max()))]
+    got = [tuple(_raw(c, 0) for c in page.columns)] if page.count else []
+    _expect_rows("window over every order", got, want)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: SF1 parity across fused / unfused / plain
 
 
-# kernel wrappers each (query, megakernels mode) must launch
-SF1_WANT = {
-    ("Q6", "on"): ("fused_agg_sums",), ("Q1", "on"): ("fused_agg_sums",),
-    ("Q6", "off"): ("grouped_sum_i64",),
-    ("Q1", "off"): ("grouped_count", "grouped_sum_i64"),
-    ("Q3", "on"): ("direct_probe",), ("Q3", "off"): ("direct_probe",),
+# statements of the CPU tests that the SF1 phase runs beside the 22
+# TPC-H queries: set operations (tests/test_torch_relational.py) and two
+# window statements (tests/test_window.py)
+WINDOW_SQL = (
+    "select o_custkey, o_orderkey, "
+    "sum(o_totalprice) over (partition by o_custkey order by o_orderkey) s "
+    "from orders order by o_custkey, o_orderkey limit 100")
+WINDOW_ALL_SQL = (
+    "select count(*), sum(s), min(s), max(s) from (select "
+    "sum(o_totalprice) over (partition by o_custkey order by o_orderkey) s "
+    "from orders)")
+SF1_EXTRA = {
+    "UNION": "select c_mktsegment from customer union "
+             "select o_orderpriority from orders order by 1",
+    "INTERSECT": "select n_regionkey from nation intersect "
+                 "select r_regionkey from region order by 1",
+    "EXCEPT": "select o_totalprice from orders where o_orderkey < 50 except "
+              "select o_totalprice from orders where o_orderkey < 20 order by 1",
+    "WINDOW-running-sum": WINDOW_SQL,
+    "WINDOW-sliding-minmax": (
+        "select o_custkey, o_orderkey, "
+        "min(o_totalprice) over (partition by o_custkey order by o_orderkey "
+        "  rows between 3 preceding and current row) mn, "
+        "max(o_totalprice) over (partition by o_custkey order by o_orderkey "
+        "  rows between 2 preceding and 1 following) mx "
+        "from orders order by o_custkey, o_orderkey limit 200"),
 }
+# kernel wrappers each statement must launch with megakernels on and off
+# (read from a CPU run of this phase at SF1 with counting shims)
+_GC, _GS, _DP = "grouped_count", "grouped_sum_i64", "direct_probe"
+SF1_KERNELS = {
+    "Q2": (_DP,), "Q3": (_DP,), "Q4": (_GC,), "Q5": (_GC, _GS, _DP),
+    "Q7": (_GS, _DP), "Q8": (_GS, _DP), "Q9": (_DP,), "Q10": (_DP,),
+    "Q11": (_GC, _GS, _DP), "Q12": (_GC, _GS, _DP), "Q14": (_GC, _GS, _DP),
+    "Q15": (_GC,), "Q16": (_DP,), "Q17": (_GC, _GS, _DP), "Q18": (_DP,),
+    "Q19": (_GC, _GS, _DP), "Q20": (_DP,), "Q21": (_DP,), "Q22": (_GC, _GS),
+    "INTERSECT": (_GC,), "EXCEPT": (_GC,),
+}
+SF1_WANT = {(q, mode): k for q, k in SF1_KERNELS.items() for mode in ("on", "off")}
+SF1_WANT.update({
+    ("Q6", "on"): ("fused_agg_sums",), ("Q1", "on"): ("fused_agg_sums",),
+    ("Q6", "off"): (_GS,), ("Q1", "off"): (_GC, _GS),
+})
 KERNEL_FNS = ("fused_agg_sums", "grouped_count", "grouped_sum_i64", "direct_probe")
 # launches each main-path run must make, per kernel (Q1 does not fuse at
 # SF10: see PERF.md; Q3 probes both of its joins)
@@ -820,52 +996,72 @@ MAIN_WANT = {
 }
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel function replaced by its plain version meanwhile; no
+    launch may count."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    real = {name: getattr(kn, name) for name in KERNEL_FNS}
+    for name in KERNEL_FNS:
+        setattr(kn, name, getattr(kn, f"{name}_plain"))
+    kn.reset_counts()
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(kn, name, fn)
+    if any(kn.LAUNCHES.values()):
+        raise AssertionError("a kernel launched while replaced by its plain version")
+
+
+def _launched(kn) -> str:
+    return ", ".join(f"{k} {v}" for k, v in kn.LAUNCHES.items() if v) or "none"
+
+
 def phase_sf1(dev, sf=1.0):
     from trino_tpu_torch import convert
     from trino_tpu_torch.ops import kernels as kn
     from trino_tpu_torch.session import tpch_session
 
-    qs, _ = _queries()
+    statements = dict(_tpch_sql())
+    statements.update(SF1_EXTRA)
     s = tpch_session(sf)
     pages = {}
     real = kn.fused_agg_sums
 
     def rec_fused(*args):
-        MAIN["sf1_fused"] = args  # the last: Q1's
+        MAIN["sf1_fused"] = args
         return real(*args)
 
     for mode in ("on", "off"):
         s.properties.set("megakernels", mode)
-        for q, sql in qs.items():
+        for q, sql in statements.items():
             kn.reset_counts()
-            kn.fused_agg_sums = rec_fused
+            if q == "Q1":  # Q1's fused call, timed in the timing phase
+                kn.fused_agg_sums = rec_fused
             try:
                 pages[(q, mode)] = s.execute(sql)
             finally:
                 kn.fused_agg_sums = real
             torch.cuda.synchronize()
-            for want in SF1_WANT[(q, mode)]:
+            for want in SF1_WANT.get((q, mode), ()):
                 if kn.LAUNCHES[want] == 0:
                     raise AssertionError(f"{q} megakernels={mode}: {want} never launched")
-            _log(f"[sf1] {q} megakernels={mode}: launches {dict(kn.LAUNCHES)}")
-    kernel_fns = {name: getattr(kn, name) for name in KERNEL_FNS}
-    for name in KERNEL_FNS:
-        setattr(kn, name, getattr(kn, f"{name}_plain"))
-    try:
-        kn.reset_counts()
+            _log(f"[sf1] {q} megakernels={mode}: {pages[(q, mode)].count} rows, "
+                 f"launches {_launched(kn)}")
+    with _plain_kernels():
         for mode in ("on", "off"):
             s.properties.set("megakernels", mode)
-            for q, sql in qs.items():
+            for q, sql in statements.items():
                 pages[(q, "plain-" + mode)] = s.execute(sql)
-        if any(kn.LAUNCHES.values()):
-            raise AssertionError("a kernel launched while replaced by its plain version")
-    finally:
-        for name, fn in kernel_fns.items():
-            setattr(kn, name, fn)
-    for q in qs:
+    for q in statements:
         for mode in ("off", "plain-on", "plain-off"):
             convert.assert_pages_identical(pages[(q, "on")], pages[(q, mode)])
-        _log(f"[sf1] {q}: megakernels on, off and plain pages byte-identical")
+        if pages[(q, "on")].count == 0:
+            raise AssertionError(f"{q} returned no rows at SF{sf:g}")
+    _log(f"[sf1] all {len(statements)} statements: megakernels on, off and plain "
+         f"pages byte-identical")
     cols, dicts = _scan_host_columns(s, ["l_tax", "l_returnflag", "l_shipdate"])
     check_reference({q: pages[(q, "on")] for q in ("Q6", "Q1")}, cols, dicts)
     check_q3_page(s, pages[("Q3", "on")])
@@ -1061,7 +1257,7 @@ def phase_sf10(dev, do_profile=False):
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of which "
          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above "
          f"the resident scans ({base / 2**30:.2f} GiB)")
-    MAIN.update(launches=launches, recorded=recorded, walls=walls)
+    MAIN.update(launches=launches, recorded=recorded, walls=walls, session=s)
     if do_profile:
         for q, mode in runs:
             s.properties.set("megakernels", mode)
@@ -1069,7 +1265,97 @@ def phase_sf10(dev, do_profile=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel timings at the main path's shapes
+# phase 5: the SF10 relational path (semi, anti and scalar joins, DISTINCT
+# aggregates, substring, a window over all orders)
+
+
+REL_QUERIES = ("Q4", "Q16", "Q18", "Q21", "Q22", "WINDOW", "WINDOW-ALL")
+REL_SQL = {"WINDOW": WINDOW_SQL, "WINDOW-ALL": WINDOW_ALL_SQL}
+# launches each relational-path run must make, per kernel (the window
+# launches none; no aggregate of the path fuses)
+REL_WANT = {
+    "Q4": {_GC: 2}, "Q16": {_DP: 1}, "Q18": {_DP: 2}, "Q21": {_DP: 3},
+    "Q22": {_GC: 4, _GS: 2},
+}
+REL_CHECKS = {"Q4": check_q4, "Q18": check_q18, "Q22": check_q22,
+              "WINDOW": check_window, "WINDOW-ALL": check_window_all}
+
+
+def phase_sf10_rel(dev, do_profile=False):
+    """Q4, Q16, Q18, Q21, Q22 and the running-sum window (its first rows
+    and its reduction over every row) at SF10, in the main path's session
+    (its scans stay resident): one cold run each, MAIN_REPS warm runs
+    with every kernel's launches counted, the peak device memory, exact
+    numpy references for Q4, Q18, Q22 and both window statements, and
+    Q16 and Q21 byte-identical to a run on the plain kernel versions."""
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.ops import kernels as kn
+
+    sf = MAIN_SF
+    s = MAIN["session"]
+    s.properties.set("megakernels", "auto")
+    qs = _tpch_sql()
+    sqls = {q: REL_SQL.get(q) or qs[q] for q in REL_QUERIES}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for q, sql in sqls.items():  # cold: generation, upload, first run
+        t0 = time.perf_counter()
+        s.execute(sql)
+        torch.cuda.synchronize()
+        _log(f"[rel{sf:g}] cold {q}: {time.perf_counter() - t0:.3f} s")
+    _log(f"[rel{sf:g}] scan cache after the cold runs: "
+         f"{len(s._scan_cache.entries)} scans, {s._scan_cache.bytes} bytes")
+    walls = {q: [] for q in sqls}
+    per_run = {q: dict.fromkeys(KERNEL_FNS, 0) for q in sqls}
+    pages = {}
+    kn.reset_counts()  # the relational path starts here
+    for _ in range(MAIN_REPS):
+        for q, sql in sqls.items():
+            before = dict(kn.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pages[q] = s.execute(sql)
+            torch.cuda.synchronize()
+            walls[q].append(time.perf_counter() - t0)
+            for name in KERNEL_FNS:
+                per_run[q][name] += kn.LAUNCHES[name] - before[name]
+    launches = dict(kn.LAUNCHES)  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"[rel{sf:g}] relational path launches: {launches}")
+    for q, n in per_run.items():
+        _log(f"[rel{sf:g}]   {q} over {MAIN_REPS} runs: {n}")
+    for q, w in walls.items():
+        _log(f"[rel{sf:g}] warm {q}: median {statistics.median(w) * 1e3:.3f} ms over "
+             f"{len(w)} runs (all: {', '.join(f'{x * 1e3:.3f}' for x in w)}), "
+             f"{pages[q].count} rows")
+    _log(f"[rel{sf:g}] peak device memory over the relational path (cold and warm) "
+         f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above what was "
+         f"allocated before it ({base / 2**30:.2f} GiB)")
+    for q, want in REL_WANT.items():
+        for name, per in want.items():
+            if per_run[q][name] < per * MAIN_REPS:
+                raise AssertionError(f"{q}: {name} launched {per_run[q][name]} times "
+                                     f"in {MAIN_REPS} runs, want >= {per} a run")
+    for q, check in REL_CHECKS.items():
+        check(s, pages[q])
+    _log(f"[rel{sf:g}] {', '.join(REL_CHECKS)} agree exactly with the numpy references")
+    with _plain_kernels():
+        plain = {q: s.execute(sqls[q]) for q in ("Q16", "Q21")}
+    for q, page in plain.items():
+        convert.assert_pages_identical(pages[q], page)
+    _log(f"[rel{sf:g}] Q16 and Q21 byte-identical on the plain kernel versions")
+    for q in ("Q4", "Q16", "Q18", "Q21", "Q22"):
+        for row in pages[q].to_pylist()[:5]:
+            _log(f"[rel{sf:g}] {q} {row}")
+    MAIN.update(rel_launches=launches, rel_walls=walls)
+    if do_profile:
+        for q, sql in sqls.items():
+            _profile(s, sql, f"sf{sf:g} {q}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernel timings at the main path's shapes
 
 
 def _time_ms(fn, reps):
@@ -1325,7 +1611,7 @@ def main(argv=None) -> int:
                          "and the SF10 main path (which also runs on the package "
                          "of an earlier commit, for comparisons)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one warm run of each main-path query")
+                    help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
                     help="warm repetitions of each main-path query")
     ap.add_argument("--parent", metavar="DIR",
@@ -1341,18 +1627,21 @@ def main(argv=None) -> int:
     if args.parent:
         PARENT["parent"] = args.parent
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     smi = _smi()
     _log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
          f"{torch.__version__} cuda {torch.version.cuda}")
     phases = [("build", phase_build)]
+    main_path = ("main", lambda: phase_sf10(dev, args.profile))
     if args.phase == "main":
-        phases.append(("main", lambda: phase_sf10(dev, args.profile)))
+        phases.append(main_path)
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
         phases += [
             ("sf1", lambda: phase_sf1(dev)),
-            ("main", lambda: phase_sf10(dev, args.profile)),
+            main_path,
+            ("rel", lambda: phase_sf10_rel(dev, args.profile)),
             ("timing", lambda: phase_timing(dev)),
         ]
     failed = []
@@ -1366,7 +1655,8 @@ def main(argv=None) -> int:
             _log(f"[phase] {name} FAILED")
             failed.append(name)
             if name == "main":
-                break  # timing needs the main path's inputs
+                break  # the relational path and timing need the main path
+    _log(f"[run] {time.perf_counter() - t_start:.1f} s in all")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

@@ -1,15 +1,18 @@
 """Local execution: logical plan -> eager PyTorch operators on one device.
 
-Counterpart of trino_tpu/exec/local.py, for the subset of plans TPC-H
-Q1/Q3/Q6 reach.  Where the JAX package traces a whole fragment into one
-jitted XLA program over padded lanes, this executor walks the plan and
-runs each operator eagerly on the executor's device:
+Counterpart of trino_tpu/exec/local.py, for the plans the 22 TPC-H
+queries, SELECT DISTINCT, the set operations and window functions
+reach.  Where the JAX package traces a whole fragment into one jitted
+XLA program over padded lanes, this executor walks the plan and runs
+each operator eagerly on the executor's device:
   1. loads splits on the host (numpy), merging per-split dictionaries,
   2. uploads scan columns through page-locked memory and keeps them on
      the device across queries (DeviceScanCache),
-  3. runs the operators (filter / project / join / cross join /
-     aggregate — first trying the fused megakernel, then direct or
-     hash-sort grouping — / sort / top-N / limit),
+  3. runs the operators (filter / project / join / cross join / semi
+     join (IN, EXISTS and, under a NOT filter, their negations) / scalar
+     join / aggregate, DISTINCT aggregates included — first trying the
+     fused megakernel, then direct or hash-sort grouping — / distinct /
+     union, intersect, except / window / sort / top-N / limit),
   4. re-runs the plan when a runtime check fails (the JAX package's
      retry ladder): a direct-address join whose build keys break the
      planner's domain/uniqueness proof retries on the sorted unique
@@ -23,10 +26,9 @@ keep their exact row counts, and group and join-expansion capacities
 are the true counts (no capacity retries).  Batch representation:
 dict[symbol -> (values, valid)] plus a boolean selection mask `sel`.
 
-Not in this slice (ExecutionError / NotImplementedError): semi joins,
-window functions, set operations, unnest, match_recognize, grouping
-sets, writes, spill and streaming, the device supervisor and the mesh
-executor.
+Not in this slice (ExecutionError / NotImplementedError): unnest,
+match_recognize, grouping sets, sample, writes, spill and streaming,
+the device supervisor and the mesh executor.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from ..expr.lower import LoweringContext, compile_expr
 from ..ops import aggregation as agg_ops
 from ..ops import join as join_ops
 from ..ops import sort as sort_ops
+from ..ops import window as window_ops
 from ..page import Column, Page
 from ..plan import nodes as P
 
@@ -177,6 +180,32 @@ def _is_null_expr(e: ir.Expr) -> bool:
     if isinstance(e, ir.Constant) and e.value is None:
         return True
     return e.type.name == "unknown"
+
+
+def _run_heads(gid: torch.Tensor) -> torch.Tensor:
+    """First row of each run of equal ids in a sorted gid lane."""
+    one = torch.ones(1, dtype=torch.bool, device=gid.device)
+    return torch.cat([one, gid[1:] != gid[:-1]])[: gid.shape[0]]
+
+
+def _broadcast_first_row(keep: Batch, single: Batch):
+    """keep's lanes plus single's first selected row broadcast over
+    keep's rows (NULL where single selects no row; wide decimals keep
+    their limb dimension), and whether single selects a row."""
+    n = keep.sel.shape[0]
+    m = single.sel.shape[0]
+    has = single.sel.sum() > 0
+    first = torch.argmax(single.sel.to(torch.int8)) if m else None
+    lanes = dict(keep.lanes)
+    for s, (v, ok) in single.lanes.items():
+        if m:
+            fv, fok = v[first], ok[first] & has
+        else:
+            fv = torch.zeros(v.shape[1:], dtype=v.dtype, device=v.device)
+            fok = has
+        lanes[s] = (fv.expand((n,) + tuple(v.shape[1:])).contiguous(),
+                    fok.expand((n,)).contiguous())
+    return lanes, has
 
 
 def _valid_of(col: Column, n: int) -> np.ndarray:
@@ -571,6 +600,20 @@ class _TraceCtx:
         lanes, sel = sort_ops.limit(b.lanes, b.sel, node.count, node.offset)
         return Batch(lanes, sel, b.ordered)
 
+    def _visit_distinct(self, node: P.Distinct) -> Batch:
+        b = self.visit(node.source)
+        key_lanes = [b.lanes[s] for s in node.output_symbols()]
+        return self._distinct_rows(b.lanes, b.sel, key_lanes)
+
+    def _distinct_rows(self, lanes, sel, key_lanes) -> Batch:
+        """First row of each distinct key tuple, on the hash-sort
+        grouping (rows permuted into group order)."""
+        n = sel.shape[0]
+        perm, gid, _ = self._group_sort(key_lanes, sel, max(n, 1))
+        from ..ops.filter_project import permute_lanes
+
+        return Batch(permute_lanes(lanes, perm), sel[perm] & _run_heads(gid))
+
     # -- aggregation ------------------------------------------------------
     def _visit_aggregate(self, node: P.Aggregate) -> Batch:
         """SINGLE-step aggregation (PARTIAL/FINAL belong to the
@@ -866,20 +909,103 @@ class _TraceCtx:
     def _scalar_cross(self, keep: Batch, single: Batch) -> Batch:
         """Cross join against a <=1-row side: broadcast its first selected
         row onto the kept side (empty single side = empty result)."""
-        n = keep.sel.shape[0]
-        m = single.sel.shape[0]
-        has = single.sel.sum() > 0
-        first = torch.argmax(single.sel.to(torch.int8)) if m else None
-        lanes = dict(keep.lanes)
-        for s, (v, ok) in single.lanes.items():
-            if m:
-                fv, fok = v[first], ok[first] & has
-            else:
-                fv = torch.zeros(v.shape[1:], dtype=v.dtype, device=v.device)
-                fok = has
-            lanes[s] = (fv.expand((n,) + tuple(v.shape[1:])).contiguous(),
-                        fok.expand((n,)).contiguous())
+        lanes, has = _broadcast_first_row(keep, single)
         return Batch(lanes, keep.sel & has)
+
+    def _visit_semijoin(self, node: P.SemiJoin) -> Batch:
+        """Membership mark (IN / EXISTS); NOT IN / NOT EXISTS are this mark
+        under a NOT filter."""
+        src = self.visit(node.source)
+        filt = self.visit(node.filtering)
+        hit = self._semi_hit(node, src, filt)
+        lanes = dict(src.lanes)
+        lanes[node.output] = (hit, torch.ones_like(hit))
+        return Batch(lanes, src.sel, src.ordered)
+
+    def _semi_hit(self, node: P.SemiJoin, src: Batch, filt: Batch):
+        """Membership mark; duplicates in the filtering side are fine
+        (sorted search, any match counts).  Single-column keys compare the
+        real value directly (collision-free); multi-column keys and residual
+        predicates go through the expansion path with exact verification."""
+        skeys, fkeys = self._semi_keys(node, src, filt)
+        if (
+            node.filter is not None
+            or join_ops.needs_verification(skeys)
+            or join_ops.needs_verification(fkeys)
+        ):
+            return self._semi_hit_expanded(node, src, filt)
+        build = join_ops.build_multi(fkeys[0], filt.sel)
+        counts, _ = join_ops.probe_counts(build, skeys[0], src.sel)
+        return counts > 0
+
+    def _semi_keys(self, node: P.SemiJoin, src: Batch, filt: Batch):
+        """Source and filtering key lanes.  Varchar keys compare
+        dictionary codes, so a source key whose dictionary differs from
+        its filtering key's is recoded into the filtering side's codes; a
+        value the filtering side lacks gets one past its last code, which
+        no filtering row holds.  (The JAX package compares the codes
+        as they are: see ROADMAP.md, C.)"""
+        from ..expr.functions import dict_gather
+
+        skeys = []
+        for s, f in zip(node.source_keys, node.filtering_keys):
+            v, ok = src.lanes[s]
+            ds, df = self.ex.dicts.get(s), self.ex.dicts.get(f)
+            if (ds is None) != (df is None):
+                raise ExecutionError(
+                    f"semi join key {s}={f} mixes varchar dictionary and non-dict"
+                )
+            if ds is not None and ds is not df and not np.array_equal(ds, df):
+                index = {x: i for i, x in enumerate(df)}
+                table = np.array([index.get(x, len(df)) for x in ds], dtype=np.int64)
+                v = dict_gather(table, v, -1).to(v.dtype)
+            skeys.append((v, ok))
+        return skeys, [filt.lanes[f] for f in node.filtering_keys]
+
+    def _semi_hit_expanded(self, node: P.SemiJoin, src: Batch, filt: Batch):
+        """Mark join via candidate expansion: expand (source, filtering)
+        pairs on the equi-key locator ranges, verify exact key equality,
+        evaluate the residual if any, reduce any-match per source row
+        (EXISTS with non-equality correlation, e.g. TPC-H Q21).  Eager
+        execution knows the pair count, so the capacity is the true
+        total."""
+        skeys, fkeys = self._semi_keys(node, src, filt)
+        need_verify = join_ops.needs_verification(
+            fkeys
+        ) or join_ops.needs_verification(skeys)
+        bkey = join_ops.composite_key(fkeys, filt.sel, need_verify)
+        pkey = join_ops.composite_key(skeys, src.sel, need_verify)
+        build = join_ops.build_multi(bkey, filt.sel)
+        counts, lo = join_ops.probe_counts(build, pkey, src.sel)
+        n_src = src.sel.shape[0]
+        capacity = int(counts.sum())
+        probe_row, build_row, matched, _, _ = join_ops.expand_join_slots(
+            build, counts, lo, capacity
+        )
+        if need_verify:
+            matched = matched & join_ops.verify_rows(
+                fkeys, skeys, build_row, probe_row
+            )
+        pair_ok = matched & src.sel[probe_row]
+        if node.filter is not None:
+            from ..ops.filter_project import permute_lanes
+
+            lanes = dict(permute_lanes(src.lanes, probe_row))
+            take = join_ops.take  # an empty filtering side reads zeros
+            for s, (v, ok) in filt.lanes.items():
+                lanes[s] = (take(v, build_row), take(ok, build_row) & matched)
+            fv, fok = compile_expr(node.filter, self.lowering)(lanes)
+            pair_ok = pair_ok & fv & fok
+        marks = torch.zeros(n_src, dtype=torch.int64, device=pair_ok.device)
+        marks.index_add_(0, probe_row, pair_ok.to(torch.int64))
+        return marks > 0
+
+    def _visit_scalarjoin(self, node: P.ScalarJoin) -> Batch:
+        """Broadcast the subquery's first selected row onto every source
+        row (EnforceSingleRow); no selected row gives NULLs."""
+        src = self.visit(node.source)
+        lanes, _ = _broadcast_first_row(src, self.visit(node.subquery))
+        return Batch(lanes, src.sel, src.ordered)
 
     # -- ordering --------------------------------------------------------
     def _visit_sort(self, node: P.Sort) -> Batch:
@@ -922,3 +1048,196 @@ class _TraceCtx:
             else:
                 out.append(k)
         return out
+
+    # -- window functions ------------------------------------------------
+    def _visit_window(self, node: P.Window) -> Batch:
+        """WindowOperator: one sort groups partitions and orders peers,
+        then every function is a vector program over the sorted lanes
+        (ops/window.py)."""
+        b = self.visit(node.source)
+        part_keys = tuple(sort_ops.SortKey(s) for s in node.partition_by)
+        order_keys = tuple(self._rank_sort_keys(node.order_by, b))
+        perm = sort_ops.sort_perm(part_keys + order_keys, b.lanes, b.sel)
+        lanes, sel = sort_ops.apply_perm(b.lanes, perm, b.sel)
+        part_lanes = [lanes[s] for s in node.partition_by]
+        ord_lanes = [lanes[k.column] for k in order_keys]
+        bounds = window_ops.compute_bounds(part_lanes, ord_lanes, sel)
+        for f in node.functions:
+            lanes[f.output] = self._window_output(f, lanes, sel, bounds)
+            if f.args:
+                d = self.ex.dicts.get(f.args[0])
+                if d is not None and f.output_type.is_dictionary:
+                    self.ex.dicts[f.output] = d
+        return Batch(lanes, sel)
+
+    def _window_output(self, f: P.WindowFunc, lanes, sel, b):
+        W = window_ops
+        if f.kind == "row_number":
+            return W.row_number(b)
+        if f.kind == "rank":
+            return W.rank(b)
+        if f.kind == "dense_rank":
+            return W.dense_rank(b)
+        if f.kind == "percent_rank":
+            return W.percent_rank(b, sel)
+        if f.kind == "cume_dist":
+            return W.cume_dist(b, sel)
+        if f.kind == "ntile":
+            return W.ntile(b, sel, f.constants[0])
+        if f.kind in ("lag", "lead"):
+            off, default = f.constants
+            return W.shift_value(
+                lanes[f.args[0]], b, off, default, f.kind == "lead"
+            )
+        start, end = W.frame_range(f.frame, b)
+        nonempty = end >= start
+        if f.kind == "first_value":
+            return W.value_at(lanes[f.args[0]], start, nonempty)
+        if f.kind == "last_value":
+            return W.value_at(lanes[f.args[0]], end, nonempty)
+        if f.kind == "nth_value":
+            return W.nth_value(lanes[f.args[0]], start, end, f.constants[0])
+        if f.kind in ("count", "count_star"):
+            lane = lanes[f.args[0]] if f.args else None
+            _, cnt = W.framed_sum_count(
+                lane, sel, start, end, count_star=f.kind == "count_star"
+            )
+            return cnt, torch.ones_like(sel)
+        if f.kind in ("min", "max"):
+            if lanes[f.args[0]][0].dim() == 2:
+                # wide (two-limb) decimal lane: limb-wise masked compares
+                v, cnt = W.framed_minmax_wide(
+                    lanes[f.args[0]], sel, b, f.frame, f.kind
+                )
+                return torch.where((cnt > 0)[:, None], v, 0), cnt > 0
+            v, cnt = W.framed_minmax(lanes[f.args[0]], sel, b, f.frame, f.kind)
+            return torch.where(cnt > 0, v, torch.zeros_like(v)), cnt > 0
+        if f.kind in ("sum", "avg"):
+            return self._window_sum_avg(f, lanes[f.args[0]], sel, start, end)
+        raise ExecutionError(f"window function {f.kind} not implemented")
+
+    def _window_sum_avg(self, f: P.WindowFunc, in_lane, sel, start, end):
+        W = window_ops
+        ot, it_ = f.output_type, f.input_type
+        wide_out = getattr(ot, "wide", False)
+        if wide_out or in_lane[0].dim() == 2:
+            # exact 128-bit windowed decimal sum (chunk prefix sums)
+            from ..ops import wide_decimal as wd
+
+            wsum, cnt = W.framed_sum_wide(in_lane, sel, start, end)
+            if f.kind == "sum":
+                return (wsum if wide_out else wd.narrow(wsum)), cnt > 0
+            num = wd.rescale(wsum, ot.scale - it_.scale)
+            q = wd.div_round(num, torch.clamp(cnt, min=1))
+            return (q if wide_out else wd.narrow(q)), cnt > 0
+        ssum, cnt = W.framed_sum_count(in_lane, sel, start, end)
+        if f.kind == "sum":
+            return ssum, cnt > 0
+        den = torch.clamp(cnt, min=1)
+        if ssum.is_floating_point():
+            v = ssum / den
+        elif ot.name in ("double", "real"):
+            v = ssum.to(D.torch_dtype(ot.np_dtype)) / den
+        elif ot.is_decimal and it_ is not None:
+            num = ssum * 10 ** (ot.scale - it_.scale)
+            anum = torch.abs(num)
+            q = torch.div(anum, den, rounding_mode="floor")
+            rem = anum - q * den
+            v = torch.sign(num) * (q + (2 * rem >= den).to(torch.int64))
+        else:
+            v = torch.div(ssum, den, rounding_mode="floor")
+        return v, cnt > 0
+
+    # -- set operations --------------------------------------------------
+    def _visit_setoperation(self, node: P.SetOperation) -> Batch:
+        """UNION [ALL] / INTERSECT / EXCEPT.  Intersect/except use distinct
+        semantics via one sort over the concatenated inputs with per-side
+        presence counts."""
+        if node.kind in ("intersect", "except"):
+            return self._intersect_except(node)
+        lanes, sel, _ = self._union_lanes(node)
+        if node.all:
+            return Batch(lanes, sel)
+        # UNION DISTINCT via the Distinct path
+        return self._distinct_rows(lanes, sel, [lanes[s] for s in node.symbols])
+
+    def _union_lanes(self, node: P.SetOperation):
+        """Visit and concatenate all inputs positionally; returns
+        (lanes, sel, per-input row counts)."""
+        batches = [self.visit(i) for i in node.inputs]
+        caps = [b.sel.shape[0] for b in batches]
+        lanes = {}
+        for pos, (out_sym, (_, t)) in enumerate(zip(node.symbols, node.types_)):
+            vs, oks = [], []
+            src_syms = [inp.output_symbols()[pos] for inp in node.inputs]
+            if t.is_dictionary:
+                # re-encode each input's codes into a merged dictionary
+                in_dicts = [self.ex.dicts.get(s) for s in src_syms]
+                if any(d is None for d in in_dicts):
+                    raise ExecutionError("union of non-dict varchar")
+                merged: List[str] = []
+                index: Dict[str, int] = {}
+                remaps = []
+                for d in in_dicts:
+                    table = np.empty(len(d), dtype=np.int32)
+                    for i, s in enumerate(d):
+                        if s not in index:
+                            index[s] = len(merged)
+                            merged.append(s)
+                        table[i] = index[s]
+                    remaps.append(table)
+                self.ex.dicts[out_sym] = np.array(merged, dtype=object)
+                from ..expr.functions import dict_gather
+
+                for b, s, tbl in zip(batches, src_syms, remaps):
+                    v, ok = b.lanes[s]
+                    vs.append(dict_gather(tbl, v, -1).to(torch.int32))
+                    oks.append(ok)
+            else:
+                wide_t = getattr(t, "wide", False)
+                for b, s in zip(batches, src_syms):
+                    v, ok = b.lanes[s]
+                    if wide_t:
+                        # inputs may mix two-limb lanes with narrow
+                        # fast-path lanes of the same wide type
+                        from ..ops.wide_decimal import promote
+
+                        vs.append(promote(v))
+                    else:
+                        vs.append(v.to(D.torch_dtype(t.np_dtype)))
+                    oks.append(ok)
+            lanes[out_sym] = (torch.cat(vs), torch.cat(oks))
+        sel = torch.cat([b.sel for b in batches])
+        return lanes, sel, caps
+
+    def _setop_tag_reduce(self, node, lanes0, sel, tag):
+        """INTERSECT/EXCEPT membership over tagged rows: group-sort by the
+        full row, per-side presence marks, keep-group predicate,
+        first-of-group dedup."""
+        key_lanes = [lanes0[s] for s in node.symbols]
+        cap = max(sel.shape[0], 1)
+        perm, gid, _ = self._group_sort(key_lanes, sel, cap)
+        sel_sorted = sel[perm]
+        tag_sorted = tag[perm]
+        side0 = agg_ops._seg_count(sel_sorted & (tag_sorted == 0), gid, cap) > 0
+        side1 = agg_ops._seg_count(sel_sorted & (tag_sorted == 1), gid, cap) > 0
+        keep_group = side0 & side1 if node.kind == "intersect" else side0 & ~side1
+        from ..ops.filter_project import permute_lanes
+
+        lanes = permute_lanes(lanes0, perm)
+        return Batch(lanes, sel_sorted & _run_heads(gid) & keep_group[gid])
+
+    def _intersect_except(self, node: P.SetOperation) -> Batch:
+        if node.all:
+            raise ExecutionError(
+                f"{node.kind.upper()} ALL not supported (DISTINCT only)"
+            )
+        if len(node.inputs) != 2:
+            raise ExecutionError(f"{node.kind} takes two inputs")
+        lanes0, sel, caps = self._union_lanes(node)
+        dev = sel.device
+        tag = torch.cat([
+            torch.zeros(caps[0], dtype=torch.int32, device=dev),
+            torch.ones(caps[1], dtype=torch.int32, device=dev),
+        ])
+        return self._setop_tag_reduce(node, lanes0, sel, tag)

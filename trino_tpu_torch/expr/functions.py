@@ -4,7 +4,7 @@ Counterpart of trino_tpu/expr/functions.py.  Each function lowers to
 PyTorch ops on (values, valid) lanes, evaluated eagerly.  This slice of
 the port carries the functions TPC-H Q1/Q6 reach and their neighbours:
 decimal arithmetic and rescale, division with round-half-away, date
-parts, LIKE/length over dictionaries.  The analyzer-facing typing rules
+parts, LIKE/length/substring over dictionaries.  The analyzer-facing typing rules
 (arith_result_type, SIGNATURES, CONST_EVAL) are copied verbatim; a
 function typed there but not lowered here raises NotImplementedError at
 execution (trino_tpu_torch/expr/lower.py).
@@ -398,6 +398,59 @@ def _length(node, lanes, ctx):
     return dict_gather(lens, cv, 0), cok
 
 
+def register_derived_dict(ctx, node, transformed):
+    """Dedup a per-entry transformed string list into a derived dictionary
+    registered for ``node``; returns the old-code -> new-code remap.  A
+    ``None`` entry maps to code -1 (NULL row)."""
+    index: dict = {}
+    newvals: list = []
+    remap = np.empty(len(transformed), dtype=np.int32)
+    for i, t in enumerate(transformed):
+        if t is None:
+            remap[i] = -1
+            continue
+        if t not in index:
+            index[t] = len(newvals)
+            newvals.append(t)
+        remap[i] = index[t]
+    # element-wise object array: np.array(list_of_tuples, dtype=object)
+    # would build a 2-D array for equal-length tuple entries
+    arr = np.empty(len(newvals), dtype=object)
+    for i, v in enumerate(newvals):
+        arr[i] = v
+    ctx.expr_dicts[node] = arr
+    return remap
+
+
+def _derived_string_fn(node, lanes, ctx, transform):
+    """Apply a host string transform per dictionary entry and register a
+    derived dictionary for the produced expression (the dictionary-
+    projection trick: O(|dict|) host work, one O(n) device gather)."""
+    src = ctx.dict_for_expr(node.args[0])
+    if src is None:
+        raise NotImplementedError(f"{node.name}() requires a dictionary input")
+    remap = register_derived_dict(ctx, node, [transform(str(x)) for x in src])
+    cv, cok = lanes[0]
+    return dict_gather(remap, cv, -1), cok
+
+
+def _const_int_arg(node, i: int) -> int:
+    a = node.args[i]
+    if not isinstance(a, ir.Constant):
+        raise NotImplementedError(f"{node.name}() takes constant positions")
+    return int(a.value)
+
+
+def _substring(node, lanes, ctx):
+    start = _const_int_arg(node, 1) - 1  # SQL is 1-based
+    length = _const_int_arg(node, 2) if len(node.args) > 2 else None
+
+    def tf(s: str) -> str:
+        return s[start: start + length] if length is not None else s[start:]
+
+    return _derived_string_fn(node, lanes, ctx, tf)
+
+
 FUNCTIONS: Dict[str, Callable] = {
     "add": _add,
     "subtract": _subtract,
@@ -414,6 +467,8 @@ FUNCTIONS: Dict[str, Callable] = {
     "day_of_month": _day,
     "like": _like,
     "length": _length,
+    "substring": _substring,
+    "substr": _substring,
 }
 
 

@@ -11,9 +11,14 @@ sums: ops/kernels.grouped_sum_i64), the others are ``index_add_`` (sums)
 and ``scatter_reduce`` (min/max).  The TPU-only masked one-hot
 reductions are gone: CUDA has native atomics.
 
-Not in this slice (NotImplementedError): DISTINCT aggregates, moments,
-bitwise, checksum, min_by/max_by, sketches, host-staged aggregates and
-the PARTIAL/FINAL accumulator merge.
+DISTINCT aggregates (distinct_first_mask / distinct_count): count(DISTINCT)
+takes one sort over (liveness, group, value); sum/avg/count_if(DISTINCT)
+run their normal accumulators over a first-occurrence mask; DISTINCT is a
+no-op for min/max/arbitrary.
+
+Not in this slice (NotImplementedError): moments, bitwise, checksum,
+min_by/max_by, sketches, host-staged aggregates and the PARTIAL/FINAL
+accumulator merge.
 
 NULL semantics: a NULL key is its own group (the validity bit is an
 extra radix slot); sum/min/max ignore NULL inputs and return NULL for
@@ -30,6 +35,7 @@ from .. import types as T
 from ..expr.lower import Lane
 from . import kernels
 from .int128 import SIGN64, as_i64, srl
+from .sort import lex_perm
 
 I64_MAX = 2**62
 
@@ -240,6 +246,58 @@ def sort_group_ids(
     return perm, gid, ngroups, collisions
 
 
+def distinct_first_mask(
+    gid: torch.Tensor, lane: Lane, live: torch.Tensor
+) -> torch.Tensor:
+    """First-occurrence mask per (group, value) over live rows, in the
+    caller's row order (MarkDistinctOperator analog): one sort by
+    (liveness, gid, value bits), adjacent-first flags, and a scatter back
+    through the permutation.  An aggregate then runs its normal
+    accumulator over `live & mask`."""
+    v, _ok = lane
+    n = gid.shape[0]
+    bit_lanes = list(_key_bit_lanes(v))
+    dead = torch.logical_not(live)
+    perm = lex_perm([dead, gid] + bit_lanes)
+    g2 = gid[perm]
+    neq = g2[1:] != g2[:-1]
+    for b in bit_lanes:
+        b2 = b[perm]
+        neq = neq | (b2[1:] != b2[:-1])
+    one = torch.ones(1, dtype=torch.bool, device=gid.device)
+    first = torch.cat([one, neq])[:n] & torch.logical_not(dead[perm])
+    out = torch.zeros(n, dtype=torch.bool, device=gid.device)
+    out[perm] = first
+    return out
+
+
+# DISTINCT is semantically a no-op for these kinds (duplicates cannot
+# change an extremum / boolean fold / arbitrary pick)
+_DISTINCT_NOOP = ("min", "max", "bool_and", "bool_or", "arbitrary",
+                  "approx_distinct")
+# kinds whose accumulators correctly consume a dedup-refined live mask
+_DISTINCT_MASKED = ("sum", "avg", "count_if", "geometric_mean") + MOMENT_KINDS
+
+
+def distinct_count(
+    gid: torch.Tensor, lane: Lane, sel: torch.Tensor, capacity: int
+) -> torch.Tensor:
+    """count(DISTINCT x) per group: sort by (liveness, gid, x), count the
+    live first occurrences (MarkDistinctOperator + count, in one sort)."""
+    v, ok = lane
+    live = sel & ok
+    n = gid.shape[0]
+    vv = v if v.is_floating_point() else v.to(torch.int64)
+    dead = torch.logical_not(live)
+    perm = lex_perm([dead, gid, vv])
+    g2, v2 = gid[perm], vv[perm]
+    one = torch.ones(1, dtype=torch.bool, device=gid.device)
+    first = torch.cat([one, (g2[1:] != g2[:-1]) | (v2[1:] != v2[:-1])])[:n]
+    flags = (first & live[perm]).to(torch.int64)
+    out = torch.zeros(capacity, dtype=torch.int64, device=gid.device)
+    return out.index_add_(0, torch.clamp(g2, 0, capacity - 1), flags)
+
+
 class SortedSegments:
     """Grouped reductions over a SORTED gid lane (the hash-sort grouping
     path: rows arrive permuted so equal groups are adjacent, gid
@@ -329,6 +387,23 @@ def _seg_extreme(v: torch.Tensor, gid: torch.Tensor, cap: int, take_min: bool):
     return out.scatter_reduce(0, gid, v, "amin" if take_min else "amax")
 
 
+def _seg_minmax_wide(v, live, gid, cap, take_min: bool):
+    """Lexicographic segment min/max of a wide (two-limb) decimal lane:
+    extreme high limb first, then the extreme unsigned low limb among
+    rows whose high limb attains it (two exact segment passes).  The
+    sentinels are the true int64 extremes: limbs span the full 64-bit
+    domain."""
+    from . import wide_decimal as wd
+
+    lo, hi = wd.limbs(v)
+    lo_u = lo ^ SIGN64  # unsigned order, signed domain
+    sent = 2**63 - 1 if take_min else -(2**63)
+    hi_ext = _seg_extreme(torch.where(live, hi, sent), gid, cap, take_min)
+    on_ext = live & (hi == hi_ext[gid])
+    lo_ext = _seg_extreme(torch.where(on_ext, lo_u, sent), gid, cap, take_min)
+    return wd.make_wide(lo_ext ^ SIGN64, hi_ext)
+
+
 def _seg_min(v, gid, cap):
     return _seg_extreme(v, gid, cap, True)
 
@@ -374,15 +449,34 @@ def accumulate(
             return seg.min(vv) if take_min else seg.max(vv)
         return _seg_extreme(vv, gid, cap, take_min)
 
+    # one dedup mask per DISTINCT input column, shared across specs
+    # (sum(DISTINCT x) + avg(DISTINCT x) sort once, not twice)
+    distinct_masks: Dict[str, torch.Tensor] = {}
     for s in specs:
         o = s.output
-        if getattr(s, "distinct", False):
-            raise _not_in_slice(f"{s.kind}(DISTINCT)")
+        if s.distinct and s.kind == "count":
+            # count(DISTINCT x): the one-sort path
+            out[f"{o}$count"] = distinct_count(gid, lanes[s.input], sel, cap)
+            continue
         if s.kind == "count_star":
             out[f"{o}$count"] = seg_cnt(sel)
             continue
         v, ok = lanes[s.input]
         live = sel & ok
+        if s.distinct and s.kind not in _DISTINCT_NOOP:
+            if s.kind not in _DISTINCT_MASKED:
+                raise NotImplementedError(f"{s.kind}(DISTINCT) not supported")
+            if step != "single":
+                raise NotImplementedError(
+                    "DISTINCT aggregates are non-decomposable: the "
+                    "planner must not split them PARTIAL/FINAL"
+                )
+            m = distinct_masks.get(s.input)
+            if m is None:
+                m = distinct_masks[s.input] = distinct_first_mask(
+                    gid, (v, ok), live
+                )
+            live = live & m
         if s.kind == "count":
             out[f"{o}$count"] = seg_cnt(live)
         elif s.kind == "count_if":
@@ -433,7 +527,11 @@ def accumulate(
                 out[f"{o}$count"] = cnt
         elif s.kind in ("min", "max"):
             if v.dim() == 2:
-                raise _not_in_slice("min/max over wide decimals")
+                out[f"{o}$val"] = _seg_minmax_wide(
+                    v, live, gid, cap, s.kind == "min"
+                )
+                out[f"{o}$valid"] = _seg_count(live, gid, cap)
+                continue
             if v.is_floating_point():
                 sentinel = float("inf") if s.kind == "min" else float("-inf")
                 vv = torch.where(live, v, sentinel)
@@ -481,7 +579,8 @@ def finalize(
         elif s.kind in ("min", "max"):
             v = accs[f"{o}$val"]
             has = accs[f"{o}$valid"] > 0
-            out[o] = (torch.where(has, v, torch.zeros_like(v)), has)
+            sel_has = has[:, None] if v.dim() == 2 else has
+            out[o] = (torch.where(sel_has, v, torch.zeros_like(v)), has)
         elif s.kind == "arbitrary":
             out[o] = (accs[f"{o}$val"], accs[f"{o}$valid"] > 0)
         elif s.kind == "avg":

@@ -45,7 +45,15 @@ def sort_perm(
             continue
         vv = _operand(v)
         operands.append(vv if k.ascending else _negate_for_desc(vv))
-    perm = torch.arange(sel.shape[0], dtype=torch.int64, device=sel.device)
+    return lex_perm(operands)
+
+
+def lex_perm(operands: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Permutation sorting rows by the operands, the first most
+    significant (the JAX package's multi-operand lax.sort): stable
+    argsorts from the last operand to the first."""
+    perm = torch.arange(operands[0].shape[0], dtype=torch.int64,
+                        device=operands[0].device)
     for op in reversed(operands):
         perm = perm[torch.argsort(_operand(op)[perm], stable=True)]
     return perm
