@@ -9,12 +9,16 @@ Phases (any failure exits non-zero and prints no result line):
   2. hold each kernel against its plain PyTorch version on the card,
      on random and edge inputs (exact equality); one fused call runs
      under torch.cuda.set_sync_debug_mode("error");
-  3. TPC-H SF1: all 22 queries of tests/tpch_sql.py, plus UNION,
-     INTERSECT, EXCEPT and two window statements of the CPU tests,
-     through Session.execute with megakernels on (fused kernel), off
-     (grouped-count and grouped-sum kernels) and with every kernel
-     function replaced by its plain version: the pages must be
-     byte-identical, and Q6, Q1 and Q3 agree with exact numpy references;
+  3. SF1: all 22 TPC-H queries of tests/tpch_sql.py, plus UNION,
+     INTERSECT, EXCEPT and two window statements of the CPU tests, and
+     the statements of tests/test_aggregates.py, test_functions.py and
+     test_grouping_sets.py, on a TPC-H session; the TPC-DS path's 26
+     statements on a TPC-DS session; each through Session.execute with
+     megakernels on (fused kernel), off (grouped-count and grouped-sum
+     kernels) and with every kernel function replaced by its plain
+     version: the pages must be byte-identical, Q6, Q1 and Q3 agree
+     with exact numpy references, and so do the
+     TPC-DS statements that phase 7 checks;
   4. TPC-H SF10, the main path: Q6, Q1 and Q3 warm with megakernels=auto
      and Q1 with megakernels=off, held against the numpy references;
      every kernel's launch count must move (direct_probe twice per Q3);
@@ -28,10 +32,20 @@ Phases (any failure exits non-zero and prints no result line):
      byte-identical to runs on the plain kernel versions;
   6. each kernel timed with CUDA events at the main path's shapes beside
      its bound, its plain version and, where one exists, one PyTorch call
-     computing the same function.
+     computing the same function;
+  7. TPC-DS SF10 (28.8 M store_sales rows), the TPC-H session freed
+     first: the 22 statements of tests/test_tpcds.py, its null-FK
+     count, Q27 with ROLLUP (DS-Q27-ROLLUP), the aggregate families per
+     store (DS-AGG) and the function library (DS-FN), cold once and warm
+     three times with every kernel's launches (direct_probe, the grouped
+     count and sum must launch) and the peak device memory; NULL-FK,
+     Q96, Q13, DS-AGG and DS-Q27-ROLLUP against numpy references over
+     the generated host arrays (exact, DS-AGG's float64 columns at
+     relative 1e-9), the other 21 byte-identical to runs on the plain
+     kernel versions.
 
---profile traces one warm run of every SF10 query (busy and idle share
-of the device).  The last log line gives the run's seconds.
+--profile traces one warm run of every SF10 query, TPC-DS included
+(busy and idle share of the device).  The last log line gives the run's seconds.
 
 With --parent DIR (a checkout of an earlier commit), that commit's
 direct_probe also runs the kernel cases and is timed beside this one's.
@@ -684,6 +698,10 @@ def _raw(col, i):
     return int(v[i])
 
 
+def _valid(col, i) -> bool:
+    return col.validity is None or bool(np.asarray(col.validity)[i])
+
+
 def _half_away(num: int, den: int) -> int:
     q, r = divmod(abs(num), den)
     q += 2 * r >= den
@@ -969,6 +987,155 @@ SF1_EXTRA = {
         "  rows between 2 preceding and 1 following) mx "
         "from orders order by o_custkey, o_orderkey limit 200"),
 }
+
+
+def sql_statements(filename, skip=()):
+    """{test name: sql} of every SELECT that a test of tests/<filename>
+    runs through its session: the SQL argument of its rows(), run() and
+    check() helpers and of session.execute() (a test that runs several
+    gets "#i" suffixes).  Read from the source with ast, so the SQL is
+    the test's own text and the file (which may import the JAX package)
+    is not imported."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        filename)
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef) or fn.name in skip:
+            continue
+        found = []
+        for call in ast.walk(fn):
+            if not isinstance(call, ast.Call):
+                continue
+            f = call.func
+            if isinstance(f, ast.Name) and f.id in ("rows", "run") and len(call.args) >= 2:
+                arg = call.args[1]
+            elif isinstance(f, ast.Name) and f.id == "check" and len(call.args) >= 3:
+                arg = call.args[2]
+            elif (isinstance(f, ast.Attribute) and f.attr == "execute"
+                  and getattr(f.value, "id", None) == "session" and call.args):
+                arg = call.args[0]
+            else:
+                continue
+            try:
+                sql = ast.literal_eval(arg)
+            except ValueError:  # an f-string or a variable
+                continue
+            if isinstance(sql, str) and sql.lstrip().lower().startswith("select"):
+                found.append(sql)
+        for i, sql in enumerate(found):
+            out[fn.name if len(found) == 1 else f"{fn.name}#{i}"] = sql
+    return out
+
+
+# tests of tests/test_aggregates.py that do not run on the TPC-H session:
+# arrays (not in this slice), the memory connector, the distributed runner
+AGG_TEST_SKIP = (
+    "test_array_map_listagg", "test_sketched_partial_final_distributed",
+    "test_sum_distinct_distributed", "test_sum_overflow_fails_loudly",
+    "test_sum_distinct_with_nulls",
+)
+
+
+def _library_sql():
+    """The TPC-H statements of the aggregate, function and grouping-set
+    tests (tests/test_aggregates.py, test_functions.py,
+    test_grouping_sets.py), with test_approx_percentile's f-string at
+    each fraction it runs."""
+    out = {}
+    for fname, skip in (("test_aggregates.py", AGG_TEST_SKIP),
+                        ("test_functions.py", ()), ("test_grouping_sets.py", ())):
+        for name, sql in sql_statements(fname, skip).items():
+            out[f"{fname[5:-3]}:{name}"] = sql
+    for p in (0.0, 0.25, 0.5, 0.9, 1.0):
+        out[f"aggregates:test_approx_percentile@{p}"] = (
+            f"select approx_percentile(l_quantity, {p}) from lineitem")
+    return out
+
+
+def _tpcds_sql():
+    """The 22 statements of tests/test_tpcds.py (Q90 with its web_page
+    probe replaced as the test replaces it) and the null-FK count of its
+    test_nullable_fk_join_drops_nulls, as {"Q3": sql, ..., "NULL-FK":
+    sql}.  The file imports the JAX package, so its source is read with
+    ast instead of imported."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_tpcds.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    consts = {}
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and isinstance(node.value, ast.Constant)
+                and isinstance(node.value.value, str)
+                and node.targets[0].id.startswith("Q")):
+            consts[node.targets[0].id] = node.value.value
+        if (isinstance(node, ast.FunctionDef)
+                and node.name == "test_nullable_fk_join_drops_nulls"):
+            for sub in ast.walk(node):
+                if (isinstance(sub, ast.Assign)
+                        and getattr(sub.targets[0], "id", None) == "sql"):
+                    consts["NULL-FK"] = ast.literal_eval(sub.value)
+    consts["Q90"] = consts["Q90"].replace("web_page_probe", "(select 1 wp) wp")
+    return consts
+
+
+# the statements of the TPC-DS path beside those of tests/test_tpcds.py:
+# Q27 in its published ROLLUP form (the test's filters; the published
+# s_state list is dropped, as the generator gives its stores random
+# states), the aggregate families per store, and the function library
+DS_EXTRA = {
+    "DS-Q27-ROLLUP": """
+select i_item_id, s_state, grouping(s_state) g_state,
+       avg(ss_quantity) agg1, avg(ss_list_price) agg2,
+       avg(ss_coupon_amt) agg3, avg(ss_sales_price) agg4
+from store_sales, customer_demographics, date_dim, store, item
+where ss_sold_date_sk = d_date_sk
+  and ss_item_sk = i_item_sk
+  and ss_store_sk = s_store_sk
+  and ss_cdemo_sk = cd_demo_sk
+  and cd_gender = 'M'
+  and cd_marital_status = 'S'
+  and cd_education_status = 'College'
+  and d_year = 2002
+group by rollup (i_item_id, s_state)
+order by i_item_id, s_state
+limit 100
+""",
+    "DS-AGG": """
+select s_store_id, count(*) n,
+       stddev_samp(ss_quantity) sd, var_pop(ss_net_profit) vp,
+       corr(ss_list_price, ss_sales_price) cr, geometric_mean(ss_quantity) gm,
+       approx_distinct(ss_customer_sk) ad,
+       approx_percentile(ss_sales_price, 0.5) p50,
+       max_by(ss_ticket_number, ss_net_profit) mb,
+       bool_and(ss_quantity > 0) ba, bitwise_or_agg(ss_quantity) bo,
+       checksum(ss_item_sk) ck
+from store_sales, store
+where ss_store_sk = s_store_sk
+group by s_store_id
+order by s_store_id
+""",
+    "DS-FN": """
+select day_of_week(d_date) dow,
+       width_bucket(cast(ss_net_paid as double), 0, 20000, 8) b,
+       count(*) n, sum(ss_net_paid) s, max(ln(ss_quantity + 1)) l,
+       min(date_diff('day', date '1998-01-01', d_date)) dd,
+       max(date_trunc('month', d_date)) m,
+       max(extract(quarter from d_date)) q
+from store_sales, date_dim
+where ss_sold_date_sk = d_date_sk and d_year = 2000
+group by 1, 2 order by 1, 2
+""",
+}
+
+
 # kernel wrappers each statement must launch with megakernels on and off
 # (read from a CPU run of this phase at SF1 with counting shims)
 _GC, _GS, _DP = "grouped_count", "grouped_sum_i64", "direct_probe"
@@ -1019,36 +1186,28 @@ def _launched(kn) -> str:
     return ", ".join(f"{k} {v}" for k, v in kn.LAUNCHES.items() if v) or "none"
 
 
-def phase_sf1(dev, sf=1.0):
+def _four_ways(s, statements, want=None, spy=None, tag="sf1"):
+    """Run every statement with megakernels on and off, then both again
+    with every kernel function replaced by its plain version: the four
+    pages must be byte-identical (float64 sums run in an order the rows
+    fix, so they too repeat bit for bit).  `want` names the kernels a
+    (statement, mode) must launch; `spy(q)` is a context around each
+    on/off run.  Returns the pages of the "on" runs."""
     from trino_tpu_torch import convert
     from trino_tpu_torch.ops import kernels as kn
-    from trino_tpu_torch.session import tpch_session
 
-    statements = dict(_tpch_sql())
-    statements.update(SF1_EXTRA)
-    s = tpch_session(sf)
     pages = {}
-    real = kn.fused_agg_sums
-
-    def rec_fused(*args):
-        MAIN["sf1_fused"] = args
-        return real(*args)
-
     for mode in ("on", "off"):
         s.properties.set("megakernels", mode)
         for q, sql in statements.items():
             kn.reset_counts()
-            if q == "Q1":  # Q1's fused call, timed in the timing phase
-                kn.fused_agg_sums = rec_fused
-            try:
+            with spy(q) if spy else contextlib.nullcontext():
                 pages[(q, mode)] = s.execute(sql)
-            finally:
-                kn.fused_agg_sums = real
             torch.cuda.synchronize()
-            for want in SF1_WANT.get((q, mode), ()):
-                if kn.LAUNCHES[want] == 0:
-                    raise AssertionError(f"{q} megakernels={mode}: {want} never launched")
-            _log(f"[sf1] {q} megakernels={mode}: {pages[(q, mode)].count} rows, "
+            for name in (want or {}).get((q, mode), ()):
+                if kn.LAUNCHES[name] == 0:
+                    raise AssertionError(f"{q} megakernels={mode}: {name} never launched")
+            _log(f"[{tag}] {q} megakernels={mode}: {pages[(q, mode)].count} rows, "
                  f"launches {_launched(kn)}")
     with _plain_kernels():
         for mode in ("on", "off"):
@@ -1058,19 +1217,68 @@ def phase_sf1(dev, sf=1.0):
     for q in statements:
         for mode in ("off", "plain-on", "plain-off"):
             convert.assert_pages_identical(pages[(q, "on")], pages[(q, mode)])
-        if pages[(q, "on")].count == 0:
+    return {q: pages[(q, "on")] for q in statements}
+
+
+def phase_sf1(dev, sf=1.0):
+    """SF1 parity: the 22 TPC-H queries and SF1_EXTRA (each must return
+    rows, with the kernels of SF1_WANT), the statements of the aggregate,
+    function and grouping-set tests on the same TPC-H session, and the
+    TPC-DS path's statements on a TPC-DS session with its numpy checks."""
+    import gc
+
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.session import tpcds_session, tpch_session
+
+    statements = dict(_tpch_sql())
+    statements.update(SF1_EXTRA)
+    s = tpch_session(sf)
+    real = kn.fused_agg_sums
+
+    def rec_fused(*args):
+        MAIN["sf1_fused"] = args
+        return real(*args)
+
+    @contextlib.contextmanager
+    def spy(q):
+        if q == "Q1":  # Q1's fused call, timed in the timing phase
+            kn.fused_agg_sums = rec_fused
+        try:
+            yield
+        finally:
+            kn.fused_agg_sums = real
+
+    pages = _four_ways(s, statements, SF1_WANT, spy)
+    for q, page in pages.items():
+        if page.count == 0:
             raise AssertionError(f"{q} returned no rows at SF{sf:g}")
     _log(f"[sf1] all {len(statements)} statements: megakernels on, off and plain "
          f"pages byte-identical")
     cols, dicts = _scan_host_columns(s, ["l_tax", "l_returnflag", "l_shipdate"])
-    check_reference({q: pages[(q, "on")] for q in ("Q6", "Q1")}, cols, dicts)
-    check_q3_page(s, pages[("Q3", "on")])
+    check_reference({q: pages[q] for q in ("Q6", "Q1")}, cols, dicts)
+    check_q3_page(s, pages["Q3"])
     _log("[sf1] Q6, Q1 and Q3 agree exactly with the numpy references")
-    for row in pages[("Q1", "on")].to_pylist():
+    for row in pages["Q1"].to_pylist():
         _log(f"[sf1] Q1 {row}")
-    _log(f"[sf1] Q6 {pages[('Q6', 'on')].to_pylist()}")
-    for row in pages[("Q3", "on")].to_pylist():
+    _log(f"[sf1] Q6 {pages['Q6'].to_pylist()}")
+    for row in pages["Q3"].to_pylist():
         _log(f"[sf1] Q3 {row}")
+    lib = _library_sql()
+    _four_ways(s, lib, tag="sf1-lib")
+    _log(f"[sf1] the {len(lib)} statements of the aggregate, function and "
+         f"grouping-set tests: on, off and plain agree")
+    del s
+    ds = _ds_statements()
+    s = tpcds_session(sf)
+    pages = _four_ways(s, ds, tag="sf1-ds")
+    _log(f"[sf1] the {len(ds)} TPC-DS statements: on, off and plain agree")
+    host = _DsHost(sf)
+    for q, check in DS_CHECKS.items():
+        check(host, pages[q])
+    _log(f"[sf1] TPC-DS {', '.join(DS_CHECKS)} agree with the numpy references")
+    del s, host
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1601,15 +1809,404 @@ def phase_timing(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the TPC-DS path at SF10 (GROUPING SETS, the aggregate families,
+# the function library, the surrogate-key star joins)
+
+
+DS_SF = 10.0
+
+
+def _ds_statements():
+    out = dict(_tpcds_sql())
+    out.update(DS_EXTRA)
+    return out
+
+
+class _DsHost:
+    """The generated TPC-DS host arrays the numpy references read, from
+    the port's connector (numpy, the arrays the session loaded): per
+    table {column: (values, valid)} and the varchar dictionaries, each
+    table generated once with the columns the checks need."""
+
+    COLUMNS = {
+        "store_sales": [
+            "ss_sold_date_sk", "ss_sold_time_sk", "ss_item_sk", "ss_customer_sk",
+            "ss_cdemo_sk", "ss_hdemo_sk", "ss_addr_sk", "ss_store_sk",
+            "ss_ticket_number", "ss_quantity", "ss_list_price", "ss_sales_price",
+            "ss_ext_sales_price", "ss_ext_wholesale_cost", "ss_coupon_amt",
+            "ss_net_profit"],
+        "date_dim": ["d_date_sk", "d_year"],
+        "time_dim": ["t_time_sk", "t_hour", "t_minute"],
+        "household_demographics": ["hd_demo_sk", "hd_dep_count"],
+        "customer_demographics": ["cd_demo_sk", "cd_gender", "cd_marital_status",
+                                  "cd_education_status"],
+        "customer_address": ["ca_address_sk", "ca_country", "ca_state"],
+        "store": ["s_store_sk", "s_store_id", "s_state"],
+        "item": ["i_item_sk", "i_item_id"],
+    }
+
+    def __init__(self, sf):
+        from trino_tpu_torch.connectors import tpcds
+
+        self.sf = sf
+        self.tables = {}
+        self.dicts = {}
+        t0 = time.perf_counter()
+        for table, cols in self.COLUMNS.items():
+            values, validity, dicts, n = tpcds.generate(table, sf, columns=cols)
+            self.tables[table] = {
+                c: (values[c], validity[c] if c in validity
+                    else np.ones(n, dtype=bool)) for c in cols}
+            self.dicts[table] = dicts
+        _log(f"[ds] host reference arrays generated in "
+             f"{time.perf_counter() - t0:.1f} s")
+
+    def col(self, table, c):
+        return self.tables[table][c]
+
+    def strings(self, table, c):
+        """The varchar column as python strings (None for NULL)."""
+        v, ok = self.col(table, c)
+        d = np.array([str(x) for x in self.dicts[table][c]], dtype=object)
+        out = d[np.clip(v, 0, max(len(d) - 1, 0))] if len(d) else np.full(
+            v.shape, None, dtype=object)
+        return np.where(ok & (v >= 0), out, None)
+
+    def fk(self, fact_col, table, sk_col, fact="store_sales"):
+        """Row of `table` each fact key refers to (-1: NULL or no match)."""
+        v, ok = self.col(fact, fact_col)
+        sk, sk_ok = self.col(table, sk_col)
+        top = int(sk[sk_ok].max())
+        pos = np.full(top + 1, -1, dtype=np.int64)
+        pos[sk[sk_ok]] = np.nonzero(sk_ok)[0]
+        inr = ok & (v >= 0) & (v <= top)
+        return np.where(inr, pos[np.where(inr, v, 0)], -1)
+
+    def where(self, table, c, pred):
+        """Per dimension row: valid and pred(value) (strings decoded)."""
+        if c in self.dicts[table]:
+            vals = self.strings(table, c)
+            return np.array([x is not None and bool(pred(x)) for x in vals])
+        v, ok = self.col(table, c)
+        return ok & pred(v)
+
+
+def _isum(a) -> int:
+    """Exact python int sum of an int64 array (chunks small enough that
+    no partial sum wraps for |a| < 2^40)."""
+    a = np.asarray(a, dtype=np.int64)
+    return sum(int(a[i:i + (1 << 20)].sum()) for i in range(0, a.shape[0], 1 << 20))
+
+
+def _close(got, want, rtol=1e-9) -> bool:
+    return got is not None and abs(got - want) <= rtol * abs(want)
+
+
+def _dim_mask(rows, mask):
+    """Fact rows whose dimension row exists and passes `mask`."""
+    ok = rows >= 0
+    out = np.zeros(rows.shape[0], dtype=bool)
+    out[ok] = mask[rows[ok]]
+    return out
+
+
+def check_ds_null_fk(h, page):
+    """count(*) of store_sales joined to date_dim: rows with a non-NULL
+    ss_sold_date_sk that names a date."""
+    want = int((h.fk("ss_sold_date_sk", "date_dim", "d_date_sk") >= 0).sum())
+    _expect_rows("NULL-FK", page.to_pylist(), [(want,)])
+
+
+def check_ds_q96(h, page):
+    """Q96: sales at 20:30-20:59 by households of 7 dependents, in a
+    store."""
+    m = (_dim_mask(h.fk("ss_sold_time_sk", "time_dim", "t_time_sk"),
+                   h.where("time_dim", "t_hour", lambda v: v == 20)
+                   & h.where("time_dim", "t_minute", lambda v: v >= 30))
+         & _dim_mask(h.fk("ss_hdemo_sk", "household_demographics", "hd_demo_sk"),
+                     h.where("household_demographics", "hd_dep_count",
+                             lambda v: v == 7))
+         & (h.fk("ss_store_sk", "store", "s_store_sk") >= 0))
+    _expect_rows("Q96", page.to_pylist(), [(int(m.sum()),)])
+
+
+def _avg_decimal(vals, ok, out_scale, in_scale=2):
+    """avg of a decimal column as the engine rounds it: the exact sum at
+    the output scale, divided with round-half-away."""
+    n = int(ok.sum())
+    if n == 0:
+        return None
+    return _half_away(_isum(vals[ok]) * 10 ** (out_scale - in_scale), n)
+
+
+def check_ds_q13(h, page):
+    """Q13 (one global row): the averages and the sum over the sales of
+    2001 in a store, by married college-educated customers of households
+    of 3 dependents, shipped to TX, OH or CA in the United States."""
+    m = (_dim_mask(h.fk("ss_sold_date_sk", "date_dim", "d_date_sk"),
+                   h.where("date_dim", "d_year", lambda v: v == 2001))
+         & (h.fk("ss_store_sk", "store", "s_store_sk") >= 0)
+         & _dim_mask(h.fk("ss_hdemo_sk", "household_demographics", "hd_demo_sk"),
+                     h.where("household_demographics", "hd_dep_count",
+                             lambda v: v == 3))
+         & _dim_mask(h.fk("ss_cdemo_sk", "customer_demographics", "cd_demo_sk"),
+                     h.where("customer_demographics", "cd_marital_status",
+                             lambda x: x == "M")
+                     & h.where("customer_demographics", "cd_education_status",
+                               lambda x: x == "College"))
+         & _dim_mask(h.fk("ss_addr_sk", "customer_address", "ca_address_sk"),
+                     h.where("customer_address", "ca_country",
+                             lambda x: x == "United States")
+                     & h.where("customer_address", "ca_state",
+                               lambda x: x in ("TX", "OH", "CA"))))
+    q, qok = h.col("store_sales", "ss_quantity")
+    e, eok = h.col("store_sales", "ss_ext_sales_price")
+    w, wok = h.col("store_sales", "ss_ext_wholesale_cost")
+    nq = int((m & qok).sum())
+    want_q = float(_isum(q[m & qok])) / nq if nq else None
+    cols = page.columns
+    want = (want_q, _avg_decimal(e, m & eok, cols[1].type.scale),
+            _avg_decimal(w, m & wok, cols[2].type.scale),
+            _isum(w[m & wok]) if (m & wok).any() else None)
+    got = (page.to_pylist()[0][0],) + tuple(
+        _raw(c, 0) if _valid(c, 0) else None for c in cols[1:])
+    if page.count != 1 or got != want:
+        raise AssertionError(f"Q13 {got} != reference {want}")
+
+
+def _splitmix64_np(v):
+    from trino_tpu_torch.connectors.tpch import mix64
+
+    return mix64(v.astype(np.uint64))
+
+
+def check_ds_agg(h, page):
+    """DS-AGG per store: count, approx_distinct, approx_percentile,
+    max_by (a ticket of a row at the maximal net profit), bool_and,
+    bitwise_or_agg and checksum exactly; stddev_samp, var_pop, corr and
+    geometric_mean at relative 1e-9 against exact integer moments and a
+    math.fsum of logs."""
+    import math
+
+    srow = h.fk("ss_store_sk", "store", "s_store_sk")
+    ids = h.strings("store", "s_store_id")
+    keys = sorted({x for x in ids if x is not None})
+    code = np.array([keys.index(x) if x is not None else -1 for x in ids])
+    g = np.where(srow >= 0, code[np.maximum(srow, 0)], -1)
+    rows = np.nonzero(g >= 0)[0]
+    order = rows[np.argsort(g[rows], kind="stable")]
+    bounds = np.searchsorted(g[order], np.arange(len(keys) + 1))
+    c = {k: h.col("store_sales", k) for k in (
+        "ss_quantity", "ss_net_profit", "ss_list_price", "ss_sales_price",
+        "ss_customer_sk", "ss_ticket_number", "ss_item_sk")}
+    got_rows = page.to_pylist()
+    if [r[0] for r in got_rows] != keys:
+        raise AssertionError(f"DS-AGG stores {[r[0] for r in got_rows][:5]}... != "
+                             f"reference {keys[:5]}...")
+    for gi, key in enumerate(keys):
+        idx = order[bounds[gi]:bounds[gi + 1]]
+        got = got_rows[gi]
+        q, qok = (a[idx] for a in c["ss_quantity"])
+        qv = q[qok]
+        n = qv.shape[0]
+        sq, sqq = _isum(qv), _isum(qv * qv)
+        sd = math.sqrt((n * sqq - sq * sq) / (n * (n - 1)))
+        p, pok = (a[idx] for a in c["ss_net_profit"])
+        pv = p[pok]
+        npf = pv.shape[0]
+        vp = (npf * _isum(pv * pv) - _isum(pv) ** 2) / (npf * npf * 10**4)
+        (x, xok), (y, yok) = ((a[idx] for a in c["ss_list_price"]),
+                              (a[idx] for a in c["ss_sales_price"]))
+        both = xok & yok
+        xv, yv = x[both], y[both]
+        nb = int(both.sum())
+        cxy = nb * _isum(xv * yv) - _isum(xv) * _isum(yv)
+        cxx = nb * _isum(xv * xv) - _isum(xv) ** 2
+        cyy = nb * _isum(yv * yv) - _isum(yv) ** 2
+        cr = cxy / (math.sqrt(cxx) * math.sqrt(cyy))
+        gm = math.exp(math.fsum(np.log(qv[qv > 0].astype(np.float64))) / n)
+        cu, cuok = (a[idx] for a in c["ss_customer_sk"])
+        ad = int(np.unique(cu[cuok]).shape[0])
+        sp, spok = (a[idx] for a in c["ss_sales_price"])
+        spv = np.sort(sp[spok])
+        p50 = int(spv[int(math.floor(0.5 * (spv.shape[0] - 1) + 0.5))])
+        t, tok = (a[idx] for a in c["ss_ticket_number"])
+        top = pv.max()
+        at = np.nonzero(pok)[0][pv == top]
+        tickets = {int(t[i]) if tok[i] else None for i in at}
+        it, itok = (a[idx] for a in c["ss_item_sk"])
+        ck = int(np.sum(np.where(itok, _splitmix64_np(it), np.uint64(0x6E676C6C7561)),
+                        dtype=np.uint64).astype(np.int64))
+        exact = {"n": (got[1], idx.shape[0]), "ad": (got[6], ad),
+                 "ba": (got[9], bool((qv > 0).all())),
+                 "bo": (got[10], int(np.bitwise_or.reduce(qv))),
+                 "ck": (got[11], ck)}
+        bad = {k: v for k, v in exact.items() if v[0] != v[1]}
+        if _raw(page.columns[7], gi) != p50:
+            bad["p50"] = (_raw(page.columns[7], gi), p50)
+        if got[8] not in tickets:
+            bad["mb"] = (got[8], sorted(tickets, key=str)[:5])
+        for k, gv, wv in (("sd", got[2], sd), ("vp", got[3], vp),
+                          ("cr", got[4], cr), ("gm", got[5], gm)):
+            if not _close(gv, wv):
+                bad[k] = (gv, wv)
+        if bad:
+            raise AssertionError(f"DS-AGG store {key}: {bad}")
+
+
+def check_ds_q27_rollup(h, page):
+    """DS-Q27-ROLLUP: the detail rows (item, state), the per-item totals
+    and the grand total, each average as the engine rounds it, ordered
+    by item and state (NULLs last) and cut at 100 rows."""
+    m = (_dim_mask(h.fk("ss_sold_date_sk", "date_dim", "d_date_sk"),
+                   h.where("date_dim", "d_year", lambda v: v == 2002))
+         & _dim_mask(h.fk("ss_cdemo_sk", "customer_demographics", "cd_demo_sk"),
+                     h.where("customer_demographics", "cd_gender", lambda x: x == "M")
+                     & h.where("customer_demographics", "cd_marital_status",
+                               lambda x: x == "S")
+                     & h.where("customer_demographics", "cd_education_status",
+                               lambda x: x == "College")))
+    irow = h.fk("ss_item_sk", "item", "i_item_sk")
+    srow = h.fk("ss_store_sk", "store", "s_store_sk")
+    m &= (irow >= 0) & (srow >= 0)
+    rows = np.nonzero(m)[0]
+    items = h.strings("item", "i_item_id")[irow[rows]]
+    states = h.strings("store", "s_state")[srow[rows]]
+    names = ("ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_sales_price")
+    lanes = [tuple(a[rows] for a in h.col("store_sales", c)) for c in names]
+    acc = {}
+    for j in range(rows.shape[0]):
+        for key in ((items[j], states[j]), (items[j], None), (None, None)):
+            a = acc.setdefault(key, [[0, 0] for _ in names])
+            for k, (v, ok) in enumerate(lanes):
+                if ok[j]:
+                    a[k][0] += int(v[j])
+                    a[k][1] += 1
+    scales = [page.columns[3 + k].type.scale for k in range(1, 4)]
+    want = []
+    for (item, state), a in acc.items():
+        (sq, nq), *decs = a
+        row = [item, state, 1 if state is None else 0,
+               float(sq) / nq if nq else None]
+        for (sm, n), sc in zip(decs, scales):
+            row.append(_half_away(sm * 10 ** (sc - 2), n) if n else None)
+        want.append(tuple(row))
+    want.sort(key=lambda r: (r[0] is None, r[0] or "", r[1] is None, r[1] or ""))
+    want = want[:100]
+    got = []
+    py = page.to_pylist()
+    for i in range(page.count):
+        got.append(tuple(py[i][:4]) + tuple(
+            _raw(page.columns[k], i) if _valid(page.columns[k], i) else None
+            for k in range(4, 7)))
+    _expect_rows("DS-Q27-ROLLUP", got, want)
+
+
+# kernels the TPC-DS path must launch (read from a CPU run of this phase
+# with counting shims): the star joins probe by direct address, and the
+# global counts and sums run the grouped kernels; no aggregate of the
+# path fuses, as each sits above a join
+DS_KERNELS = ("grouped_count", "grouped_sum_i64", "direct_probe")
+DS_CHECKS = {"NULL-FK": check_ds_null_fk, "Q96": check_ds_q96, "Q13": check_ds_q13,
+             "DS-AGG": check_ds_agg, "DS-Q27-ROLLUP": check_ds_q27_rollup}
+
+
+def phase_ds(dev, do_profile=False):
+    """The TPC-DS path at SF10 in a session of its own (the TPC-H SF10
+    session freed first, so the peak memory is this path's): every
+    statement cold once, then MAIN_REPS warm runs with the kernels'
+    launches counted from zero; the numpy references of DS_CHECKS, and
+    every other statement byte-identical to a run on the plain kernel
+    versions."""
+    import gc
+
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.session import tpcds_session
+
+    for k in ("session", "recorded", "sf1_fused"):
+        MAIN.pop(k, None)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sf = DS_SF
+    s = tpcds_session(sf)
+    # each statement scans its own column set of store_sales: the budget
+    # holds all of them, so the warm runs regenerate nothing
+    s._scan_cache.max_bytes = torch.cuda.get_device_properties(dev).total_memory // 2
+    _log(f"[ds{sf:g}] device memory allocated before the path "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; scan cache budget "
+         f"{s._scan_cache.max_bytes} bytes")
+    sqls = _ds_statements()
+    torch.cuda.reset_peak_memory_stats()
+    t_cold = time.perf_counter()
+    for q, sql in sqls.items():  # cold: generation, upload, first run
+        t0 = time.perf_counter()
+        s.execute(sql)
+        torch.cuda.synchronize()
+        _log(f"[ds{sf:g}] cold {q}: {time.perf_counter() - t0:.3f} s")
+    _log(f"[ds{sf:g}] all cold runs {time.perf_counter() - t_cold:.1f} s; scan cache "
+         f"{len(s._scan_cache.entries)} scans, {s._scan_cache.bytes} bytes")
+    walls = {q: [] for q in sqls}
+    per_run = {q: dict.fromkeys(KERNEL_FNS, 0) for q in sqls}
+    pages = {}
+    kn.reset_counts()  # the TPC-DS path starts here
+    for _ in range(MAIN_REPS):
+        for q, sql in sqls.items():
+            before = dict(kn.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pages[q] = s.execute(sql)
+            torch.cuda.synchronize()
+            walls[q].append(time.perf_counter() - t0)
+            for name in KERNEL_FNS:
+                per_run[q][name] += kn.LAUNCHES[name] - before[name]
+    launches = dict(kn.LAUNCHES)  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"[ds{sf:g}] TPC-DS path launches: {launches}")
+    for q, n in per_run.items():
+        _log(f"[ds{sf:g}]   {q} over {MAIN_REPS} runs: {n}")
+    for q, w in walls.items():
+        _log(f"[ds{sf:g}] warm {q}: median {statistics.median(w) * 1e3:.3f} ms over "
+             f"{len(w)} runs (all: {', '.join(f'{x * 1e3:.3f}' for x in w)}), "
+             f"{pages[q].count} rows")
+    _log(f"[ds{sf:g}] peak device memory over the TPC-DS path (cold and warm) "
+         f"{peak / 2**30:.2f} GiB")
+    for name in DS_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the TPC-DS path")
+    host = _DsHost(sf)
+    for q, check in DS_CHECKS.items():
+        check(host, pages[q])
+    _log(f"[ds{sf:g}] {', '.join(DS_CHECKS)} agree with the numpy references")
+    del host
+    others = [q for q in sqls if q not in DS_CHECKS]
+    with _plain_kernels():
+        plain = {q: s.execute(sqls[q]) for q in others}
+    for q in others:
+        convert.assert_pages_identical(pages[q], plain[q])
+    _log(f"[ds{sf:g}] the other {len(others)} statements byte-identical on the "
+         f"plain kernel versions")
+    for q in ("DS-Q27-ROLLUP", "DS-AGG", "DS-FN", "Q96", "Q13"):
+        for row in pages[q].to_pylist()[:4]:
+            _log(f"[ds{sf:g}] {q} {row}")
+    MAIN.update(ds_launches=launches, ds_walls=walls)
+    if do_profile:
+        for q, sql in sqls.items():
+            _profile(s, sql, f"ds{sf:g} {q}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     global MAIN_REPS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", default="all", choices=["all", "kernels", "main"],
-                    help="run only the build and kernel phases, or only the build "
+    ap.add_argument("--phase", default="all", choices=["all", "kernels", "main", "ds"],
+                    help="run only the build and kernel phases, only the build "
                          "and the SF10 main path (which also runs on the package "
-                         "of an earlier commit, for comparisons)")
+                         "of an earlier commit, for comparisons), or only the "
+                         "build and the TPC-DS path")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -1635,6 +2232,8 @@ def main(argv=None) -> int:
     main_path = ("main", lambda: phase_sf10(dev, args.profile))
     if args.phase == "main":
         phases.append(main_path)
+    elif args.phase == "ds":
+        phases.append(("ds", lambda: phase_ds(dev, args.profile)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -1643,6 +2242,7 @@ def main(argv=None) -> int:
             main_path,
             ("rel", lambda: phase_sf10_rel(dev, args.profile)),
             ("timing", lambda: phase_timing(dev)),
+            ("ds", lambda: phase_ds(dev, args.profile)),
         ]
     failed = []
     for name, fn in phases:

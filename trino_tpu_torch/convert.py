@@ -15,6 +15,11 @@ classes and type parser when converting back.
 
 `pages_identical` compares two pages byte for byte (dtypes, shapes and
 bytes of every values/validity array, dictionaries, names and types).
+`assert_pages_match(a, b, rtol)` is the same comparison except for the
+values of float64 columns (all of them, or those named in `columns`),
+which agree when |x - y| <= rtol * max(|x|, |y|), NaN matching NaN:
+float64 results of transcendental functions and floating-point sums
+are not bit-reproducible across engines or atomic orders.
 """
 from __future__ import annotations
 
@@ -59,7 +64,18 @@ def page_from_state(
     return pm.Page(cols, state["count"], list(state["names"]))
 
 
-def _diff(a: dict, b: dict) -> Optional[str]:
+def _float_close(x: np.ndarray, y: np.ndarray, rtol: float) -> bool:
+    if x.dtype != np.float64 or y.dtype != np.float64 or x.shape != y.shape:
+        return False
+    both_nan = np.isnan(x) & np.isnan(y)
+    same = (x == y) | both_nan
+    with np.errstate(invalid="ignore", over="ignore"):
+        close = np.abs(x - y) <= rtol * np.maximum(np.abs(x), np.abs(y))
+    return bool(np.all(same | close))
+
+
+def _diff(a: dict, b: dict, rtol: Optional[float] = None,
+          columns=None) -> Optional[str]:
     if a["names"] != b["names"]:
         return f"names {a['names']} != {b['names']}"
     if a["count"] != b["count"]:
@@ -74,6 +90,11 @@ def _diff(a: dict, b: dict) -> Optional[str]:
             if x is None:
                 continue
             if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                if (rtol is not None and part == "values"
+                        and x.dtype == np.float64
+                        and (columns is None or name in columns)
+                        and _float_close(x, y, rtol)):
+                    continue
                 return f"{name}: {part} differ"
         da, db = ca["dictionary"], cb["dictionary"]
         if (da is None) != (db is None) or (
@@ -91,3 +112,16 @@ def assert_pages_identical(a, b) -> None:
     d = _diff(page_state(a), page_state(b))
     if d is not None:
         raise AssertionError(f"pages differ: {d}")
+
+
+def pages_match(a, b, rtol: float, columns=None) -> bool:
+    return _diff(page_state(a), page_state(b), rtol, columns) is None
+
+
+def assert_pages_match(a, b, rtol: float, columns=None) -> None:
+    """Pages identical byte for byte, except the values of float64
+    columns (those named in `columns`, else all), held at relative
+    tolerance `rtol`."""
+    d = _diff(page_state(a), page_state(b), rtol, columns)
+    if d is not None:
+        raise AssertionError(f"pages differ (float64 rtol {rtol}): {d}")

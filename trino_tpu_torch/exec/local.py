@@ -1,8 +1,8 @@
 """Local execution: logical plan -> eager PyTorch operators on one device.
 
 Counterpart of trino_tpu/exec/local.py, for the plans the 22 TPC-H
-queries, SELECT DISTINCT, the set operations and window functions
-reach.  Where the JAX package traces a whole fragment into one jitted
+queries, the TPC-DS statements of the tests, SELECT DISTINCT, the set
+operations, GROUPING SETS and window functions reach.  Where the JAX package traces a whole fragment into one jitted
 XLA program over padded lanes, this executor walks the plan and runs
 each operator eagerly on the executor's device:
   1. loads splits on the host (numpy), merging per-split dictionaries,
@@ -10,8 +10,9 @@ each operator eagerly on the executor's device:
      the device across queries (DeviceScanCache),
   3. runs the operators (filter / project / join / cross join / semi
      join (IN, EXISTS and, under a NOT filter, their negations) / scalar
-     join / aggregate, DISTINCT aggregates included — first trying the
-     fused megakernel, then direct or hash-sort grouping — / distinct /
+     join / GROUPING SETS row expansion / aggregate, DISTINCT aggregates
+     included — first trying the fused megakernel, then direct or
+     hash-sort grouping — / distinct /
      union, intersect, except / window / sort / top-N / limit),
   4. re-runs the plan when a runtime check fails (the JAX package's
      retry ladder): a direct-address join whose build keys break the
@@ -27,8 +28,8 @@ are the true counts (no capacity retries).  Batch representation:
 dict[symbol -> (values, valid)] plus a boolean selection mask `sel`.
 
 Not in this slice (ExecutionError / NotImplementedError): unnest,
-match_recognize, grouping sets, sample, writes, spill and streaming,
-the device supervisor and the mesh executor.
+match_recognize, sample, writes, spill and streaming, the device
+supervisor and the mesh executor.
 """
 from __future__ import annotations
 
@@ -511,11 +512,21 @@ class _TraceCtx:
         self.lowering = LoweringContext(ex.dicts)
         self.lowering.force_wide_mul = ex.force_wide_mul
 
+    # plan nodes still refused, and what they wait for (ROADMAP A.3)
+    _WAITS_FOR = {
+        "Unnest": "expr/arrays.py",
+        "MatchRecognize": "ops/matcher.py",
+        "Sample": "the TABLESAMPLE slice",
+    }
+
     def visit(self, node: P.PlanNode) -> Batch:
-        m = getattr(self, f"_visit_{type(node).__name__.lower()}", None)
+        name = type(node).__name__
+        m = getattr(self, f"_visit_{name.lower()}", None)
         if m is None:
+            waits = self._WAITS_FOR.get(name)
             raise ExecutionError(
-                f"{type(node).__name__} is not in this slice of the port"
+                f"{name} is not in this slice of the port"
+                + (f" (it waits for {waits})" if waits else "")
             )
         return m(node)
 
@@ -614,13 +625,41 @@ class _TraceCtx:
 
         return Batch(permute_lanes(lanes, perm), sel[perm] & _run_heads(gid))
 
+    def _visit_groupid(self, node: P.GroupId) -> Batch:
+        """GROUPING SETS row expansion: every selected row once per
+        grouping set, with the grouping keys a set lacks masked to NULL
+        and a [0..G) group-id lane telling the copies apart.  The JAX
+        package tiles whole padded lanes G times; here the selected rows
+        are gathered first, so memory grows G-fold over them only (the
+        rows keep their order, so the pages are the same)."""
+        b = self.visit(node.source)
+        dev = b.sel.device
+        G = len(node.sets)
+        idx = torch.nonzero(b.sel).flatten()
+        n = idx.shape[0]
+        key_union = {s for st in node.sets for s in st}
+        lanes = {}
+        for sym, (v, ok) in b.lanes.items():
+            v2 = v[idx].repeat((G,) + (1,) * (v.dim() - 1))
+            ok2 = ok[idx].repeat(G)
+            if sym in key_union and any(sym not in st for st in node.sets):
+                keep = torch.tensor([sym in st for st in node.sets],
+                                    dtype=torch.bool, device=dev)
+                ok2 = ok2 & keep.repeat_interleave(n)
+            lanes[sym] = (v2, ok2)
+        gid = torch.arange(G, dtype=torch.int64, device=dev).repeat_interleave(n)
+        lanes[node.gid_symbol] = (gid, torch.ones(G * n, dtype=torch.bool,
+                                                  device=dev))
+        return Batch(lanes, torch.ones(G * n, dtype=torch.bool, device=dev))
+
     # -- aggregation ------------------------------------------------------
     def _visit_aggregate(self, node: P.Aggregate) -> Batch:
         """SINGLE-step aggregation (PARTIAL/FINAL belong to the
         distributed paths, not in this slice)."""
         if node.step != "single":
             raise ExecutionError(
-                f"{node.step} aggregation is not in this slice of the port"
+                f"{node.step} aggregation is not in this slice of the port "
+                "(the PARTIAL/FINAL merge comes with the mesh slice)"
             )
         from ..ops import megakernel
 
@@ -690,35 +729,46 @@ class _TraceCtx:
 
     def _agg_dict_setup(self, node: P.Aggregate, b: Batch):
         """Dictionary handling for ordering/value-carrying aggregates:
-        min/max over varchar compare lexicographic ranks of the codes,
-        and the sorted dictionary is registered for the output."""
+        min/max over varchar and the varchar ordering key of
+        min_by/max_by compare lexicographic ranks of the codes (the
+        sorted dictionary is registered for a min/max output), and
+        value-carrying aggregates (arbitrary, the min_by/max_by value)
+        keep the input's dictionary."""
         lanes = None
+
+        def rank_lane(sym: str):
+            nonlocal lanes
+            d = self.ex.dicts.get(sym)
+            if d is None or len(d) == 0:
+                return sym, d if d is not None else np.array([], dtype=object)
+            order = np.argsort(np.array([str(x) for x in d]))
+            rank = np.empty(len(d), dtype=np.int32)
+            rank[order] = np.arange(len(d), dtype=np.int32)
+            v, ok = b.lanes[sym]
+            rk = torch.as_tensor(rank, device=v.device)[
+                torch.clamp(v.to(torch.int64), 0, len(d) - 1)
+            ]
+            rsym = sym + "$rank"
+            if lanes is None:
+                lanes = dict(b.lanes)
+            lanes[rsym] = (torch.where(v >= 0, rk, -1).to(v.dtype), ok)
+            return rsym, d[order]
+
         aggs = []
         for a in node.aggs:
-            it = a.input_type
+            it, i2t = a.input_type, a.input2_type
             if a.kind in ("min", "max") and it is not None and it.is_dictionary:
-                d = self.ex.dicts.get(a.arg)
-                if d is not None and len(d) > 0:
-                    order = np.argsort(np.array([str(x) for x in d]))
-                    rank = np.empty(len(d), dtype=np.int32)
-                    rank[order] = np.arange(len(d), dtype=np.int32)
-                    v, ok = b.lanes[a.arg]
-                    rk = torch.as_tensor(rank, device=v.device)[
-                        torch.clamp(v.to(torch.int64), 0, len(d) - 1)
-                    ]
-                    rsym = a.arg + "$rank"
-                    if lanes is None:
-                        lanes = dict(b.lanes)
-                    lanes[rsym] = (torch.where(v >= 0, rk, -1).to(v.dtype), ok)
-                    self.ex.dicts[a.output] = d[order]
-                    a = dataclasses.replace(a, arg=rsym)
-                else:
-                    self.ex.dicts[a.output] = (
-                        d if d is not None else np.array([], dtype=object)
-                    )
+                rsym, sorted_d = rank_lane(a.arg)
+                a = dataclasses.replace(a, arg=rsym)
+                self.ex.dicts[a.output] = sorted_d
+            elif a.kind in ("min_by", "max_by"):
+                if i2t is not None and i2t.is_dictionary:
+                    rsym, _ = rank_lane(a.arg2)
+                    a = dataclasses.replace(a, arg2=rsym)
+                if (it is not None and it.is_dictionary
+                        and a.arg in self.ex.dicts):
+                    self.ex.dicts[a.output] = self.ex.dicts[a.arg]
             elif a.output_type.is_dictionary and a.arg in self.ex.dicts:
-                # value-carrying aggregates (arbitrary) keep the input's
-                # dictionary
                 self.ex.dicts[a.output] = self.ex.dicts[a.arg]
             aggs.append(a)
         if lanes is not None:

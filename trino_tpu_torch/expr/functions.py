@@ -1,12 +1,17 @@
 """Scalar function registry: name -> lowering to torch ops.
 
 Counterpart of trino_tpu/expr/functions.py.  Each function lowers to
-PyTorch ops on (values, valid) lanes, evaluated eagerly.  This slice of
-the port carries the functions TPC-H Q1/Q6 reach and their neighbours:
-decimal arithmetic and rescale, division with round-half-away, date
-parts, LIKE/length/substring over dictionaries.  The analyzer-facing typing rules
-(arith_result_type, SIGNATURES, CONST_EVAL) are copied verbatim; a
-function typed there but not lowered here raises NotImplementedError at
+PyTorch ops on (values, valid) lanes, evaluated eagerly: decimal
+arithmetic and rescale, division with round-half-away, the math library
+(float64, out-of-domain rows NULL), the civil-date functions (integer
+arithmetic, exact), and the string functions, which transform each
+dictionary entry on the host and gather a derived dictionary's codes on
+the device.  The analyzer-facing typing rules (arith_result_type,
+SIGNATURES, CONST_EVAL) are copied verbatim.
+
+Not in this slice: the array, map, JSON, URL, hash and unixtime
+functions of the JAX package (they wait for expr/arrays.py); a function
+typed by the analyzer but not lowered here raises NotImplementedError at
 execution (trino_tpu_torch/expr/lower.py).
 
 Decimal arithmetic follows the reference's DecimalOperators scale rules
@@ -16,6 +21,7 @@ like jnp's, and every round-half-away is computed in |.|-space.
 """
 from __future__ import annotations
 
+import itertools
 import re
 from typing import Callable, Dict
 
@@ -303,6 +309,36 @@ def _round(node, lanes, ctx):
     return v, ok
 
 
+def _sqrt(node, lanes, ctx):
+    v, ok = lanes[0]
+    fv = v.to(torch.float64)
+    if node.args[0].type.is_decimal:
+        fv = fv / (10 ** node.args[0].type.scale)
+    return torch.sqrt(torch.clamp(fv, min=0.0)), ok & (fv >= 0)
+
+
+def _fdiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _floor(node, lanes, ctx):
+    v, ok = lanes[0]
+    at = node.args[0].type
+    if at.is_decimal:
+        q = _fdiv(v, 10**at.scale)
+        return (q * (10 ** node.type.scale) if node.type.is_decimal else q), ok
+    return (torch.floor(v) if v.is_floating_point() else v), ok
+
+
+def _ceil(node, lanes, ctx):
+    v, ok = lanes[0]
+    at = node.args[0].type
+    if at.is_decimal:
+        q = -_fdiv(-v, 10**at.scale)
+        return (q * (10 ** node.type.scale) if node.type.is_decimal else q), ok
+    return (torch.ceil(v) if v.is_floating_point() else v), ok
+
+
 # --- date/time ---------------------------------------------------------
 
 
@@ -349,6 +385,12 @@ def _day(node, lanes, ctx):
     v, ok = lanes[0]
     _, _, d = civil_from_days(v)
     return d, ok
+
+
+def _quarter(node, lanes, ctx):
+    v, ok = lanes[0]
+    _, m, _ = civil_from_days(v)
+    return _fdiv(m - 1, 3) + 1, ok
 
 
 # --- strings (dictionary-code domain) ---------------------------------
@@ -451,6 +493,564 @@ def _substring(node, lanes, ctx):
     return _derived_string_fn(node, lanes, ctx, tf)
 
 
+# --- generic numeric machinery -----------------------------------------
+
+
+def to_double(v, t: T.Type):
+    """Lane values -> float64 in value space (decimals divide out scale)."""
+    fv = v.to(torch.float64)
+    if t.is_decimal:
+        fv = fv / (10**t.scale)
+    return fv
+
+
+def coerce_to(v, ft: T.Type, tt: T.Type):
+    """Coerce lane values between numeric representations.  Wide target
+    or source lanes stay in/enter the two-limb form."""
+    wide_tgt = getattr(tt, "wide", False)
+    if v.dim() == 2 or wide_tgt:
+        from ..ops import wide_decimal as wd
+
+        if ft.is_decimal and tt.is_decimal:
+            w = wd.decimal_rescale_wide(
+                wd.promote(v if v.dim() == 2 else v.to(torch.int64)),
+                ft.scale, tt.scale,
+            )
+            return w if wide_tgt else wd.narrow(w)
+        if ft.is_decimal:  # wide -> double/int
+            return (wd.to_double(v) / (10**ft.scale)).to(_np_dt(tt))
+        if ft.name in ("double", "real"):
+            n = round_half_away(v * (10**tt.scale)).to(torch.int64)
+            return wd.widen(n)
+        return wd.rescale(wd.widen(v.to(torch.int64)), tt.scale)
+    if ft.is_decimal and tt.is_decimal:
+        return decimal_rescale(v.to(torch.int64), ft.scale, tt.scale)
+    if ft.is_decimal:
+        return to_double(v, ft).to(_np_dt(tt))
+    if tt.is_decimal:
+        if ft.name in ("double", "real"):
+            return round_half_away(v * (10**tt.scale)).to(torch.int64)
+        return v.to(torch.int64) * (10**tt.scale)
+    return v.to(_np_dt(tt))
+
+
+def _dbl_unary(f, domain=None):
+    """Factory: double-valued unary math function with an optional
+    domain check (out-of-domain rows become NULL, TRY semantics)."""
+
+    def low(node, lanes, ctx):
+        v, ok = lanes[0]
+        fv = to_double(v, node.args[0].type)
+        res = f(fv)
+        if domain is not None:
+            good = domain(fv)
+            return torch.where(good, res, 0.0), ok & good
+        return res, ok
+
+    return low
+
+
+def _positive_or_one(v):
+    return torch.where(v > 0, v, 1.0)
+
+
+def _log(node, lanes, ctx):
+    if len(lanes) == 1:
+        v, ok = lanes[0]
+        fv = to_double(v, node.args[0].type)
+        return torch.log(_positive_or_one(fv)), ok & (fv > 0)
+    (bv, bok), (xv, xok) = lanes
+    fb = to_double(bv, node.args[0].type)
+    fx = to_double(xv, node.args[1].type)
+    good = (fb > 0) & (fx > 0)
+    res = torch.log(_positive_or_one(fx)) / torch.log(torch.where(fb > 0, fb, 2.0))
+    return torch.where(good, res, 0.0), bok & xok & good
+
+
+def _power(node, lanes, ctx):
+    (bv, bok), (ev_, eok) = lanes
+    fb = to_double(bv, node.args[0].type)
+    fe = to_double(ev_, node.args[1].type)
+    return torch.pow(fb, fe), bok & eok
+
+
+def _cbrt(v):
+    # torch has no cbrt: the real cube root through |v|^(1/3)
+    return torch.sign(v) * torch.pow(torch.abs(v), 1.0 / 3.0)
+
+
+def _atan2(node, lanes, ctx):
+    (yv, yok), (xv, xok) = lanes
+    return torch.atan2(
+        to_double(yv, node.args[0].type), to_double(xv, node.args[1].type)
+    ), yok & xok
+
+
+def _sign(node, lanes, ctx):
+    v, ok = lanes[0]
+    if node.args[0].type.name in ("double", "real"):
+        return torch.sign(v), ok
+    return torch.sign(v).to(torch.int64), ok
+
+
+def _truncate(node, lanes, ctx):
+    v, ok = lanes[0]
+    at = node.args[0].type
+    nd = 0
+    if len(lanes) > 1:
+        d = node.args[1]
+        assert isinstance(d, ir.Constant), "truncate() digits must be constant"
+        nd = int(d.value)
+    if at.is_decimal:
+        if nd >= at.scale:
+            return v, ok
+        div = 10 ** (at.scale - nd)
+        q = torch.sign(v) * _fdiv(torch.abs(v), div)
+        return q * div, ok
+    f = 10.0**nd
+    return torch.trunc(v * f) / f, ok
+
+
+def _width_bucket(node, lanes, ctx):
+    (ov, ook), (lv, lok), (hv, hok), (nv, nok) = lanes
+    op = to_double(ov, node.args[0].type)
+    b1 = to_double(lv, node.args[1].type)
+    b2 = to_double(hv, node.args[2].type)
+    n = nv.to(torch.int64)
+    ok = ook & lok & hok & nok & (n > 0) & (b1 != b2)
+    zero = torch.zeros_like(n)
+
+    def bucket(num, den):
+        raw = torch.floor(n * num / den).to(torch.int64) + 1
+        return torch.minimum(torch.maximum(raw, zero), n + 1)
+
+    asc = bucket(op - b1, torch.where(b1 != b2, b2 - b1, 1.0))
+    asc = torch.where(op >= b2, n + 1, torch.where(op < b1, zero, asc))
+    # descending bounds (bound1 > bound2) count buckets downward
+    desc = bucket(b1 - op, torch.where(b1 != b2, b1 - b2, 1.0))
+    desc = torch.where(op > b1, zero, torch.where(op <= b2, n + 1, desc))
+    return torch.where(b1 <= b2, asc, desc), ok
+
+
+def _extreme(node, lanes, take_max: bool):
+    ot = node.type
+    vals, ok = [], None
+    for a, (v, aok) in zip(node.args, lanes):
+        vals.append(coerce_to(v, a.type, ot))
+        ok = aok if ok is None else ok & aok
+    r = vals[0]
+    if r.dim() == 2:
+        # wide decimal: per-limb extremes are not 128-bit order — select
+        # whole rows by lexicographic comparison
+        from ..ops import wide_decimal as wd
+
+        for v in vals[1:]:
+            take = wd.compare(v, r, ">" if take_max else "<")
+            r = torch.where(take[..., None], v, r)
+        return r, ok
+    f = torch.maximum if take_max else torch.minimum
+    for v in vals[1:]:
+        r = f(r, v)
+    return r, ok
+
+
+def _greatest(node, lanes, ctx):
+    return _extreme(node, lanes, True)
+
+
+def _least(node, lanes, ctx):
+    return _extreme(node, lanes, False)
+
+
+def _double_predicate(f, other: bool):
+    def low(node, lanes, ctx):
+        v, ok = lanes[0]
+        if node.args[0].type.name in ("double", "real"):
+            return f(v), ok
+        return torch.full(v.shape, other, dtype=torch.bool, device=v.device), ok
+
+    return low
+
+
+def _rand(node, lanes, ctx):
+    """Per-row uniform double in [0,1): the splitmix64 finalizer over
+    (row index + the per-query seed the analyzer draws), bit-identical
+    to the JAX package's (uint64 arithmetic in int64, logical shifts)."""
+    from ..ops.aggregation import _splitmix64
+    from ..ops.int128 import srl
+
+    sv, _ = lanes[0]
+    n = sv.shape[0]
+    z = _splitmix64(
+        sv.to(torch.int64) + torch.arange(n, dtype=torch.int64, device=sv.device)
+    )
+    v = srl(z, 11).to(torch.float64) * (1.0 / (1 << 53))
+    return v, torch.ones(n, dtype=torch.bool, device=sv.device)
+
+
+# --- more strings (dictionary-code domain) -----------------------------
+
+
+def _const_str(node, i: int, default=None) -> str | None:
+    if len(node.args) <= i:
+        return default
+    a = node.args[i]
+    assert isinstance(a, ir.Constant), f"{node.name} arg {i} must be constant"
+    return a.value
+
+
+def _const_int(node, i: int, default=None):
+    if len(node.args) <= i:
+        return default
+    a = node.args[i]
+    assert isinstance(a, ir.Constant), f"{node.name} arg {i} must be constant"
+    return int(a.value)
+
+
+def _derived_nullable_string_fn(node, lanes, ctx, transform):
+    """Like _derived_string_fn but transform may return None -> NULL row."""
+    res, cok = _derived_string_fn(node, lanes, ctx, transform)
+    return res, cok & (res >= 0)
+
+
+def _dict_numeric_fn(node, lanes, ctx, f, dtype=np.int64, fill=0):
+    """Numeric-from-string: per-dictionary-entry host eval + device
+    gather; f may return None -> NULL row."""
+    src = ctx.dict_for_expr(node.args[0])
+    if src is None:
+        raise NotImplementedError(f"{node.name}() requires a dictionary input")
+    vals = np.full(len(src), fill, dtype=dtype)
+    valid = np.ones(len(src), dtype=bool)
+    for i, x in enumerate(src):
+        r = f(str(x))
+        if r is None:
+            valid[i] = False
+        else:
+            vals[i] = r
+    cv, cok = lanes[0]
+    return dict_gather(vals, cv, fill), cok & dict_gather(valid, cv, False)
+
+
+def _str_fn(transform):
+    return lambda node, lanes, ctx: _derived_string_fn(node, lanes, ctx, transform)
+
+
+def _replace(node, lanes, ctx):
+    search = _const_str(node, 1)
+    rep = _const_str(node, 2, "")
+    return _derived_string_fn(node, lanes, ctx, lambda s: s.replace(search, rep))
+
+
+def _pad(left: bool):
+    def low(node, lanes, ctx):
+        n = _const_int(node, 1)
+        pad = _const_str(node, 2, " ")
+
+        def tf(s: str) -> str:
+            if len(s) >= n:
+                return s[:n]
+            filln = n - len(s)
+            fill = (pad * filln)[:filln]
+            return fill + s if left else s + fill
+
+        return _derived_string_fn(node, lanes, ctx, tf)
+
+    return low
+
+
+def _split_part(node, lanes, ctx):
+    delim = _const_str(node, 1)
+    idx = _const_int(node, 2)
+
+    def tf(s: str):
+        parts = s.split(delim) if delim else [s]
+        return parts[idx - 1] if 1 <= idx <= len(parts) else None
+
+    return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+
+def _translate(node, lanes, ctx):
+    frm = _const_str(node, 1)
+    to = _const_str(node, 2)
+    table = {ord(a): (to[i] if i < len(to) else None) for i, a in enumerate(frm)}
+    return _derived_string_fn(node, lanes, ctx, lambda s: s.translate(table))
+
+
+def _strpos(node, lanes, ctx):
+    sub = _const_str(node, 1)
+    return _dict_numeric_fn(node, lanes, ctx, lambda s: s.find(sub) + 1)
+
+
+def _codepoint(node, lanes, ctx):
+    return _dict_numeric_fn(node, lanes, ctx, lambda s: ord(s[0]) if s else None)
+
+
+def _dict_predicate(node, lanes, ctx, pred):
+    col = node.args[0]
+    if ctx.dict_for_expr(col) is None:
+        raise NotImplementedError(f"{node.name} requires a dictionary column")
+    table = ctx.dict_mask(col, pred)
+    cv, cok = lanes[0]
+    return dict_gather(table, cv), cok
+
+
+def _starts_with(node, lanes, ctx):
+    prefix = _const_str(node, 1)
+    return _dict_predicate(node, lanes, ctx, lambda s: s.startswith(prefix))
+
+
+def _regexp_like(node, lanes, ctx):
+    rx = re.compile(_const_str(node, 1))
+    return _dict_predicate(node, lanes, ctx, lambda s: rx.search(s) is not None)
+
+
+def _regexp_extract(node, lanes, ctx):
+    rx = re.compile(_const_str(node, 1))
+    group = _const_int(node, 2, 0)
+
+    def tf(s: str):
+        m = rx.search(s)
+        if m is None:
+            return None
+        try:
+            return m.group(group)
+        except IndexError:
+            return None
+
+    return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+
+def _regexp_replace(node, lanes, ctx):
+    rx = re.compile(_const_str(node, 1))
+    # Trino writes back references as $1, python as \1
+    pyrep = re.sub(r"\$(\d+)", r"\\\1", _const_str(node, 2, ""))
+    return _derived_string_fn(node, lanes, ctx, lambda s: rx.sub(pyrep, s))
+
+
+def _concat(node, lanes, ctx):
+    """concat over string constants and dictionary columns.  Several
+    dictionary inputs combine into a cross-product dictionary (capped),
+    in the JAX package's stride order."""
+    MAX_COMBINED = 1 << 16
+    parts = []  # ('c', str) | ('d', dict_array, lane)
+    ok = None
+    for a, lane in zip(node.args, lanes):
+        if lane is None:
+            parts.append(("c", a.value))
+            continue
+        d = ctx.dict_for_expr(a)
+        if d is None:
+            raise NotImplementedError("concat requires dictionary inputs")
+        parts.append(("d", d, lane))
+        ok = lane[1] if ok is None else ok & lane[1]
+    dict_parts = [p for p in parts if p[0] == "d"]
+    if not dict_parts:
+        raise NotImplementedError("all-constant concat should have been folded")
+    if len(dict_parts) == 1:
+        at = parts.index(dict_parts[0])
+        pre = "".join(p[1] for p in parts[:at] if p[0] == "c")
+        post = "".join(p[1] for p in parts[at + 1:] if p[0] == "c")
+        d = dict_parts[0][1]
+        remap = register_derived_dict(ctx, node, [pre + str(x) + post for x in d])
+        return dict_gather(remap, dict_parts[0][2][0], -1), ok
+    size = 1
+    for p in dict_parts:
+        size *= len(p[1])
+    if size == 0:
+        # a part with an empty dictionary (a NULL varchar constant) makes
+        # every row NULL
+        ctx.expr_dicts[node] = np.array([], dtype=object)
+        codes = torch.full(dict_parts[0][2][0].shape, -1, dtype=torch.int32,
+                           device=dict_parts[0][2][0].device)
+        return codes, torch.zeros(codes.shape, dtype=torch.bool,
+                                  device=codes.device)
+    if size > MAX_COMBINED:
+        raise NotImplementedError(
+            f"concat cross-dictionary size {size} exceeds cap {MAX_COMBINED}"
+        )
+    # combined code = sum(code_i * stride_i); dictionary = cross product
+    strides = []
+    stride = 1
+    for p in reversed(dict_parts):
+        strides.append(stride)
+        stride *= len(p[1])
+    strides.reverse()
+    code = None
+    for (_, _d, lane), st in zip(dict_parts, strides):
+        c = torch.clamp(lane[0], min=0).to(torch.int64) * st
+        code = c if code is None else code + c
+    out = []
+    for combo in itertools.product(*[[str(x) for x in p[1]] for p in dict_parts]):
+        pieces = iter(combo)
+        out.append("".join(p[1] if p[0] == "c" else next(pieces) for p in parts))
+    ctx.expr_dicts[node] = np.array(out, dtype=object)
+    return code.to(torch.int32), ok
+
+
+# --- more date/time ----------------------------------------------------
+
+
+def days_from_civil_v(y, m, d):
+    """Vectorized inverse of civil_from_days."""
+    y = y - (m <= 2).to(torch.int64)
+    era = _fdiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = m + torch.where(m > 2, -3, 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _is_leap(y):
+    return (torch.remainder(y, 4) == 0) & (
+        (torch.remainder(y, 100) != 0) | (torch.remainder(y, 400) == 0)
+    )
+
+
+_MONTH_DAYS = np.array([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31], np.int64)
+
+
+def _days_in_month(y, m):
+    base = torch.as_tensor(_MONTH_DAYS, device=m.device)[m - 1]
+    return base + ((m == 2) & _is_leap(y)).to(torch.int64)
+
+
+def _iso_dow(days):
+    # 1970-01-01 was a Thursday (ISO 4); Monday=1..Sunday=7
+    return torch.remainder(days.to(torch.int64) + 3, 7) + 1
+
+
+def _day_of_week(node, lanes, ctx):
+    v, ok = lanes[0]
+    return _iso_dow(v), ok
+
+
+def _jan1(y):
+    one = torch.ones_like(y)
+    return days_from_civil_v(y, one, one)
+
+
+def _day_of_year(node, lanes, ctx):
+    v, ok = lanes[0]
+    y, _, _ = civil_from_days(v)
+    return v.to(torch.int64) - _jan1(y) + 1, ok
+
+
+def _iso_week_parts(days):
+    y, m, d = civil_from_days(days)
+    dow = _iso_dow(days)
+    doy = days.to(torch.int64) - _jan1(y) + 1
+    w = _fdiv(doy - dow + 10, 7)
+
+    def p(yy):
+        return torch.remainder(yy + _fdiv(yy, 4) - _fdiv(yy, 100) + _fdiv(yy, 400), 7)
+
+    long_year = (p(y) == 4) | (p(y - 1) == 3)
+    prev_long = (p(y - 1) == 4) | (p(y - 2) == 3)
+    week = torch.where(w == 53, torch.where(long_year, 53, 1), w)
+    week = torch.where(w == 0, torch.where(prev_long, 53, 52), week)
+    yow = (y + ((m == 12) & (week == 1)).to(torch.int64)
+           - ((m == 1) & (week >= 52)).to(torch.int64))
+    return week, yow
+
+
+def _week(node, lanes, ctx):
+    v, ok = lanes[0]
+    week, _ = _iso_week_parts(v)
+    return week.to(torch.int64), ok
+
+
+def _year_of_week(node, lanes, ctx):
+    v, ok = lanes[0]
+    _, yow = _iso_week_parts(v)
+    return yow.to(torch.int64), ok
+
+
+def _last_day_of_month(node, lanes, ctx):
+    v, ok = lanes[0]
+    y, m, _ = civil_from_days(v)
+    first = days_from_civil_v(y, m, torch.ones_like(m))
+    return (first + _days_in_month(y, m) - 1).to(v.dtype), ok
+
+
+def _date_trunc(node, lanes, ctx):
+    unit = _const_str(node, 0).lower()
+    v, ok = lanes[1]
+    days = v.to(torch.int64)
+    if unit == "day":
+        return v, ok
+    if unit == "week":
+        return (days - (_iso_dow(days) - 1)).to(v.dtype), ok
+    y, m, _ = civil_from_days(days)
+    one = torch.ones_like(y)
+    if unit == "month":
+        return days_from_civil_v(y, m, one).to(v.dtype), ok
+    if unit == "quarter":
+        qm = 3 * _fdiv(m - 1, 3) + 1
+        return days_from_civil_v(y, qm, one).to(v.dtype), ok
+    if unit == "year":
+        return days_from_civil_v(y, one, one).to(v.dtype), ok
+    raise NotImplementedError(f"date_trunc unit {unit}")
+
+
+def _date_add(node, lanes, ctx):
+    unit = _const_str(node, 0).lower()
+    nv, nok = lanes[1]
+    v, ok = lanes[2]
+    n = nv.to(torch.int64)
+    days = v.to(torch.int64)
+    ok = ok & nok
+    if unit == "day":
+        return (days + n).to(v.dtype), ok
+    if unit == "week":
+        return (days + 7 * n).to(v.dtype), ok
+    if unit in ("month", "quarter", "year"):
+        y, m, d = civil_from_days(days)
+        mult = {"month": 1, "quarter": 3, "year": 12}[unit]
+        total = y * 12 + (m - 1) + n * mult
+        y2 = _fdiv(total, 12)
+        m2 = torch.remainder(total, 12) + 1
+        d2 = torch.minimum(d, _days_in_month(y2, m2))
+        return days_from_civil_v(y2, m2, d2).to(v.dtype), ok
+    raise NotImplementedError(f"date_add unit {unit}")
+
+
+def _sign_trunc_div(x, k: int):
+    return torch.sign(x) * _fdiv(torch.abs(x), k)
+
+
+def _date_diff(node, lanes, ctx):
+    unit = _const_str(node, 0).lower()
+    (av, aok), (bv, bok) = lanes[1], lanes[2]
+    a = av.to(torch.int64)
+    b = bv.to(torch.int64)
+    ok = aok & bok
+    if unit == "day":
+        return b - a, ok
+    if unit == "week":
+        return _sign_trunc_div(b - a, 7), ok
+    y1, m1, d1 = civil_from_days(a)
+    y2, m2, d2 = civil_from_days(b)
+    months = (y2 * 12 + m2) - (y1 * 12 + m1)
+    months = (months - ((months > 0) & (d2 < d1)).to(torch.int64)
+              + ((months < 0) & (d2 > d1)).to(torch.int64))
+    if unit == "month":
+        return months, ok
+    if unit == "quarter":
+        return _sign_trunc_div(months, 3), ok
+    if unit == "year":
+        return _sign_trunc_div(months, 12), ok
+    raise NotImplementedError(f"date_diff unit {unit}")
+
+
+def _log_base(f):
+    return _dbl_unary(lambda v: f(_positive_or_one(v)), lambda v: v > 0)
+
+
+def _in_unit_range(v):
+    return torch.abs(v) <= 1
+
+
 FUNCTIONS: Dict[str, Callable] = {
     "add": _add,
     "subtract": _subtract,
@@ -460,15 +1060,80 @@ FUNCTIONS: Dict[str, Callable] = {
     "mod": _modulus,
     "negate": _negate,
     "abs": _abs,
+    "sqrt": _sqrt,
+    "rand": _rand,
     "round": _round,
+    "floor": _floor,
+    "ceil": _ceil,
+    "ceiling": _ceil,
+    "truncate": _truncate,
+    "sign": _sign,
+    "ln": _log,
+    "log": _log,
+    "log2": _log_base(torch.log2),
+    "log10": _log_base(torch.log10),
+    "exp": _dbl_unary(torch.exp),
+    "power": _power,
+    "pow": _power,
+    "cbrt": _dbl_unary(_cbrt),
+    "degrees": _dbl_unary(torch.rad2deg),
+    "radians": _dbl_unary(torch.deg2rad),
+    "sin": _dbl_unary(torch.sin),
+    "cos": _dbl_unary(torch.cos),
+    "tan": _dbl_unary(torch.tan),
+    "asin": _dbl_unary(torch.asin, _in_unit_range),
+    "acos": _dbl_unary(torch.acos, _in_unit_range),
+    "atan": _dbl_unary(torch.atan),
+    "atan2": _atan2,
+    "sinh": _dbl_unary(torch.sinh),
+    "cosh": _dbl_unary(torch.cosh),
+    "tanh": _dbl_unary(torch.tanh),
+    "width_bucket": _width_bucket,
+    "greatest": _greatest,
+    "least": _least,
+    "is_nan": _double_predicate(torch.isnan, False),
+    "is_finite": _double_predicate(torch.isfinite, True),
+    "is_infinite": _double_predicate(torch.isinf, False),
     "year": _year,
     "month": _month,
     "day": _day,
     "day_of_month": _day,
+    "quarter": _quarter,
+    "day_of_week": _day_of_week,
+    "dow": _day_of_week,
+    "day_of_year": _day_of_year,
+    "doy": _day_of_year,
+    "week": _week,
+    "week_of_year": _week,
+    "year_of_week": _year_of_week,
+    "yow": _year_of_week,
+    "last_day_of_month": _last_day_of_month,
+    "date_trunc": _date_trunc,
+    "date_add": _date_add,
+    "date_diff": _date_diff,
     "like": _like,
     "length": _length,
     "substring": _substring,
     "substr": _substring,
+    "upper": _str_fn(str.upper),
+    "lower": _str_fn(str.lower),
+    "trim": _str_fn(str.strip),
+    "ltrim": _str_fn(str.lstrip),
+    "rtrim": _str_fn(str.rstrip),
+    "reverse": _str_fn(lambda s: s[::-1]),
+    "replace": _replace,
+    "lpad": _pad(True),
+    "rpad": _pad(False),
+    "split_part": _split_part,
+    "translate": _translate,
+    "strpos": _strpos,
+    "position": _strpos,
+    "codepoint": _codepoint,
+    "starts_with": _starts_with,
+    "regexp_like": _regexp_like,
+    "regexp_extract": _regexp_extract,
+    "regexp_replace": _regexp_replace,
+    "concat": _concat,
 }
 
 

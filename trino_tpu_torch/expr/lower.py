@@ -504,7 +504,9 @@ DICT_INPUT_FNS = frozenset({
 def _lower_call(node: ir.Call, cols, ev, ctx: LoweringContext) -> Lane:
     fn = FUNCTIONS.get(node.name)
     if fn is None:
-        raise NotImplementedError(f"function {node.name}")
+        raise NotImplementedError(
+            f"function {node.name} is not in this slice of the port"
+        )
     # string constants (LIKE patterns etc.) and lambdas are consumed
     # host-side from the node itself; they have no device lane — except a
     # constant FIRST argument of dictionary-transforming functions like

@@ -7,8 +7,10 @@ grouping, the hash-sort grouping of high-cardinality keys
 min / max / arbitrary accumulators, with the exact decimal(38) chunked
 sums of ops/wide_decimal.  Segment reductions at small capacities go
 through the CUDA kernels (counts: ops/kernels.seg_count_maybe; int64
-sums: ops/kernels.grouped_sum_i64), the others are ``index_add_`` (sums)
-and ``scatter_reduce`` (min/max).  The TPU-only masked one-hot
+sums: ops/kernels.grouped_sum_i64), the others are ``index_add_``,
+sorted-run prefix sums (_GroupOrder: float64 sums in an order the rows
+fix, and integer sums beyond 32 groups) and ``scatter_reduce``
+(min/max).  The TPU-only masked one-hot
 reductions are gone: CUDA has native atomics.
 
 DISTINCT aggregates (distinct_first_mask / distinct_count): count(DISTINCT)
@@ -16,9 +18,18 @@ takes one sort over (liveness, group, value); sum/avg/count_if(DISTINCT)
 run their normal accumulators over a first-occurrence mask; DISTINCT is a
 no-op for min/max/arbitrary.
 
-Not in this slice (NotImplementedError): moments, bitwise, checksum,
-min_by/max_by, sketches, host-staged aggregates and the PARTIAL/FINAL
-accumulator merge.
+The other families follow the JAX package at the SINGLE step: the
+moments (var/stddev, covar/corr/regr) and geometric_mean as float64
+segment sums, bool_and/bool_or, the bitwise aggregates from per-bit
+group counts (one bit plane at a time, never an [n, 64] matrix),
+checksum as the wrapping sum of splitmix64 hashes, min_by/max_by as a
+two-pass argmin, and approx_distinct / approx_percentile exact (one
+sort each).
+
+Not in this slice (NotImplementedError): array_agg, map_agg and listagg
+(they wait for expr/arrays.py), and the PARTIAL/FINAL accumulator merge
+with the sketches of approx_distinct / approx_percentile (the mesh
+slice).
 
 NULL semantics: a NULL key is its own group (the validity bit is an
 extra radix slot); sum/min/max ignore NULL inputs and return NULL for
@@ -52,6 +63,20 @@ TWO_ARG_KINDS = ("min_by", "max_by") + BINARY_MOMENT_KINDS
 
 def _not_in_slice(what: str):
     return NotImplementedError(f"{what} is not in this slice of the port")
+
+
+def _needs_mesh_slice(kind: str):
+    return NotImplementedError(
+        f"{kind} at a PARTIAL/FINAL step needs the sketch merge of the "
+        "mesh slice, which is not ported yet (exact at the SINGLE step)"
+    )
+
+
+def _needs_arrays(kind: str):
+    return NotImplementedError(
+        f"aggregate {kind} builds arrays: it waits for expr/arrays.py, "
+        "which is not ported yet"
+    )
 
 
 def _sum_overflow_flag(vv: torch.Tensor, gid: torch.Tensor, cap: int):
@@ -118,8 +143,22 @@ class AggSpec:
         if self.kind == "sum" and self._wide_sum:
             return [f"{o}$c0", f"{o}$c1", f"{o}$c2", f"{o}$c3",
                     f"{o}$valid"]
-        if self.kind in ("sum", "min", "max", "arbitrary"):
+        if self.kind in ("sum", "min", "max", "arbitrary", "bool_and",
+                         "bool_or", "checksum") or self.kind in BITWISE_KINDS:
             return [f"{o}$val", f"{o}$valid"]
+        if self.kind in MOMENT_KINDS:
+            return [f"{o}$sum", f"{o}$sumsq", f"{o}$count"]
+        if self.kind == "geometric_mean":
+            return [f"{o}$sumlog", f"{o}$count"]
+        if self.kind in BINARY_MOMENT_KINDS:
+            return [f"{o}$sy", f"{o}$sx", f"{o}$sxy", f"{o}$sxx",
+                    f"{o}$syy", f"{o}$n"]
+        if self.kind in ("min_by", "max_by"):
+            return [f"{o}$val", f"{o}$key", f"{o}$valid", f"{o}$has"]
+        if self.kind in SKETCHED_KINDS:
+            raise _needs_mesh_slice(self.kind)
+        if self.kind in HOST_STAGED_KINDS:
+            raise _needs_arrays(self.kind)
         if self.kind in ("count", "count_star", "count_if"):
             return [f"{o}$count"]
         raise _not_in_slice(f"aggregate {self.kind}")
@@ -412,6 +451,182 @@ def _seg_max(v, gid, cap):
     return _seg_extreme(v, gid, cap, False)
 
 
+_MIX1 = as_i64(0xBF58476D1CE4E5B9)
+_MIX2 = as_i64(0x94D049BB133111EB)
+
+
+def _splitmix64(v: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer of each value's 64-bit pattern, the JAX
+    package's order-independent per-value hash behind checksum.  uint64
+    arithmetic in int64: add and multiply wrap alike, the right shifts
+    are logical (srl)."""
+    z = v.to(torch.int64) + _GOLDEN
+    z = (z ^ srl(z, 30)) * _MIX1
+    z = (z ^ srl(z, 27)) * _MIX2
+    return z ^ srl(z, 31)
+
+
+def _bit_counts(v, live, gid, cap, order=None):
+    """The 64 per-group counts of live rows with bit b set, b = 0..63.
+    Without `order`, one bit plane at a time through _seg_count.  With
+    a _GroupOrder, the lane is put in group order once and bits b and
+    b + 32 share one int64 prefix sum (a group's count of either stays
+    below 2^32, so the low half never carries into the high one)."""
+    if order is None:
+        # arithmetic shift then & 1 reads bit b of negatives too
+        return [_seg_count(live & (((v >> b) & 1) == 1), gid, cap)
+                for b in range(64)]
+    vs, ls = order.take(v), order.take(live)
+    segs = order.segments()
+    lo_counts, hi_counts = [], []
+    for b in range(32):
+        packed = ((vs >> b) & 1) | (((vs >> (b + 32)) & 1) << 32)
+        c = segs.sum(torch.where(ls, packed, 0))
+        lo_counts.append(c & 0xFFFFFFFF)
+        hi_counts.append(c >> 32)
+    return lo_counts + hi_counts
+
+
+def _segment_bitwise(vals, live, gid, cap, op: str, live_cnt=None, order=None):
+    """Per-group bitwise and/or/xor from per-bit group counts: bit b of
+    the result is (count == live rows) for AND, (count > 0) for OR and
+    (count odd) for XOR.  The JAX package counts all 64 bits at once
+    through an [n, 64] int32 matrix; here the counts come a bit plane or
+    two at a time (_bit_counts), so memory stays at one lane (28.8 M
+    rows would need 7.4 GB as a matrix)."""
+    v = vals.to(torch.int64)
+    if live_cnt is None:
+        live_cnt = _seg_count(live, gid, cap)
+    live_cnt = live_cnt.to(torch.int64)
+    out = torch.zeros(cap, dtype=torch.int64, device=v.device)
+    for b, cnt in enumerate(_bit_counts(v, live, gid, cap, order)):
+        if op == "or":
+            bit = cnt > 0
+        elif op == "and":
+            bit = (cnt == live_cnt) & (live_cnt > 0)
+        else:  # xor
+            bit = (cnt & 1) == 1
+        out = out | (bit.to(torch.int64) << b)
+    return out
+
+
+def _first_by_key(xlane, key, live, gid, cap, take_min: bool):
+    """Per-group x at the row of the group's min/max key (min_by /
+    max_by): the key's segment extreme, then the first row whose key
+    equals it, then a gather of x there.  Returns (x, key extreme,
+    x valid, group has a keyed row)."""
+    x, xok = xlane
+    n = gid.shape[0]
+    if key.is_floating_point():
+        sentinel = float("inf") if take_min else float("-inf")
+        kv = torch.where(live, key, sentinel)
+    else:
+        sentinel = I64_MAX if take_min else -I64_MAX
+        kv = torch.where(live, key.to(torch.int64), sentinel)
+    extremum = _seg_extreme(kv, gid, cap, take_min)
+    cand = live & (kv == extremum[gid])
+    idx = torch.arange(n, dtype=torch.int64, device=gid.device)
+    ridx = _seg_min(torch.where(cand, idx, n), gid, cap)
+    has = ridx < n
+    safe = torch.clamp(ridx, 0, max(n - 1, 0))
+    if n == 0:
+        xv = torch.zeros((cap,) + tuple(x.shape[1:]), dtype=x.dtype,
+                         device=x.device)
+        xvalid = torch.zeros(cap, dtype=torch.bool, device=x.device)
+    else:
+        xv = x[safe]
+        xvalid = xok[safe] & has
+    hx = has.reshape((cap,) + (1,) * (xv.dim() - 1))
+    return (
+        torch.where(hx, xv, torch.zeros_like(xv)),
+        torch.where(has, extremum, torch.zeros_like(extremum)),
+        xvalid,
+        has,
+    )
+
+
+def _percentile(lane: Lane, sel, gid, cap, frac: float):
+    """Exact per-group percentile by one sort over (dead, gid, value):
+    the value at rank floor(frac * (count - 1) + 0.5) of each group's
+    live rows (approx_percentile at the SINGLE step)."""
+    v, ok = lane
+    live = sel & ok
+    n = gid.shape[0]
+    vv = v if v.is_floating_point() else v.to(torch.int64)
+    perm = lex_perm([torch.logical_not(live), gid, vv])
+    live2, g2, v2 = live[perm], gid[perm], vv[perm]
+    g2c = torch.clamp(g2, 0, cap - 1)
+    cnt = _seg_sum(live2.to(torch.int64), g2c, cap)
+    # live rows come first, grouped by gid: group g starts after the
+    # live rows of the groups below it
+    start = torch.cumsum(cnt, 0) - cnt
+    rank = torch.arange(n, dtype=torch.int64, device=gid.device) - start[g2c]
+    target = torch.floor(
+        frac * (cnt - 1).to(torch.float64) + 0.5
+    ).to(torch.int64)
+    target = torch.minimum(torch.clamp(target, min=0),
+                           torch.clamp(cnt - 1, min=0))
+    pick = live2 & (rank == target[g2c])
+    if v2.is_floating_point():
+        out = _seg_max(torch.where(pick, v2, float("-inf")), g2c, cap)
+        out = torch.where(cnt > 0, out, 0.0)
+    else:
+        out = _seg_max(torch.where(pick, v2, -I64_MAX), g2c, cap)
+        out = torch.where(cnt > 0, out, 0).to(v.dtype)
+    return out, cnt > 0
+
+
+def _as_double(v: torch.Tensor, t: Optional[T.Type]) -> torch.Tensor:
+    """Numeric lane -> float64, unscaling fixed-point decimals."""
+    if t is None:
+        return v.to(torch.float64)
+    from ..expr.functions import to_double
+
+    return to_double(v, t)
+
+
+class _GroupOrder:
+    """Rows in group order, for the reductions that atomics make
+    order-dependent or slow on the card: float64 sums in an order the
+    rows fix (one segmented reduction per group, the same bits on every
+    run, where `index_add_`'s atomics give a different last bit from run
+    to run and cancellation can magnify it), and integer sums over more
+    groups than the grouped kernels take as SortedSegments prefix-sum
+    differences (an `index_add_` into a few dozen slots serializes on
+    their atomics).  The order is the caller's sorted gid (`seg`), or
+    one stable sort of the gid, made on first use and shared by every
+    aggregate of the call."""
+
+    def __init__(self, gid: torch.Tensor, cap: int, seg=None):
+        self.gid, self.cap, self.seg = gid, cap, seg
+        self.perm = None
+
+    def segments(self) -> "SortedSegments":
+        if self.seg is None:
+            self.perm = torch.argsort(self.gid, stable=True)
+            self.seg = SortedSegments(self.gid[self.perm], self.cap)
+        return self.seg
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        self.segments()
+        return x if self.perm is None else x[self.perm]
+
+    def fsum(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-group float sums, the rows of a group in their order (on
+        the CPU the JAX package's sequential scatter-add order).  One
+        group on the card is one tree reduction: a segmented reduction
+        gives each segment one thread block."""
+        if self.cap == 1 and x.is_cuda:
+            return x.sum(0, keepdim=True)
+        return torch.segment_reduce(self.take(x), "sum",
+                                    lengths=self.segments().counts_all,
+                                    unsafe=True, initial=0.0)
+
+    def isum(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-group exact integer sums (a bool lane counts)."""
+        return self.segments().sum(self.take(x).to(torch.int64))
+
+
 def accumulate(
     specs: Sequence[AggSpec],
     lanes: Dict[str, Lane],
@@ -430,18 +645,29 @@ def accumulate(
     JAX package: one int64 segment sum plus a shadow overflow flag, and
     the chunked 128-bit sums when the executor's retry forces them.
     With `seg` (SortedSegments over a sorted gid) integer sums, counts
-    and min/max run as sorted-run reductions, as in the JAX package."""
+    and min/max run as sorted-run reductions, as in the JAX package.
+    Float64 sums, and integer sums beyond the grouped kernels' 32 groups,
+    run in group order (_GroupOrder): the same bits on every run of the
+    card, and on the CPU the JAX package's."""
     out: Dict[str, torch.Tensor] = {}
     cap = capacity
+    order = _GroupOrder(gid, cap, seg)
+    many = cap > kernels.MAX_GROUPS  # beyond the grouped kernels
 
     def seg_cnt(mask):
         if seg is not None:
             return seg.count(mask)
+        if many:
+            return order.isum(mask)
         return _seg_count(mask, gid, cap)
 
     def seg_isum(vv):
-        if seg is not None and not vv.is_floating_point():
+        if vv.is_floating_point():
+            return order.fsum(vv)
+        if seg is not None:
             return seg.sum(vv)
+        if many and vv.dim() == 1:
+            return order.isum(vv)
         return _seg_sum(vv, gid, cap)
 
     def seg_ext(vv, take_min):
@@ -481,6 +707,10 @@ def accumulate(
             out[f"{o}$count"] = seg_cnt(live)
         elif s.kind == "count_if":
             out[f"{o}$count"] = seg_cnt(live & v.to(torch.bool))
+        elif s.kind == "approx_distinct":
+            if step != "single":
+                raise _needs_mesh_slice(s.kind)
+            out[f"{o}$count"] = distinct_count(gid, (v, ok), sel, cap)
         elif s.kind in ("sum", "avg"):
             cnt = seg_cnt(live)
             if s._wide_sum:
@@ -553,6 +783,67 @@ def accumulate(
                 has.reshape((cap,) + (1,) * (val.dim() - 1)), val,
                 torch.zeros_like(val))
             out[f"{o}$valid"] = has.to(torch.int64)
+        elif s.kind in MOMENT_KINDS:
+            x = torch.where(live, _as_double(v, s.input_type), 0.0)
+            out[f"{o}$sum"] = order.fsum(x)
+            out[f"{o}$sumsq"] = order.fsum(x * x)
+            out[f"{o}$count"] = seg_isum(live.to(torch.int64))
+        elif s.kind == "geometric_mean":
+            x = _as_double(v, s.input_type)
+            lx = torch.where(live & (x > 0),
+                             torch.log(torch.clamp(x, min=1e-300)), 0.0)
+            out[f"{o}$sumlog"] = order.fsum(lx)
+            out[f"{o}$count"] = seg_cnt(live)
+        elif s.kind in BINARY_MOMENT_KINDS:
+            y, yok = v, ok
+            x, xok = lanes[s.input2]
+            both = sel & yok & xok
+            xf = torch.where(both, _as_double(x, s.input2_type), 0.0)
+            yf = torch.where(both, _as_double(y, s.input_type), 0.0)
+            out[f"{o}$sy"] = order.fsum(yf)
+            out[f"{o}$sx"] = order.fsum(xf)
+            out[f"{o}$sxy"] = order.fsum(xf * yf)
+            out[f"{o}$sxx"] = order.fsum(xf * xf)
+            out[f"{o}$syy"] = order.fsum(yf * yf)
+            out[f"{o}$n"] = seg_cnt(both)
+        elif s.kind in ("bool_and", "bool_or"):
+            cnt = seg_cnt(live)
+            if s.kind == "bool_and":
+                out[f"{o}$val"] = _seg_min(
+                    torch.where(live, v.to(torch.int64), 1), gid, cap)
+            else:
+                out[f"{o}$val"] = _seg_max(
+                    torch.where(live, v.to(torch.int64), 0), gid, cap)
+            out[f"{o}$valid"] = cnt
+        elif s.kind in BITWISE_KINDS:
+            op = s.kind.split("_")[1]  # and | or | xor
+            cnt = seg_cnt(live)
+            out[f"{o}$val"] = _segment_bitwise(
+                v, live, gid, cap, op, cnt,
+                order=order if many or seg is not None else None)
+            out[f"{o}$valid"] = cnt
+        elif s.kind == "checksum":
+            # a NULL input hashes to a fixed constant, as in the JAX package
+            addend = torch.where(ok, _splitmix64(v), 0x6E676C6C7561)
+            out[f"{o}$val"] = seg_isum(torch.where(sel, addend, 0))
+            out[f"{o}$valid"] = seg_cnt(sel)
+        elif s.kind in ("min_by", "max_by"):
+            key, kok = lanes[s.input2]
+            xv, kv, xvalid, has = _first_by_key(
+                (v, ok), key, sel & kok, gid, cap, s.kind == "min_by"
+            )
+            out[f"{o}$val"] = xv
+            out[f"{o}$key"] = kv
+            out[f"{o}$valid"] = xvalid.to(torch.int64)
+            out[f"{o}$has"] = has.to(torch.int64)
+        elif s.kind == "approx_percentile":
+            if step != "single":
+                raise _needs_mesh_slice(s.kind)
+            val, valid = _percentile((v, ok), sel, gid, cap, float(s.param))
+            out[f"{o}$val"] = val
+            out[f"{o}$valid"] = valid.to(torch.int64)
+        elif s.kind in HOST_STAGED_KINDS:
+            raise _needs_arrays(s.kind)
         else:
             raise _not_in_slice(f"aggregate {s.kind}")
     return out
@@ -565,7 +856,7 @@ def finalize(
     out: Dict[str, Lane] = {}
     for s in specs:
         o = s.output
-        if s.kind in ("count", "count_star", "count_if"):
+        if s.kind in ("count", "count_star", "count_if", "approx_distinct"):
             c = accs[f"{o}$count"]
             out[o] = (c, torch.ones(c.shape, dtype=torch.bool, device=c.device))
         elif s.kind == "sum":
@@ -581,8 +872,49 @@ def finalize(
             has = accs[f"{o}$valid"] > 0
             sel_has = has[:, None] if v.dim() == 2 else has
             out[o] = (torch.where(sel_has, v, torch.zeros_like(v)), has)
-        elif s.kind == "arbitrary":
+        elif s.kind in ("arbitrary", "approx_percentile", "checksum", "min_by",
+                        "max_by") or s.kind in BITWISE_KINDS:
             out[o] = (accs[f"{o}$val"], accs[f"{o}$valid"] > 0)
+        elif s.kind in ("bool_and", "bool_or"):
+            out[o] = (accs[f"{o}$val"].to(torch.bool), accs[f"{o}$valid"] > 0)
+        elif s.kind in MOMENT_KINDS:
+            sm = accs[f"{o}$sum"]
+            sq = accs[f"{o}$sumsq"]
+            cnt = accs[f"{o}$count"]
+            n = torch.clamp(cnt, min=1).to(torch.float64)
+            m2 = torch.clamp(sq - sm * sm / n, min=0.0)
+            if s.kind in ("var_pop", "stddev_pop"):
+                var, valid = m2 / n, cnt > 0
+            else:
+                var, valid = m2 / torch.clamp(n - 1, min=1.0), cnt > 1
+            v = torch.sqrt(var) if s.kind.startswith("stddev") else var
+            out[o] = (v, valid)
+        elif s.kind == "geometric_mean":
+            cnt = accs[f"{o}$count"]
+            n = torch.clamp(cnt, min=1).to(torch.float64)
+            out[o] = (torch.exp(accs[f"{o}$sumlog"] / n), cnt > 0)
+        elif s.kind in BINARY_MOMENT_KINDS:
+            sy, sx = accs[f"{o}$sy"], accs[f"{o}$sx"]
+            sxy, sxx, syy = accs[f"{o}$sxy"], accs[f"{o}$sxx"], accs[f"{o}$syy"]
+            cnt = accs[f"{o}$n"]
+            n = torch.clamp(cnt, min=1).to(torch.float64)
+            cxy = sxy - sx * sy / n
+            cxx = torch.clamp(sxx - sx * sx / n, min=0.0)
+            cyy = torch.clamp(syy - sy * sy / n, min=0.0)
+            if s.kind == "covar_pop":
+                v, valid = cxy / n, cnt > 0
+            elif s.kind == "covar_samp":
+                v, valid = cxy / torch.clamp(n - 1, min=1.0), cnt > 1
+            elif s.kind == "corr":
+                den = torch.sqrt(cxx * cyy)
+                v = torch.where(den > 0, cxy / torch.clamp(den, min=1e-300), 0.0)
+                valid = (cnt > 0) & (den > 0)
+            else:
+                slope = torch.where(
+                    cxx > 0, cxy / torch.clamp(cxx, min=1e-300), 0.0)
+                v = slope if s.kind == "regr_slope" else (sy - slope * sx) / n
+                valid = (cnt > 0) & (cxx > 0)
+            out[o] = (v, valid)
         elif s.kind == "avg":
             if s._wide_sum:
                 from . import wide_decimal as wd
@@ -629,7 +961,7 @@ def group_keys_output(
     With `starts` (sorted-gid run starts from SortedSegments), the
     representative is the run-head row — no segment pass."""
     n = gid.shape[0]
-    if starts is not None:
+    if starts is not None and n > 0:
         present = starts < n
         safe = torch.clamp(starts, 0, max(n - 1, 0))
         return [(v[safe], ok[safe] & present & sel[safe]) for v, ok in key_lanes]

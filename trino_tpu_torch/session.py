@@ -20,6 +20,7 @@ from . import types as T
 from .catalog import CatalogManager, Metadata
 from .config import SessionProperties
 from .expr import ir
+from .connectors.tpcds import TpcdsConnectorFactory
 from .connectors.tpch import TpchConnectorFactory
 from .exec.local import DeviceScanCache, LocalExecutor
 from .page import Page, column_from_pylist
@@ -40,6 +41,7 @@ class Session:
         self.device = D.resolve(device)
         self.catalogs = CatalogManager()
         self.catalogs.register_factory(TpchConnectorFactory())
+        self.catalogs.register_factory(TpcdsConnectorFactory())
         self.default_catalog = catalog
         self.properties = SessionProperties(config)
         self.metadata = Metadata(self.catalogs)
@@ -152,4 +154,12 @@ def tpch_session(sf: float = 0.01, device=None, **config) -> Session:
     scale factor `sf`, on the CUDA card unless device="cpu"."""
     s = Session(config=config, device=device)
     s.create_catalog("tpch", "tpch", {"tpch.scale-factor": sf})
+    return s
+
+
+def tpcds_session(sf: float = 0.01, device=None, **config) -> Session:
+    """A session over the TPC-DS generator connector at scale factor
+    `sf`, on the CUDA card unless device="cpu"."""
+    s = Session(config=config, device=device)
+    s.create_catalog("tpcds", "tpcds", {"tpcds.scale-factor": sf})
     return s
