@@ -11,8 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
      under torch.cuda.set_sync_debug_mode("error");
   3. SF1: all 22 TPC-H queries of tests/tpch_sql.py, plus UNION,
      INTERSECT, EXCEPT and two window statements of the CPU tests, and
-     the statements of tests/test_aggregates.py, test_functions.py and
-     test_grouping_sets.py, on a TPC-H session; the TPC-DS path's 26
+     the statements of tests/test_aggregates.py, test_functions.py,
+     test_grouping_sets.py and test_arrays.py, the JSON/URL/digest tests
+     of test_client_features.py and the TABLESAMPLE tests of
+     test_session_features.py, on a TPC-H session; the TPC-DS path's 26
      statements on a TPC-DS session; each through Session.execute with
      megakernels on (fused kernel), off (grouped-count and grouped-sum
      kernels) and with every kernel function replaced by its plain
@@ -30,10 +32,22 @@ Phases (any failure exits non-zero and prints no result line):
      warm, with their launches and peak device memory; Q4, Q18, Q22 and
      both window statements against exact numpy references, Q16 and Q21
      byte-identical to runs on the plain kernel versions;
-  6. each kernel timed with CUDA events at the main path's shapes beside
+  6. this slice at SF10 in the same session, a memory catalog added:
+     UNNEST of split(p_name, ' ') over all 2 M parts (by word, and WITH
+     ORDINALITY by position), array_agg(o_orderkey) over all 15 M orders
+     per customer with cardinality and element_at over the groups,
+     listagg over supplier and map_agg over partsupp, TABLESAMPLE
+     BERNOULLI (10) and SYSTEM (100) over all 60 M lineitem rows, an ETL
+     sequence into the memory catalog (CTAS of all 15 M orders, INSERT
+     ... SELECT, DELETE, UPDATE, MERGE, each read back with the scan
+     cache on), the JSON, URL, md5, crc32 and base64 functions over 1.5 M
+     customers, and a MATCH_RECOGNIZE V shape over the orders of the
+     first 15,000 customers: cold once and warm three times, with
+     launches, peak memory and exact numpy or Python checks;
+  7. each kernel timed with CUDA events at the main path's shapes beside
      its bound, its plain version and, where one exists, one PyTorch call
      computing the same function;
-  7. TPC-DS SF10 (28.8 M store_sales rows), the TPC-H session freed
+  8. TPC-DS SF10 (28.8 M store_sales rows), the TPC-H session freed
      first: the 22 statements of tests/test_tpcds.py, its null-FK
      count, Q27 with ROLLUP (DS-Q27-ROLLUP), the aggregate families per
      store (DS-AGG) and the function library (DS-FN), cold once and warm
@@ -44,7 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
      relative 1e-9), the other 21 byte-identical to runs on the plain
      kernel versions.
 
---profile traces one warm run of every SF10 query, TPC-DS included
+--profile traces one warm run of every SF10 query, TPC-DS and the
+slice's phase included
 (busy and idle share of the device).  The last log line gives the run's seconds.
 
 With --parent DIR (a checkout of an earlier commit), that commit's
@@ -989,13 +1004,15 @@ SF1_EXTRA = {
 }
 
 
-def sql_statements(filename, skip=()):
+def sql_statements(filename, skip=(), receivers=("session",), only=None):
     """{test name: sql} of every SELECT that a test of tests/<filename>
-    runs through its session: the SQL argument of its rows(), run() and
-    check() helpers and of session.execute() (a test that runs several
-    gets "#i" suffixes).  Read from the source with ast, so the SQL is
-    the test's own text and the file (which may import the JAX package)
-    is not imported."""
+    runs through a session named in `receivers`: the SQL argument of its
+    rows(), run() and check() helpers and of <session>.execute() (a test
+    that runs several gets "#i" suffixes).  A call inside `with
+    pytest.raises` (a statement the test expects to be rejected) is left
+    out; an f-string is read with the test's own string constants.  Read
+    from the source with ast, so the SQL is the test's own text and the
+    file (which may import the JAX package) is not imported."""
     import ast
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -1004,26 +1021,42 @@ def sql_statements(filename, skip=()):
         tree = ast.parse(f.read())
     out = {}
     for fn in tree.body:
-        if not isinstance(fn, ast.FunctionDef) or fn.name in skip:
+        if (not isinstance(fn, ast.FunctionDef) or fn.name in skip
+                or (only is not None and fn.name not in only)):
             continue
+        consts = {n.targets[0].id: n.value.value for n in ast.walk(fn)
+                  if isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant)
+                  and isinstance(n.targets[0], ast.Name)}
+        rejected = {id(c) for w in ast.walk(fn) if isinstance(w, ast.With)
+                    and any("raises" in ast.unparse(i.context_expr) for i in w.items)
+                    for c in ast.walk(w)}
         found = []
         for call in ast.walk(fn):
-            if not isinstance(call, ast.Call):
+            if not isinstance(call, ast.Call) or id(call) in rejected:
                 continue
             f = call.func
-            if isinstance(f, ast.Name) and f.id in ("rows", "run") and len(call.args) >= 2:
+            if (isinstance(f, ast.Name) and f.id in ("rows", "run") and len(call.args) >= 2
+                    and getattr(call.args[0], "id", None) in receivers):
                 arg = call.args[1]
             elif isinstance(f, ast.Name) and f.id == "check" and len(call.args) >= 3:
                 arg = call.args[2]
             elif (isinstance(f, ast.Attribute) and f.attr == "execute"
-                  and getattr(f.value, "id", None) == "session" and call.args):
+                  and getattr(f.value, "id", None) in receivers and call.args):
                 arg = call.args[0]
             else:
                 continue
-            try:
-                sql = ast.literal_eval(arg)
-            except ValueError:  # an f-string or a variable
-                continue
+            if isinstance(arg, ast.JoinedStr):
+                try:
+                    sql = "".join(
+                        str(consts[p.value.id]) if isinstance(p, ast.FormattedValue)
+                        else p.value for p in arg.values)
+                except (KeyError, AttributeError):  # not the test's constant
+                    continue
+            else:
+                try:
+                    sql = ast.literal_eval(arg)
+                except ValueError:  # a variable
+                    continue
             if isinstance(sql, str) and sql.lstrip().lower().startswith("select"):
                 found.append(sql)
         for i, sql in enumerate(found):
@@ -1032,23 +1065,34 @@ def sql_statements(filename, skip=()):
 
 
 # tests of tests/test_aggregates.py that do not run on the TPC-H session:
-# arrays (not in this slice), the memory connector, the distributed runner
+# the memory connector (test_array_map_listagg runs one statement on it),
+# the distributed runner
 AGG_TEST_SKIP = (
-    "test_array_map_listagg", "test_sketched_partial_final_distributed",
+    "test_sketched_partial_final_distributed",
     "test_sum_distinct_distributed", "test_sum_overflow_fails_loudly",
     "test_sum_distinct_with_nulls",
 )
+# the JSON, URL, digest and levenshtein tests of test_client_features.py
+CLIENT_TESTS = ("test_json_array_functions", "test_url_functions",
+                "test_digest_functions", "test_levenshtein")
 
 
 def _library_sql():
-    """The TPC-H statements of the aggregate, function and grouping-set
-    tests (tests/test_aggregates.py, test_functions.py,
-    test_grouping_sets.py), with test_approx_percentile's f-string at
+    """The TPC-H statements of the aggregate, function, grouping-set and
+    array tests (tests/test_aggregates.py, test_functions.py,
+    test_grouping_sets.py, test_arrays.py), the JSON/URL/digest tests of
+    test_client_features.py and the TABLESAMPLE tests of
+    test_session_features.py, with test_approx_percentile's f-string at
     each fraction it runs."""
     out = {}
-    for fname, skip in (("test_aggregates.py", AGG_TEST_SKIP),
-                        ("test_functions.py", ()), ("test_grouping_sets.py", ())):
-        for name, sql in sql_statements(fname, skip).items():
+    for fname, kw in (("test_aggregates.py", {"skip": AGG_TEST_SKIP}),
+                      ("test_functions.py", {}), ("test_grouping_sets.py", {}),
+                      ("test_arrays.py", {}),
+                      ("test_client_features.py", {"only": CLIENT_TESTS}),
+                      ("test_session_features.py",
+                       {"only": ("test_tablesample", "test_tablesample_after_alias"),
+                        "receivers": ("s",)})):
+        for name, sql in sql_statements(fname, **kw).items():
             out[f"{fname[5:-3]}:{name}"] = sql
     for p in (0.0, 0.25, 0.5, 0.9, 1.0):
         out[f"aggregates:test_approx_percentile@{p}"] = (
@@ -1563,7 +1607,414 @@ def phase_sf10_rel(dev, do_profile=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: kernel timings at the main path's shapes
+# phase 6: this slice at SF10 (arrays and UNNEST, the array-valued
+# aggregates, TABLESAMPLE, writes to the memory connector, the JSON/URL/
+# hash functions, MATCH_RECOGNIZE), in the main path's session
+
+
+# the one cut of scale: MATCH_RECOGNIZE's matcher is a row-at-a-time NFA
+# on the host, so the pattern scan reads the orders of the first 1% of
+# customers (about 150 k rows), not all 15 M
+MR_CUSTKEY_MAX = 15000
+JSON_DOC = "concat('{\"id\": \"', c_name, '\", \"tags\": [\"a\", \"b\"]}')"
+URL_HOST = "concat('https://', replace(c_name, '#', '-'), '.shop.example.com:8080/c?q=1')"
+URL_QUERY = "concat('https://shop.example.com/c?name=', replace(c_name, '#', '%23'), '&page=2')"
+EXT_SQL = {
+    "EXPLODE-WORDS":
+        "select w, count(*) n from part cross join unnest(split(p_name, ' ')) as t(w) "
+        "group by w order by w",
+    "EXPLODE-ORD":
+        "select o, count(*) n from part cross join unnest(split(p_name, ' ')) "
+        "with ordinality as t(w, o) group by o order by o",
+    "COLLECT":
+        "select c, cardinality(a) n, element_at(a, 1) first_key from (select o_custkey c, "
+        "array_agg(o_orderkey) a from orders group by o_custkey) order by c",
+    "LISTAGG-SUPP":
+        "select s_nationkey, listagg(s_name, ',') names from supplier "
+        "group by s_nationkey order by s_nationkey",
+    "MAPAGG-PS":
+        "select ps_partkey, map_agg(ps_suppkey, ps_availqty) m from partsupp "
+        "where ps_partkey <= 200000 group by ps_partkey order by ps_partkey",
+    "SAMPLE-10":
+        "select l_returnflag, l_linestatus, count(*) n, sum(l_quantity) q "
+        "from lineitem tablesample bernoulli (10) "
+        "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus",
+    "SAMPLE-SYS100": "select count(*) from lineitem tablesample system (100)",
+    "JSON":
+        f"select count(v) n, count(distinct v) d, min(v) lo, max(v) hi from (select "
+        f"json_extract_scalar({JSON_DOC}, '$.id') v from customer)",
+    "URL":
+        f"select count(distinct h) dh, max(h) mh, count(distinct p) dp, min(p) mp from "
+        f"(select url_extract_host({URL_HOST}) h, url_extract_parameter({URL_QUERY}, "
+        f"'name') p from customer)",
+    "MD5": "select count(distinct md5(c_name)) d, min(md5(c_name)) lo from customer",
+    "CRC32": "select sum(crc32(c_phone)) from customer",
+    "BASE64": "select count(distinct to_base64(c_name)) d, max(to_base64(c_name)) hi "
+              "from customer",
+    "MR-V": f"""with o as (select o_custkey, o_orderdate, o_orderkey, o_totalprice
+    from orders where o_custkey <= {MR_CUSTKEY_MAX})
+select * from o match_recognize (
+  partition by o_custkey order by o_orderdate, o_orderkey
+  measures first(o_totalprice) as start_price, last(down.o_totalprice) as bottom,
+           last(o_totalprice) as end_price, match_number() as mno
+  one row per match after match skip past last row
+  pattern (strt down+ up+)
+  define down as o_totalprice < prev(o_totalprice), up as o_totalprice > prev(o_totalprice)
+) mr order by o_custkey, mno""",
+}
+ETL_TABLE = "memory.etl.ords"
+ETL_COLS = ("o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate, "
+            "o_orderpriority, o_clerk, o_shippriority")
+# the ETL sequence: statement, then the affected-row count and the table
+# the numpy model (_EtlModel) says it must leave
+ETL_SQL = {
+    "CTAS": f"create table {ETL_TABLE} as select {ETL_COLS} from orders",
+    "INSERT": f"insert into {ETL_TABLE} select {ETL_COLS} from orders "
+              "where o_custkey % 5 = 0",
+    "DELETE": f"delete from {ETL_TABLE} where o_orderkey % 2 = 0",
+    "UPDATE": f"update {ETL_TABLE} set o_totalprice = o_totalprice + 1 "
+              "where o_orderpriority = '5-LOW'",
+    "MERGE": f"merge into {ETL_TABLE} t using (select o_orderkey k, o_totalprice p "
+             "from orders where o_custkey % 7 = 0) s on t.o_orderkey = s.k "
+             "when matched then update set o_shippriority = 9 "
+             "when not matched then insert (o_orderkey, o_custkey, o_totalprice, "
+             "o_shippriority) values (s.k, 0, s.p, 1)",
+}
+ETL_CHECK = (f"select count(*), sum(o_totalprice), sum(o_custkey), sum(o_shippriority), "
+             f"count(o_orderpriority) from {ETL_TABLE}")
+
+
+def _strings(cols, dicts, c):
+    """A cached scan's varchar column as a numpy array of str."""
+    d = np.array([str(x) for x in dicts[c]], dtype=object)
+    return d[cols[c]]
+
+
+def check_explode(s, pages):
+    cols, dicts = _scan_host_columns(s, ["p_name"], "part")
+    d = dicts["p_name"]
+    per_entry = np.bincount(cols["p_name"], minlength=len(d))
+    words, ords = {}, {}
+    for entry, k in zip(d, per_entry):
+        if k:
+            for i, w in enumerate(str(entry).split(" "), 1):
+                words[w] = words.get(w, 0) + int(k)
+                ords[i] = ords.get(i, 0) + int(k)
+    _expect_rows("EXPLODE-WORDS", pages["EXPLODE-WORDS"].to_pylist(), sorted(words.items()))
+    _expect_rows("EXPLODE-ORD", pages["EXPLODE-ORD"].to_pylist(), sorted(ords.items()))
+    _log(f"[ext] UNNEST: {len(words)} words over {int(per_entry.sum())} parts, "
+         f"{sum(words.values())} element rows, as numpy and str.split count them")
+
+
+def check_collect(s, page):
+    cols, _ = _scan_host_columns(s, ["o_custkey", "o_orderkey"], "orders")
+    cust, key = cols["o_custkey"], cols["o_orderkey"]
+    counts = np.bincount(cust)
+    cs, first = np.unique(cust, return_index=True)
+    # orders are generated in orderkey order: the first key is the least
+    if not (np.diff(key) > 0).all():
+        raise AssertionError("COLLECT: orders are not in orderkey order")
+    got = [np.asarray(c.values)[: page.count] for c in page.columns]
+    if page.count != len(cs):
+        raise AssertionError(f"COLLECT: {page.count} groups, numpy {len(cs)}")
+    for name, g, w in (("custkey", got[0], cs), ("cardinality", got[1], counts[cs]),
+                       ("element_at", got[2], key[first])):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"COLLECT: {name} differs from numpy")
+    _log(f"[ext] COLLECT: {page.count} customers, cardinality = np.bincount(o_custkey), "
+         f"element_at(a, 1) = the least orderkey, exactly")
+
+
+def check_listagg(s, page):
+    cols, dicts = _scan_host_columns(s, ["s_nationkey", "s_name"], "supplier")
+    names = _strings(cols, dicts, "s_name")
+    want = [(int(n), ",".join(names[cols["s_nationkey"] == n]))
+            for n in np.unique(cols["s_nationkey"])]
+    _expect_rows("LISTAGG-SUPP", page.to_pylist(), want)
+
+
+def check_map_agg(s, page):
+    cols, _ = _scan_host_columns(s, ["ps_partkey", "ps_suppkey", "ps_availqty"], "partsupp")
+    want: dict = {}
+    for p, k, v in zip(cols["ps_partkey"].tolist(), cols["ps_suppkey"].tolist(),
+                       cols["ps_availqty"].tolist()):
+        if p <= 200000:
+            want.setdefault(p, {}).setdefault(k, v)
+    got = page.to_pylist()
+    _expect_rows("MAPAGG-PS", got, sorted(want.items()))
+    _log(f"[ext] MAPAGG-PS: {len(got)} parts' supplier maps as numpy builds them")
+
+
+def check_sample(s, pages):
+    cols, dicts = _scan_host_columns(s, ["l_returnflag", "l_linestatus", "l_quantity"])
+    n = cols["l_quantity"].shape[0]
+    u = (_splitmix64_np(np.arange(n, dtype=np.int64)) >> np.uint64(11)).astype(
+        np.float64) / float(1 << 53)
+    keep = u < 0.1
+    flag = _strings(cols, dicts, "l_returnflag")
+    status = _strings(cols, dicts, "l_linestatus")
+    want = []
+    for f in sorted(set(flag.tolist())):
+        for st in sorted(set(status.tolist())):
+            m = keep & (flag == f) & (status == st)
+            if m.any():
+                want.append((f, st, int(m.sum()), _isum(cols["l_quantity"][m])))
+    page = pages["SAMPLE-10"]
+    got = [(r[0], r[1], r[2], _raw(page.columns[3], i))
+           for i, r in enumerate(page.to_pylist())]
+    _expect_rows("SAMPLE-10", got, want)
+    total = pages["SAMPLE-SYS100"].to_pylist()
+    if total != [(n,)]:
+        raise AssertionError(f"SAMPLE-SYS100 {total} != [({n},)]")
+    _log(f"[ext] SAMPLE-10 keeps {int(keep.sum())} of {n} rows, the rows numpy's "
+         f"splitmix64 of the positions keeps; SYSTEM (100) counts all {n}")
+
+
+def check_strings(s, pages):
+    import base64
+    import hashlib
+    import json as jsonlib
+    import zlib
+    from urllib.parse import parse_qs, urlparse
+
+    cols, dicts = _scan_host_columns(s, ["c_name"], "customer")
+    names = _strings(cols, dicts, "c_name").tolist()
+    ids = [jsonlib.loads('{"id": "' + c + '", "tags": ["a", "b"]}')["id"] for c in names]
+    md5 = [hashlib.md5(c.encode()).hexdigest() for c in names]
+    b64 = [base64.b64encode(c.encode()).decode() for c in names]
+    want = {
+        "JSON": [(len(ids), len(set(ids)), min(ids), max(ids))],
+        "MD5": [(len(set(md5)), min(md5))],
+        "BASE64": [(len(set(b64)), max(b64))],
+    }
+    hosts = [urlparse("https://" + c.replace("#", "-") + ".shop.example.com:8080/c?q=1").hostname
+             for c in names]
+    params = [parse_qs(urlparse("https://shop.example.com/c?name=" + c.replace("#", "%23")
+                                + "&page=2").query)["name"][0] for c in names]
+    want["URL"] = [(len(set(hosts)), max(hosts), len(set(params)), min(params))]
+    cols, dicts = _scan_host_columns(s, ["c_phone"], "customer")
+    d = dicts["c_phone"]
+    crc = np.array([zlib.crc32(str(x).encode()) for x in d], dtype=np.int64)
+    want["CRC32"] = [(int(np.bincount(cols["c_phone"], minlength=len(d)) @ crc),)]
+    for q, rows in want.items():
+        _expect_rows(q, pages[q].to_pylist(), rows)
+    _log(f"[ext] JSON, URL, MD5, CRC32 and BASE64 over {len(names)} customers agree "
+         f"with Python's json, urllib.parse, hashlib, zlib and base64")
+
+
+def check_match_recognize(s, page):
+    cols, _ = _scan_host_columns(
+        s, ["o_custkey", "o_orderdate", "o_orderkey", "o_totalprice"], "orders")
+    m = cols["o_custkey"] <= MR_CUSTKEY_MAX
+    cust, date, key, price = (cols[c][m] for c in (
+        "o_custkey", "o_orderdate", "o_orderkey", "o_totalprice"))
+    order = np.lexsort((key, date, cust))
+    cust, price = cust[order].tolist(), price[order].tolist()
+    want = []
+    i = 0
+    while i < len(cust):  # one customer's orders at a time
+        j = i
+        while j < len(cust) and cust[j] == cust[i]:
+            j += 1
+        p, a, mno = price[i:j], 0, 0
+        while a < len(p):  # strictly falling, then strictly rising
+            b = a + 1
+            while b < len(p) and p[b] < p[b - 1]:
+                b += 1
+            if b == a + 1 or b >= len(p) or not p[b] > p[b - 1]:
+                a += 1
+                continue
+            c = b + 1
+            while c < len(p) and p[c] > p[c - 1]:
+                c += 1
+            mno += 1
+            want.append((cust[i], p[a], p[b - 1], p[c - 1], mno))
+            a = c
+        i = j
+    got = [(r[0], _raw(page.columns[1], k), _raw(page.columns[2], k),
+            _raw(page.columns[3], k), r[4]) for k, r in enumerate(page.to_pylist())]
+    _expect_rows("MR-V", got, want)
+    _log(f"[ext] MR-V: {len(want)} V shapes over {len(cust)} orders of "
+         f"{MR_CUSTKEY_MAX} customers, as a plain Python scan finds them")
+
+
+class _EtlModel:
+    """The ETL table as numpy over the orders scan's host arrays: what
+    each write must leave and report."""
+
+    def __init__(self, s):
+        cols, dicts = _scan_host_columns(
+            s, ["o_orderkey", "o_custkey", "o_totalprice", "o_orderpriority",
+                "o_shippriority"], "orders")
+        self.src = {c: cols[c].astype(np.int64) for c in
+                    ("o_orderkey", "o_custkey", "o_totalprice", "o_shippriority")}
+        self.src["low"] = _strings(cols, dicts, "o_orderpriority") == "5-LOW"
+        self.src["prio"] = np.ones(len(self.src["low"]), dtype=bool)
+
+    def apply(self, label):
+        src = self.src
+        if label == "CTAS":
+            self.t = {c: v.copy() for c, v in src.items()}
+            return len(src["o_orderkey"])
+        t = self.t
+        if label == "INSERT":
+            m = src["o_custkey"] % 5 == 0
+            for c in t:
+                t[c] = np.concatenate([t[c], src[c][m]])
+            return int(m.sum())
+        if label == "DELETE":
+            keep = t["o_orderkey"] % 2 != 0
+            for c in t:
+                t[c] = t[c][keep]
+            return int((~keep).sum())
+        if label == "UPDATE":
+            t["o_totalprice"] = t["o_totalprice"] + 100 * t["low"]
+            return int(t["low"].sum())
+        # MERGE
+        m = src["o_custkey"] % 7 == 0
+        skeys, sprice = src["o_orderkey"][m], src["o_totalprice"][m]
+        hit = np.isin(t["o_orderkey"], skeys)
+        t["o_shippriority"] = np.where(hit, 9, t["o_shippriority"])
+        new = ~np.isin(skeys, t["o_orderkey"])
+        add = {"o_orderkey": skeys[new], "o_custkey": np.zeros(int(new.sum()), np.int64),
+               "o_totalprice": sprice[new], "o_shippriority": np.ones(int(new.sum()), np.int64),
+               "low": np.zeros(int(new.sum()), bool), "prio": np.zeros(int(new.sum()), bool)}
+        for c in t:
+            t[c] = np.concatenate([t[c], add[c]])
+        return int(hit.sum()) + int(new.sum())
+
+    def expect(self):
+        t = self.t
+        return [(len(t["o_orderkey"]), _isum(t["o_totalprice"]), _isum(t["o_custkey"]),
+                 _isum(t["o_shippriority"]), int(t["prio"].sum()))]
+
+
+def _etl_run(s, model, walls, checked):
+    """One pass of the ETL sequence: drop, then each write and its
+    read-after-write check (count and sums, scan cache on)."""
+    s.execute(f"drop table if exists {ETL_TABLE}")
+    for label, sql in ETL_SQL.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        page = s.execute(sql)
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t0)
+        want_rows = model.apply(label)
+        _expect_rows(label, page.to_pylist(), [(want_rows,)])
+        chk = s.execute(ETL_CHECK)
+        got = [(r[0], _raw(chk.columns[1], 0), r[2], r[3], r[4]) for r in chk.to_pylist()]
+        _expect_rows(f"{label} read-after-write", got, model.expect())
+        checked.append((label, want_rows, got[0]))
+
+
+# kernels the ext path must launch (read from a CPU run of this phase
+# with counting shims): the sampled and string aggregates and the ETL
+# read-back checks group at most 32 groups, and MERGE's join probes by
+# direct address; no aggregate of the path fuses (a sample or a memory
+# table stops fusion)
+EXT_KERNELS = ("grouped_count", "grouped_sum_i64", "direct_probe")
+EXT_CHECKS = {"COLLECT": check_collect, "LISTAGG-SUPP": check_listagg,
+              "MAPAGG-PS": check_map_agg, "MR-V": check_match_recognize}
+
+
+def phase_ext(dev, do_profile=False):
+    """This slice at SF10 in the main path's session (its scans stay
+    resident), a memory catalog added: each EXT_SQL statement cold once
+    and MAIN_REPS times warm, the ETL sequence (CTAS of all orders,
+    INSERT ... SELECT, DELETE, UPDATE, MERGE) cold once and MAIN_REPS
+    times warm with a read-after-write check after every write, every
+    kernel's launches over the warm runs, the phase's peak device memory
+    and cold time; each statement held by its numpy or Python check."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    sf = MAIN_SF
+    s = MAIN.get("session")
+    if s is None:  # --phase ext
+        from trino_tpu_torch.session import tpch_session
+
+        s = MAIN["session"] = tpch_session(sf)
+    s.properties.set("megakernels", "auto")
+    if "memory" not in s.catalogs.names():
+        s.create_catalog("memory", "memory", {})
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_cold = time.perf_counter()
+    for q, sql in EXT_SQL.items():  # cold: generation, upload, first run
+        t0 = time.perf_counter()
+        s.execute(sql)
+        torch.cuda.synchronize()
+        _log(f"[ext{sf:g}] cold {q}: {time.perf_counter() - t0:.3f} s")
+    s.execute(f"select {ETL_COLS} from orders limit 1")  # the CTAS's scan
+    model = _EtlModel(s)
+    etl_walls = {q: [] for q in ETL_SQL}
+    checked = []
+    _etl_run(s, model, etl_walls, checked)
+    cold = {q: w[0] for q, w in etl_walls.items()}
+    _log(f"[ext{sf:g}] cold ETL: " + ", ".join(f"{q} {w:.3f} s" for q, w in cold.items()))
+    _log(f"[ext{sf:g}] all cold runs {time.perf_counter() - t_cold:.1f} s; scan cache "
+         f"{len(s._scan_cache.entries)} scans, {s._scan_cache.bytes} bytes")
+    walls = {q: [] for q in EXT_SQL}
+    walls.update({q: [] for q in ETL_SQL})
+    per_run = {q: dict.fromkeys(KERNEL_FNS, 0) for q in walls}
+    pages = {}
+    kn.reset_counts()  # the phase's warm runs start here
+    for _ in range(MAIN_REPS):
+        for q, sql in EXT_SQL.items():
+            before = dict(kn.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pages[q] = s.execute(sql)
+            torch.cuda.synchronize()
+            walls[q].append(time.perf_counter() - t0)
+            for name in KERNEL_FNS:
+                per_run[q][name] += kn.LAUNCHES[name] - before[name]
+        before = dict(kn.LAUNCHES)
+        _etl_run(s, model, walls, checked)
+        for name in KERNEL_FNS:  # the sequence as one: writes and checks
+            per_run["CTAS"][name] += kn.LAUNCHES[name] - before[name]
+    launches = dict(kn.LAUNCHES)  # ... and end here
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"[ext{sf:g}] launches over the warm runs: {launches}")
+    for q, n in per_run.items():
+        if q in ETL_SQL and q != "CTAS":
+            continue
+        _log(f"[ext{sf:g}]   {'ETL (all writes and checks)' if q == 'CTAS' else q} "
+             f"over {MAIN_REPS} runs: {n}")
+    for q, w in walls.items():
+        rows = f", {pages[q].count} rows" if q in pages else ""
+        _log(f"[ext{sf:g}] warm {q}: median {statistics.median(w) * 1e3:.3f} ms over "
+             f"{len(w)} runs (all: {', '.join(f'{x * 1e3:.3f}' for x in w)}){rows}")
+    _log(f"[ext{sf:g}] peak device memory over the phase (cold and warm) "
+         f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above what was "
+         f"allocated before it ({base / 2**30:.2f} GiB)")
+    for label, n, got in checked[: len(ETL_SQL)]:
+        _log(f"[ext{sf:g}] {label}: {n} rows; then count, sum(o_totalprice), "
+             f"sum(o_custkey), sum(o_shippriority), count(o_orderpriority) = {got}")
+    _log(f"[ext{sf:g}] {len(checked)} writes, each read back with the scan cache on "
+         f"as the numpy model says")
+    check_explode(s, pages)
+    for q, check in EXT_CHECKS.items():
+        check(s, pages[q])
+    check_sample(s, pages)
+    check_strings(s, pages)
+    for name in EXT_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the ext path")
+    for q in ("EXPLODE-ORD", "SAMPLE-10", "LISTAGG-SUPP", "MR-V"):
+        for row in pages[q].to_pylist()[:3]:
+            _log(f"[ext{sf:g}] {q} {str(row)[:160]}")
+    MAIN.update(ext_launches=launches, ext_walls=walls)
+    if do_profile:
+        for q, sql in EXT_SQL.items():
+            _profile(s, sql, f"ext{sf:g} {q}")
+        s.execute(f"drop table if exists {ETL_TABLE}")
+        for q, sql in ETL_SQL.items():
+            _profile(s, sql, f"ext{sf:g} {q}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: kernel timings at the main path's shapes
 
 
 def _time_ms(fn, reps):
@@ -1809,7 +2260,7 @@ def phase_timing(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the TPC-DS path at SF10 (GROUPING SETS, the aggregate families,
+# phase 8: the TPC-DS path at SF10 (GROUPING SETS, the aggregate families,
 # the function library, the surrogate-key star joins)
 
 
@@ -2202,11 +2653,13 @@ def phase_ds(dev, do_profile=False):
 def main(argv=None) -> int:
     global MAIN_REPS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", default="all", choices=["all", "kernels", "main", "ds"],
+    ap.add_argument("--phase", default="all",
+                    choices=["all", "kernels", "main", "ext", "ds"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 main path (which also runs on the package "
-                         "of an earlier commit, for comparisons), or only the "
-                         "build and the TPC-DS path")
+                         "of an earlier commit, for comparisons), only the build "
+                         "and this slice's SF10 phase (in a fresh session), or "
+                         "only the build and the TPC-DS path")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -2234,6 +2687,8 @@ def main(argv=None) -> int:
         phases.append(main_path)
     elif args.phase == "ds":
         phases.append(("ds", lambda: phase_ds(dev, args.profile)))
+    elif args.phase == "ext":
+        phases.append(("ext", lambda: phase_ext(dev, args.profile)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -2241,6 +2696,7 @@ def main(argv=None) -> int:
             ("sf1", lambda: phase_sf1(dev)),
             main_path,
             ("rel", lambda: phase_sf10_rel(dev, args.profile)),
+            ("ext", lambda: phase_ext(dev, args.profile)),
             ("timing", lambda: phase_timing(dev)),
             ("ds", lambda: phase_ds(dev, args.profile)),
         ]

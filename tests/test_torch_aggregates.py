@@ -9,8 +9,9 @@ corr/covar/regr, geometric_mean), which are held at relative 1e-12:
 torch and XLA differ in the last bit of exp/log/sqrt on some inputs.
 The statements are read from the test file's source by chip_smoke.py's
 sql_statements, which the card's SF1 phase runs too.
-Left out: array_agg/map_agg/listagg (they wait for expr/arrays.py) and
-the tests on the JAX package's memory connector or distributed runner.
+Left out: the tests on the JAX package's distributed runner;
+test_array_map_listagg and the memory-connector tests are replayed in
+tests/test_torch_arrays.py.
 
 The module-level tests hold the port's building blocks (_segment_bitwise,
 _first_by_key, _percentile, _splitmix64, the moment finalize) to the
@@ -126,10 +127,36 @@ def test_every_aggregate_test_statement_is_covered():
         assert fn + "(" in text, fn
 
 
-def test_array_aggregates_name_what_is_missing():
-    ts = torch_session(SF, device="cpu")
-    with pytest.raises(NotImplementedError, match="expr/arrays.py"):
-        ts.execute("select array_agg(o_orderkey) from orders")
+ARRAY_AGGREGATES = (
+    "select array_agg(o_orderkey) from orders where o_orderkey < 200",
+    "select o_orderstatus, array_agg(o_orderpriority), listagg(o_clerk, ','), "
+    "map_agg(o_orderkey, o_totalprice) from orders where o_custkey < 40 "
+    "group by o_orderstatus order by o_orderstatus",
+    "select o_custkey, array_agg(o_totalprice), listagg(o_orderstatus, '') "
+    "from orders group by o_custkey order by o_custkey",
+)
+
+
+@pytest.mark.parametrize("i", range(len(ARRAY_AGGREGATES)))
+def test_array_aggregates_match_jax(sessions, i):
+    """array_agg / map_agg / listagg (refused by name until the arrays
+    slice) over one group, direct groups and hash-sort groups."""
+    assert_same_pages(sessions, ARRAY_AGGREGATES[i])
+
+
+def test_streaming_spill_and_split_steps_stay_refused():
+    """What the port still refuses: the JAX package's spill, streaming
+    and memory-pool properties (no such executor yet), and a host-staged
+    aggregate inside a traced PARTIAL/FINAL step, as the JAX package."""
+    for prop in ("spill_enabled", "double_buffer_depth", "query_max_memory_bytes"):
+        with pytest.raises(KeyError, match="unknown session property: " + prop):
+            torch_session(SF, device="cpu", **{prop: 1})
+    lane = (torch.zeros(3, dtype=torch.int64), torch.ones(3, dtype=torch.bool))
+    spec = tagg.AggSpec("array_agg", "x", "o")
+    assert spec.accumulator_names == ["o$val", "o$valid"]
+    with pytest.raises(NotImplementedError, match="array_agg is host-staged"):
+        tagg.accumulate([spec], {"x": lane}, torch.zeros(3, dtype=torch.int64),
+                        torch.ones(3, dtype=torch.bool), 1, step="partial")
 
 
 def test_sketch_steps_name_the_mesh_slice():

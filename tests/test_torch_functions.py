@@ -21,6 +21,7 @@ import trino_tpu.expr.functions as jfn
 import trino_tpu_torch.expr.functions as tfn
 from chip_smoke import sql_statements
 from test_torch_aggregates import assert_same_pages
+from test_torch_dml import replay
 from trino_tpu.session import tpch_session as jax_session
 from trino_tpu_torch.session import tpch_session as torch_session
 
@@ -128,12 +129,79 @@ def test_rand_through_sql_is_uniform_and_fresh():
     assert a != b and all(0 <= r[0] < 1 for r in a)
 
 
-def test_unported_functions_are_refused_by_name():
-    """The JSON, URL, hash and array functions wait for expr/arrays.py:
-    the port's analyzer does not register them."""
-    from trino_tpu_torch.sql.analyzer import SemanticError
+CLIENT_TESTS = ["test_json_extract_scalar", "test_json_array_functions",
+                "test_url_functions", "test_digest_functions", "test_levenshtein"]
 
-    ts = torch_session(SF, device="cpu")
-    for fn in ("md5(n_name)", "split(n_name, 'A')", "json_extract_scalar(n_name, '$.a')"):
-        with pytest.raises(SemanticError, match="unknown function: " + fn.split("(")[0]):
+
+@pytest.mark.parametrize("test", CLIENT_TESTS)
+def test_json_url_digest_statements_match_jax(test):
+    """The JSON, URL, digest, base64/hex, crc32 and levenshtein tests of
+    tests/test_client_features.py, replayed through both packages."""
+    replay("test_client_features.py", test)
+
+
+FORMER_REFUSALS = {
+    "md5": "select md5(n_name), sha1(n_name), sha512(n_comment) from nation",
+    "split": "select split(n_name, 'A'), cardinality(split(n_comment, ' ')) from nation",
+    "json_extract_scalar":
+        "select json_extract_scalar(concat('{\"n\": \"', n_name, '\", \"r\": 1}'), '$.n'), "
+        "json_extract_scalar(concat('{\"n\": ', n_name, '}'), '$.n'),json_extract_scalar(concat('{\"a\": [\"', n_name, '\"]}'), "
+        "'$.a[0]') from nation order by n_nationkey",
+}
+STATEMENTS_2 = {
+    "unixtime_pair":
+        "select from_unixtime(o_custkey * 1000), to_unixtime(from_unixtime(o_orderkey)), "
+        "to_unixtime(from_unixtime(o_totalprice)) from orders order by o_orderkey limit 40",
+    "url_parts_over_columns":
+        "select url_extract_host(concat('https://', c_mktsegment, '.example.com:8/p/?q=1#f')), "
+        "url_extract_port(concat('http://h:', substr(c_phone, 1, 2), '/x')), "
+        "url_extract_parameter(concat('http://h/?a=1&b=', c_name, '&c'), 'b'), "
+        "url_extract_query(concat('http://h/p?x=', c_mktsegment)), "
+        "url_extract_path(concat('http://h/', c_name)), "
+        "url_extract_fragment(concat('http://h/#', c_phone)), "
+        "url_encode(c_address), url_decode(url_encode(c_address)) "
+        "from customer order by c_custkey limit 50",
+    "digests_and_encodings_grouped":
+        "select crc32(c_mktsegment), to_hex(c_mktsegment), to_base64(c_mktsegment), "
+        "from_base64(to_base64(c_mktsegment)), count(*), count(distinct md5(c_name)), "
+        "sum(crc32(c_phone)) from customer group by 1, 2, 3, 4 order by 1",
+    "json_functions_over_columns":
+        "select json_array_length(concat('[', replace(c_phone, '-', ','), ']')), "
+        "json_array_contains(concat('[', replace(c_phone, '-', ','), ']'), 25), "
+        "json_size(concat('{\"a\": {\"b\": \"', c_name, '\"}}'), '$.a'), "
+        "json_format(concat('{\"k\":  \"', c_mktsegment, '\"}')), "
+        "json_extract(concat('{\"a\": [', replace(c_phone, '-', ','), ']}'), '$.a'), "
+        "json_extract_scalar(concat('{\"a\": [', replace(c_phone, '-', ','), ']}'), '$.a[2]') "
+        "from customer order by c_custkey limit 50",
+    "levenshtein_grouped":
+        "select levenshtein_distance(n_name, 'GERMANY') d, count(*) from nation "
+        "group by 1 order by 1",
+}
+
+
+@pytest.mark.parametrize("name", sorted(FORMER_REFUSALS))
+def test_formerly_refused_functions_match_jax(sessions, name):
+    """md5, split and json_extract_scalar were refused as unknown until
+    the JSON/URL/hash/array slice; they now answer as the JAX package
+    does, over dictionary columns and derived dictionaries."""
+    assert_same_pages(sessions, FORMER_REFUSALS[name])
+
+
+@pytest.mark.parametrize("name", sorted(STATEMENTS_2))
+def test_json_url_hash_unixtime_statements_match_jax(sessions, name):
+    assert_same_pages(sessions, STATEMENTS_2[name])
+
+
+def test_unknown_functions_are_refused_alike(sessions):
+    """A name neither package registers is refused at analysis, with the
+    same message."""
+    from trino_tpu.sql.analyzer import SemanticError as JError
+    from trino_tpu_torch.sql.analyzer import SemanticError as TError
+
+    js, ts = sessions
+    for fn in ("json_parse(n_name)", "sha3(n_name)", "array_concat(split(n_name, 'A'))"):
+        name = fn.split("(")[0]
+        with pytest.raises(JError, match="unknown function: " + name):
+            js.execute(f"select {fn} from nation")
+        with pytest.raises(TError, match="unknown function: " + name):
             ts.execute(f"select {fn} from nation")

@@ -202,6 +202,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'trino_tpu' or m.startswith('trino_tpu.')]\n"
         "assert not bad, bad\n"
+        "walked = {'trino_tpu_torch.connectors.memory', 'trino_tpu_torch.expr.arrays',"
+        " 'trino_tpu_torch.ops.matcher'}\n"
+        "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -3,7 +3,8 @@
 The engine has no weights: its state is the loaded tables and their
 dictionaries, and what crosses between the engines is pages.  A page
 travels as a neutral *state* — names, type names, row count and, per
-column, numpy values, validity and dictionary — so this module never
+column, numpy values, validity and dictionary (str entries, or tuples
+for array and map columns) — so this module never
 imports the JAX package: the caller hands in the other side's page
 classes and type parser when converting back.
 
@@ -31,6 +32,15 @@ from . import page as _page
 from . import types as _types
 
 
+def _entries(d) -> np.ndarray:
+    """A dictionary's entries as a 1-D object array: varchar entries as
+    str, array entries as tuples of elements and map entries as tuples
+    of (key, value) pairs, both in IR-constant form."""
+    out = np.empty(len(d), dtype=object)
+    out[:] = [x if isinstance(x, tuple) else str(x) for x in d]
+    return out
+
+
 def page_state(page) -> dict:
     """Neutral, numpy-only description of a Page (either package)."""
     cols = []
@@ -43,9 +53,7 @@ def page_state(page) -> dict:
                 None if c.validity is None
                 else np.asarray(c.validity)[: page.count].copy()
             ),
-            "dictionary": (
-                None if d is None else np.array([str(x) for x in d], dtype=object)
-            ),
+            "dictionary": None if d is None else _entries(d),
         })
     return {"names": list(page.names), "count": int(page.count), "columns": cols}
 

@@ -2,34 +2,46 @@
 
 Counterpart of trino_tpu/exec/local.py, for the plans the 22 TPC-H
 queries, the TPC-DS statements of the tests, SELECT DISTINCT, the set
-operations, GROUPING SETS and window functions reach.  Where the JAX package traces a whole fragment into one jitted
-XLA program over padded lanes, this executor walks the plan and runs
-each operator eagerly on the executor's device:
+operations, GROUPING SETS, window functions, arrays and UNNEST,
+MATCH_RECOGNIZE, TABLESAMPLE and the writes reach.  Where the JAX
+package traces a whole fragment into one jitted XLA program over padded
+lanes, this executor walks the plan and runs each operator eagerly on
+the executor's device:
   1. loads splits on the host (numpy), merging per-split dictionaries,
   2. uploads scan columns through page-locked memory and keeps them on
      the device across queries (DeviceScanCache),
-  3. runs the operators (filter / project / join / cross join / semi
-     join (IN, EXISTS and, under a NOT filter, their negations) / scalar
-     join / GROUPING SETS row expansion / aggregate, DISTINCT aggregates
-     included — first trying the fused megakernel, then direct or
-     hash-sort grouping — / distinct /
-     union, intersect, except / window / sort / top-N / limit),
+  3. runs the operators (filter / project / sample / join / cross join /
+     semi join (IN, EXISTS and, under a NOT filter, their negations) /
+     scalar join / GROUPING SETS row expansion / aggregate, DISTINCT
+     aggregates included — first trying the fused megakernel, then
+     direct or hash-sort grouping — / distinct / union, intersect,
+     except / window / unnest / match_recognize / sort / top-N / limit),
   4. re-runs the plan when a runtime check fails (the JAX package's
      retry ladder): a direct-address join whose build keys break the
      planner's domain/uniqueness proof retries on the sorted unique
      kernel, a duplicate build key then on the expansion join, a
      grouping hash collision under a new salt, and a decimal overflow
      flag with the 128-bit kernels; then copies the selected output rows
-     back to the host.
+     back to the host,
+  5. hands a write's host page to the connector's PageSink
+     (_execute_write: INSERT, CREATE TABLE AS, DELETE, UPDATE, MERGE).
 
 No padding ladder: eager execution has no compile to bound, so lanes
 keep their exact row counts, and group and join-expansion capacities
 are the true counts (no capacity retries).  Batch representation:
 dict[symbol -> (values, valid)] plus a boolean selection mask `sel`.
 
-Not in this slice (ExecutionError / NotImplementedError): unnest,
-match_recognize, sample, writes, spill and streaming, the device
-supervisor and the mesh executor.
+Variable-length results are staged on the host, as in the JAX package:
+UNNEST measures and flattens each distinct array once (the rows repeat
+and gather their elements on the device), array_agg / map_agg / listagg
+put the selected rows in group order on the device and build one
+dictionary entry per group from one copy of the lanes
+(ops/aggregation.host_staged_lanes), and MATCH_RECOGNIZE sorts on the
+device and runs the row-at-a-time matcher (ops/matcher.py) per
+partition.  Every lane they return lives on the executor's device.
+
+Not in this slice (ExecutionError / NotImplementedError): streaming and
+spill, the device supervisor and the mesh executor.
 """
 from __future__ import annotations
 
@@ -41,8 +53,10 @@ import numpy as np
 import torch
 
 from .. import device as D
+from .. import types as T
 from ..catalog import CatalogManager, Metadata
 from ..expr import ir
+from ..expr.functions import memoized
 from ..expr.lower import LoweringContext, compile_expr
 from ..ops import aggregation as agg_ops
 from ..ops import join as join_ops
@@ -81,6 +95,12 @@ class DeviceScanCache:
         entry["nbytes"] = nbytes
         self.entries[key] = entry
         self.bytes += nbytes
+
+    def evict_table(self, catalog: str, table: str) -> None:
+        """Drop every scan of one table (after a write: its entries are
+        keyed by the old data version and would only hold memory)."""
+        for key in [k for k in self.entries if k[:2] == (catalog, table)]:
+            self.bytes -= self.entries.pop(key).get("nbytes", 0)
 
 
 class ExecutionError(RuntimeError):
@@ -209,6 +229,125 @@ def _broadcast_first_row(keep: Batch, single: Batch):
     return lanes, has
 
 
+def _rows_page(n: int) -> Page:
+    """A write's result: one BIGINT row, the affected-row count."""
+    return Page([Column(T.BIGINT, np.array([n], dtype=np.int64))], 1, ["rows"])
+
+
+def _object_array(items) -> np.ndarray:
+    """1-D object array of the items (np.array would make equal-length
+    tuple entries, i.e. arrays, into a 2-D array)."""
+    out = np.empty(len(items), dtype=object)
+    for i, x in enumerate(items):
+        out[i] = x
+    return out
+
+
+def sample_keep(n: int, fraction: float, device) -> torch.Tensor:
+    """TABLESAMPLE's mask over a batch of n rows: position i is kept when
+    u_i < fraction, u_i = (splitmix64(i) >> 11) / 2^53, the JAX
+    package's bits (uint64 arithmetic in int64, logical shifts)."""
+    from ..ops.aggregation import _splitmix64
+    from ..ops.int128 import srl
+
+    z = _splitmix64(torch.arange(n, dtype=torch.int64, device=device))
+    return srl(z, 11).to(torch.float64) / float(1 << 53) < fraction
+
+
+class FlatArrays:
+    """An array column's dictionary measured and flattened once on the
+    host: each entry's length and offset into one flat table of its
+    elements.  Elements of a dictionary type get ids in order of first
+    appearance in that table (`sid`, -1 for NULL; `distinct` the values);
+    others a value table and its validity in the element's dtype."""
+
+    def __init__(self, entries: np.ndarray, et):
+        import itertools
+
+        self.lengths = np.fromiter((len(e) for e in entries), dtype=np.int64,
+                                   count=len(entries))
+        self.offsets = np.zeros(len(entries), dtype=np.int64)
+        if len(entries) > 1:
+            np.cumsum(self.lengths[:-1], out=self.offsets[1:])
+        elements = list(itertools.chain.from_iterable(entries))
+        if et.is_dictionary:
+            index: Dict[object, int] = {}
+            self.sid = np.array([-1 if x is None else index.setdefault(x, len(index))
+                                 for x in elements], dtype=np.int64)
+            self.distinct = _object_array(list(index))
+        else:
+            self.vals = np.array([0 if x is None else x for x in elements],
+                                 dtype=et.np_dtype)
+            self.vok = np.array([x is not None for x in elements], dtype=bool)
+
+
+def unnest_lanes(lanes, sel, node: P.Unnest, flat: FlatArrays):
+    """UNNEST's output lanes (UnnestOperator's row replication) and the
+    element lane's dictionary (None unless the element type has one).
+    Every selected row repeats once per element of its array (a NULL or
+    empty array: once, NULL-extended, under LEFT JOIN UNNEST; not at all
+    otherwise); the elements come from the flat table of the
+    dictionary's arrays, gathered on the device.  A dictionary-typed
+    element lane lists its values in order of first appearance among the
+    output rows, as column_from_pylist over them gives it."""
+    from ..expr.functions import dict_gather
+
+    dev = sel.device
+    et = node.element_type
+    rows = torch.nonzero(sel).flatten()
+    av, aok = lanes[node.array_symbol]
+    codes = av[rows].to(torch.int64)
+    lens = torch.where(aok[rows] & (codes >= 0),
+                       dict_gather(flat.lengths, codes, 0), 0)
+    eff = torch.clamp(lens, min=1) if node.outer else lens
+    total = int(eff.sum())
+    which = torch.repeat_interleave(
+        torch.arange(rows.shape[0], device=dev), eff, output_size=total)
+    src = rows[which]
+    first_out = torch.cumsum(eff, 0) - eff
+    k = torch.arange(total, dtype=torch.int64, device=dev) - first_out[which]
+    has = lens[which] > 0  # False on a NULL-extended row
+    out = {sym: (v[src], ok[src]) for sym, (v, ok) in lanes.items()
+           if sym != node.array_symbol}
+    flat_at = torch.where(has, dict_gather(flat.offsets, codes, 0)[which] + k, 0)
+    element_dict = None
+    if et.is_dictionary:
+        osid = torch.where(has, dict_gather(flat.sid, flat_at, -1), -1)
+        live = osid >= 0
+        nd = len(flat.distinct)
+        pos = torch.arange(total, dtype=torch.int64, device=dev)
+        first = torch.full((nd,), total, dtype=torch.int64, device=dev)
+        first.scatter_reduce_(0, osid[live], pos[live], "amin")
+        order = torch.argsort(first, stable=True)
+        present = int((first < total).sum())
+        recode = torch.empty(nd, dtype=torch.int64, device=dev)
+        recode[order] = torch.arange(nd, dtype=torch.int64, device=dev)
+        ev = torch.where(live, recode[torch.clamp(osid, min=0)] if nd else -1, -1)
+        out[node.element_symbol] = (ev.to(torch.int32), live)
+        element_dict = flat.distinct[D.to_numpy(order[:present])]
+    else:
+        ok = has & dict_gather(flat.vok, flat_at, False)
+        ev = torch.where(ok, dict_gather(flat.vals, flat_at, 0), 0)
+        out[node.element_symbol] = (ev.to(D.torch_dtype(et.np_dtype)), ok)
+    if node.ordinality_symbol:
+        out[node.ordinality_symbol] = (torch.where(has, k + 1, 0), has)
+    return out, element_dict
+
+
+def _dense_ranks(d: np.ndarray) -> np.ndarray:
+    """Each dictionary entry's dense lexicographic rank (equal strings
+    under distinct codes tie)."""
+    dd = np.asarray(d, dtype=str)
+    order = np.argsort(dd, kind="stable")
+    sd = dd[order]
+    dense = np.zeros(len(d), dtype=np.int64)
+    if len(d) > 1:
+        dense[1:] = np.cumsum(sd[1:] != sd[:-1])
+    ranks = np.empty(len(d), dtype=np.int64)
+    ranks[order] = dense
+    return ranks
+
+
 def _valid_of(col: Column, n: int) -> np.ndarray:
     return (
         np.ones(n, bool)
@@ -234,7 +373,7 @@ class LocalExecutor:
     def execute(self, plan: P.PlanNode) -> Page:
         assert isinstance(plan, P.Output)
         if isinstance(plan.source, P.TableWriter):
-            raise ExecutionError("writes are not in this slice of the port")
+            return self._execute_write(plan.source)
         scans: Dict[int, dict] = {}
         dicts: Dict[str, np.ndarray] = {}
         counts: Dict[int, int] = {}
@@ -280,6 +419,51 @@ class LocalExecutor:
             for s in plan.symbols
         }
         return self._materialize_host(plan, host_lanes)
+
+    def _execute_write(self, w: P.TableWriter) -> Page:
+        """INSERT / CREATE TABLE AS / DELETE / UPDATE / MERGE
+        (TableWriterOperator and TableFinishOperator in one): run the
+        source query, hand its host page to the connector's PageSink,
+        commit at finish().  The result is the affected-row count."""
+        conn = self.catalogs.get(w.catalog)
+        md = conn.metadata()
+        if w.create_schema is not None:
+            from ..spi import ColumnSchema, TableSchema
+
+            if w.if_not_exists and w.table in md.list_tables():
+                return _rows_page(0)
+            md.create_table(TableSchema(
+                w.table, tuple(ColumnSchema(c, t) for c, t in w.create_schema)
+            ))
+        before = 0
+        if w.report_deleted or w.count_mode == "merge":
+            before = int(md.get_table_statistics(w.table).row_count)
+        names = list(w.columns)
+        if w.count_symbol is not None:
+            names.append("__update_count__")
+        page = self.execute(
+            P.Output(w.source, tuple(names), tuple(w.source.output_symbols()))
+        )
+        sink = conn.page_sink_provider().create_sink(
+            w.table, list(w.columns), overwrite=w.overwrite
+        )
+        sink.append(page)
+        written = sink.finish()
+        if w.count_symbol is not None:
+            marker = np.asarray(page.by_name("__update_count__").values)[: page.count]
+            if w.count_mode == "merge":
+                # 1 = updated, 2 = inserted; the deleted rows are the
+                # shortfall against the count before the write
+                updates = int((marker == 1).sum())
+                inserts = int((marker == 2).sum())
+                result = updates + inserts + (before + inserts - page.count)
+            else:
+                result = int(marker.sum())
+        elif w.report_deleted:
+            result = before - written
+        else:
+            result = written
+        return _rows_page(result)
 
     def _retry_needed(self, ctx: "_TraceCtx", wide_fired: int) -> bool:
         """Read the run's runtime checks; arm the next rung of the retry
@@ -511,23 +695,13 @@ class _TraceCtx:
         self.collision_checks: List[torch.Tensor] = []
         self.lowering = LoweringContext(ex.dicts)
         self.lowering.force_wide_mul = ex.force_wide_mul
-
-    # plan nodes still refused, and what they wait for (ROADMAP A.3)
-    _WAITS_FOR = {
-        "Unnest": "expr/arrays.py",
-        "MatchRecognize": "ops/matcher.py",
-        "Sample": "the TABLESAMPLE slice",
-    }
+        self.lowering.memo = ex.config.get("projection_memo")
 
     def visit(self, node: P.PlanNode) -> Batch:
         name = type(node).__name__
         m = getattr(self, f"_visit_{name.lower()}", None)
         if m is None:
-            waits = self._WAITS_FOR.get(name)
-            raise ExecutionError(
-                f"{name} is not in this slice of the port"
-                + (f" (it waits for {waits})" if waits else "")
-            )
+            raise ExecutionError(f"{name} is not in this slice of the port")
         return m(node)
 
     # -- leaves ---------------------------------------------------------
@@ -543,7 +717,8 @@ class _TraceCtx:
         lanes = {}
         tmap = dict(node.types_)
         for sym, d in getattr(node, "dicts", ()):
-            self.ex.dicts[sym] = np.array(list(d), dtype=object)
+            # array entries are tuples: one object per entry
+            self.ex.dicts[sym] = _object_array(d)
         for i, sym in enumerate(node.symbols):
             colvals = [r[i] for r in node.rows]
             t = tmap[sym]
@@ -567,6 +742,117 @@ class _TraceCtx:
         return Batch(lanes, sel)
 
     # -- unary ----------------------------------------------------------
+    def _visit_sample(self, node: P.Sample) -> Batch:
+        """TABLESAMPLE (BERNOULLI and SYSTEM alike): a deterministic mask
+        of the source batch's positions (sample_keep).  The source is the
+        table scan itself: no filter or compaction sits below it."""
+        b = self.visit(node.source)
+        keep = sample_keep(b.sel.shape[0], node.fraction, b.sel.device)
+        return Batch(b.lanes, b.sel & keep, b.ordered)
+
+    def _visit_unnest(self, node: P.Unnest) -> Batch:
+        """CROSS / LEFT JOIN UNNEST [WITH ORDINALITY] (unnest_lanes)."""
+        b = self.visit(node.source)
+        entries = self.ex.dicts.get(node.array_symbol)
+        if entries is None:
+            raise ExecutionError(
+                f"no dictionary for array column {node.array_symbol}"
+            )
+        if getattr(node.element_type, "is_array", False):
+            raise ExecutionError("UNNEST of nested arrays is not supported")
+        flat = memoized(self.lowering, ("unnest", node.element_type), entries,
+                        lambda: FlatArrays(entries, node.element_type))
+        lanes, d = unnest_lanes(b.lanes, b.sel, node, flat)
+        if d is not None:
+            self.ex.dicts[node.element_symbol] = d
+        n = lanes[node.element_symbol][0].shape[0]
+        return Batch(lanes, torch.ones(n, dtype=torch.bool, device=b.sel.device))
+
+    def _visit_matchrecognize(self, node: P.MatchRecognize) -> Batch:
+        """MATCH_RECOGNIZE: the selected rows sorted on the device by the
+        partition keys (ascending, NULLs last) and the ORDER BY keys,
+        ties in row order (the JAX package's stable comparator sort;
+        varchar keys by lexicographic rank), copied to the host once and
+        handed to the row-at-a-time matcher (ops/matcher.py) one
+        partition at a time; the matches come back as device lanes."""
+        from ..ops.matcher import find_matches
+        from ..page import column_from_pylist
+
+        b = self.visit(node.source)
+        keys = [sort_ops.SortKey(s) for s in node.partition_by] + [
+            sort_ops.SortKey(k.column, k.ascending, bool(k.nulls_first))
+            for k in node.order_by
+        ]
+        keys = self._rank_sort_keys(keys, b)
+        n = int(b.sel.sum())
+        rows = sort_ops.sort_perm(keys, b.lanes, b.sel)[:n]
+        # partition starts: a partition key's validity or value changes
+        brk = torch.zeros(n, dtype=torch.bool, device=rows.device)
+        for k in keys[: len(node.partition_by)]:
+            v, ok = b.lanes[k.column]
+            v, ok = v[rows], ok[rows]
+            if n:
+                brk[1:] |= (ok[1:] != ok[:-1]) | (ok[1:] & (v[1:] != v[:-1]))
+        if n:
+            brk[0] = True
+        starts = D.to_numpy(torch.nonzero(brk).flatten()).tolist() + [n]
+        src_types = node.source.output_types()
+        cols: Dict[str, list] = {}
+        for sym in node.source.output_symbols():
+            if sym not in b.lanes:
+                continue
+            v, ok = b.lanes[sym]
+            vv, oo = D.to_numpy(v[rows]), D.to_numpy(ok[rows])
+            t = src_types[sym]
+            if t.is_dictionary and not getattr(t, "is_array", False):
+                d = self.ex.dicts.get(sym)
+                strs = _object_array([str(x) for x in d])
+                live = oo & (vv >= 0)
+                col = np.full(n, None, dtype=object)
+                col[live] = strs[vv[live]]
+                cols[sym] = col.tolist()
+            else:
+                col = vv.tolist()
+                for i in np.flatnonzero(~oo):
+                    col[i] = None
+                cols[sym] = col
+        defines = dict(node.defines)
+        measures = [(s, e) for s, e, _ in node.measures]
+        all_rows = node.rows_per_match == "all"
+        out_rows: List[dict] = []
+        for i, j in zip(starts[:-1], starts[1:]):
+            pcols = {c: vals[i:j] for c, vals in cols.items()}
+            pkey = tuple(cols[s][i] for s in node.partition_by)
+            for m in find_matches(pcols, j - i, node.pattern, defines, measures,
+                                  node.after_match, all_rows):
+                if all_rows:
+                    r = m.pop("__row__")
+                    for c in pcols:
+                        m[c] = pcols[c][r]
+                else:
+                    for s, v in zip(node.partition_by, pkey):
+                        m[s] = v
+                out_rows.append(m)
+        total = len(out_rows)
+        dev = self.ex.device
+        out_types = node.output_types()
+        lanes = {}
+        for sym in node.output_symbols():
+            t = out_types[sym]
+            vals = [m.get(sym) for m in out_rows]
+            if t.is_dictionary and not getattr(t, "is_array", False):
+                col = column_from_pylist(t, vals)
+                self.ex.dicts[sym] = col.dictionary
+                arr = np.asarray(col.values)
+                okv = (np.ones(total, bool) if col.validity is None
+                       else np.asarray(col.validity))
+            else:
+                arr = np.array([0 if x is None else x for x in vals],
+                               dtype=t.np_dtype)
+                okv = np.array([x is not None for x in vals], dtype=bool)
+            lanes[sym] = (D.to_device(arr, dev), D.to_device(okv, dev))
+        return Batch(lanes, torch.ones(total, dtype=torch.bool, device=dev))
+
     def _maybe_compact(self, b: Batch, node) -> Batch:
         """Gather the survivors of a selective filter (the optimizer's
         compact_rows estimate) into dense lanes.  Eager execution knows
@@ -669,7 +955,16 @@ class _TraceCtx:
         b = self.visit(node.source)
         types = node.source.output_types()
         b, aggs = self._agg_dict_setup(node, b)
-        specs = [a.to_spec() for a in aggs]
+        all_specs = [a.to_spec() for a in aggs]
+        # array_agg / map_agg / listagg build their values on the host
+        host_specs = [s for s in all_specs if s.kind in agg_ops.HOST_STAGED_KINDS]
+        specs = [s for s in all_specs if s.kind not in agg_ops.HOST_STAGED_KINDS]
+
+        def host_lanes(out, lanes, gid, sel, cap):
+            for hs in host_specs:
+                out[hs.output], self.ex.dicts[hs.output] = agg_ops.host_staged_lanes(
+                    hs, lanes, gid, sel, cap, self.ex.dicts)
+            return out
 
         def reduce_rows(lanes, gid, sel, cap, seg=None):
             return agg_ops.accumulate(
@@ -683,6 +978,7 @@ class _TraceCtx:
         if not node.keys:
             gid = torch.zeros(b.sel.shape[0], dtype=torch.int64, device=b.sel.device)
             lanes = agg_ops.finalize(specs, reduce_rows(b.lanes, gid, b.sel, 1))
+            host_lanes(lanes, b.lanes, gid, b.sel, 1)
             present = torch.ones(1, dtype=torch.bool, device=b.sel.device)
             return self._finish_aggregate(node, [], lanes, present, 1)
         key_lanes = [b.lanes[k] for k in node.keys]
@@ -692,6 +988,7 @@ class _TraceCtx:
             accs = reduce_rows(b.lanes, gid, b.sel, cap)
             present = agg_ops._seg_count(b.sel, gid, cap) > 0
             keys_out = agg_ops.group_keys_output(key_lanes, gid, b.sel, cap)
+            host_src = (b.lanes, gid, b.sel)
         else:
             # hash-sort grouping.  Eager execution knows the group count,
             # so the capacity is exactly it: ids sorted with capacity n
@@ -714,7 +1011,8 @@ class _TraceCtx:
                 [sorted_lanes[k] for k in node.keys], gid, sel_sorted, cap,
                 starts=ss.starts,
             )
-        out = agg_ops.finalize(specs, accs)
+            host_src = (sorted_lanes, gid, sel_sorted)
+        out = host_lanes(agg_ops.finalize(specs, accs), *host_src, cap)
         return self._finish_aggregate(node, keys_out, out, present, cap)
 
     def _finish_aggregate(self, node, keys_out, out, present, cap):
@@ -741,9 +1039,14 @@ class _TraceCtx:
             d = self.ex.dicts.get(sym)
             if d is None or len(d) == 0:
                 return sym, d if d is not None else np.array([], dtype=object)
-            order = np.argsort(np.array([str(x) for x in d]))
-            rank = np.empty(len(d), dtype=np.int32)
-            rank[order] = np.arange(len(d), dtype=np.int32)
+
+            def ranks():
+                order = np.argsort(np.array([str(x) for x in d]))
+                rank = np.empty(len(d), dtype=np.int32)
+                rank[order] = np.arange(len(d), dtype=np.int32)
+                return order, rank
+
+            order, rank = memoized(self.lowering, "agg-rank", d, ranks)
             v, ok = b.lanes[sym]
             rk = torch.as_tensor(rank, device=v.device)[
                 torch.clamp(v.to(torch.int64), 0, len(d) - 1)
@@ -1080,14 +1383,7 @@ class _TraceCtx:
             if d is not None and len(d) == 0:
                 d = None
             if d is not None:
-                dd = np.asarray(d, dtype=str)
-                order = np.argsort(dd, kind="stable")
-                sd = dd[order]
-                dense = np.zeros(len(d), dtype=np.int64)
-                if len(d) > 1:
-                    dense[1:] = np.cumsum(sd[1:] != sd[:-1])
-                ranks = np.empty(len(d), dtype=np.int64)
-                ranks[order] = dense
+                ranks = memoized(self.lowering, "sort-rank", d, lambda: _dense_ranks(d))
                 v, ok = b.lanes[k.column]
                 rank_tbl = torch.as_tensor(ranks, device=v.device)
                 safe = torch.clamp(v.to(torch.int64), 0, len(d) - 1)

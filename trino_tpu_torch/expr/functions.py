@@ -9,10 +9,12 @@ dictionary entry on the host and gather a derived dictionary's codes on
 the device.  The analyzer-facing typing rules (arith_result_type,
 SIGNATURES, CONST_EVAL) are copied verbatim.
 
-Not in this slice: the array, map, JSON, URL, hash and unixtime
-functions of the JAX package (they wait for expr/arrays.py); a function
-typed by the analyzer but not lowered here raises NotImplementedError at
-execution (trino_tpu_torch/expr/lower.py).
+The array, map and lambda functions live in expr/arrays.py and register
+here; the JSON, URL, digest, base64/hex, crc32 and levenshtein functions
+are dictionary projections on the host like the string functions, and
+to_unixtime / from_unixtime are float64 arithmetic on the device.  A
+function typed by the analyzer but not lowered here raises
+NotImplementedError at execution (trino_tpu_torch/expr/lower.py).
 
 Decimal arithmetic follows the reference's DecimalOperators scale rules
 (add/sub: s=max(s1,s2); mul: s=s1+s2 capped at 6; div: s=max(6, s1)).
@@ -91,15 +93,35 @@ def align_numeric(ta: T.Type, va, tb: T.Type, vb):
     return _promote(va, vb)
 
 
+_FILL_DTYPE = {"b": torch.bool, "i": torch.int64, "f": torch.float64}
+
+
+def _gathered_dtype(tbl: torch.dtype, fill) -> torch.dtype:
+    """The dtype of the JAX package's jnp.where(codes >= 0, table[codes],
+    fill) under x64: a Python fill is weakly typed, so an int fill
+    widens a bool table to int64 and a float fill a bool or integer
+    table to float64; otherwise the table's dtype stands."""
+    kind = np.asarray(fill).dtype.kind
+    if kind == "i" and tbl == torch.bool:
+        return torch.int64
+    if kind == "f" and not tbl.is_floating_point:
+        return torch.float64
+    return tbl
+
+
 def dict_gather(table: np.ndarray, codes: torch.Tensor, fill=False):
     """Apply a per-dictionary-entry table to a lane of codes;
-    out-of-dictionary codes (negative sentinels) produce ``fill``."""
+    out-of-dictionary codes (negative sentinels) produce ``fill``.  The
+    result's dtype is the JAX package's (_gathered_dtype; an empty table
+    gives the fill's own dtype)."""
     tbl = torch.as_tensor(np.asarray(table), device=codes.device)
     if tbl.shape[0] == 0:
-        return torch.full(codes.shape, fill, dtype=tbl.dtype, device=codes.device)
+        dt = _FILL_DTYPE[np.asarray(fill).dtype.kind]
+        return torch.full(codes.shape, fill, dtype=dt, device=codes.device)
+    dt = _gathered_dtype(tbl.dtype, fill)
     safe = torch.clamp(codes.to(torch.int64), 0, tbl.shape[0] - 1)
-    fill_t = torch.full((), fill, dtype=tbl.dtype, device=codes.device)
-    return torch.where(codes >= 0, tbl[safe], fill_t)
+    fill_t = torch.full((), fill, dtype=dt, device=codes.device)
+    return torch.where(codes >= 0, tbl[safe].to(dt), fill_t)
 
 
 def round_half_away(v: torch.Tensor) -> torch.Tensor:
@@ -464,6 +486,38 @@ def register_derived_dict(ctx, node, transformed):
     return remap
 
 
+def memoized(ctx, node, src, compute):
+    """compute(), a pure function of `node` and the dictionary `src`,
+    once per (node, dictionary object) while the context's projection
+    memo (LoweringContext.memo, the session's) holds the result: the
+    eager counterpart of the JAX package reusing a traced fragment, whose
+    host dictionary work ran once at trace time.  The entry keeps `src`
+    alive, so no other dictionary can take its id meanwhile."""
+    memo = getattr(ctx, "memo", None)
+    if memo is None:
+        return compute()
+    key = (node, id(src))
+    hit = memo.get(key)
+    if hit is not None and hit[0] is src:
+        return hit[1]
+    out = compute()
+    memo.put(key, (src, out))
+    return out
+
+
+def derived_remap(ctx, node, src, transform_entries):
+    """register_derived_dict(ctx, node, transform_entries(src)), memoized:
+    the old-code -> new-code remap, with node's derived dictionary
+    registered."""
+    def compute():
+        remap = register_derived_dict(ctx, node, transform_entries(src))
+        return remap, ctx.expr_dicts[node]
+
+    remap, derived = memoized(ctx, node, src, compute)
+    ctx.expr_dicts[node] = derived
+    return remap
+
+
 def _derived_string_fn(node, lanes, ctx, transform):
     """Apply a host string transform per dictionary entry and register a
     derived dictionary for the produced expression (the dictionary-
@@ -471,7 +525,8 @@ def _derived_string_fn(node, lanes, ctx, transform):
     src = ctx.dict_for_expr(node.args[0])
     if src is None:
         raise NotImplementedError(f"{node.name}() requires a dictionary input")
-    remap = register_derived_dict(ctx, node, [transform(str(x)) for x in src])
+    remap = derived_remap(ctx, node, src,
+                          lambda d: [transform(str(x)) for x in d])
     cv, cok = lanes[0]
     return dict_gather(remap, cv, -1), cok
 
@@ -719,14 +774,19 @@ def _dict_numeric_fn(node, lanes, ctx, f, dtype=np.int64, fill=0):
     src = ctx.dict_for_expr(node.args[0])
     if src is None:
         raise NotImplementedError(f"{node.name}() requires a dictionary input")
-    vals = np.full(len(src), fill, dtype=dtype)
-    valid = np.ones(len(src), dtype=bool)
-    for i, x in enumerate(src):
-        r = f(str(x))
-        if r is None:
-            valid[i] = False
-        else:
-            vals[i] = r
+
+    def compute():
+        vals = np.full(len(src), fill, dtype=dtype)
+        valid = np.ones(len(src), dtype=bool)
+        for i, x in enumerate(src):
+            r = f(str(x))
+            if r is None:
+                valid[i] = False
+            else:
+                vals[i] = r
+        return vals, valid
+
+    vals, valid = memoized(ctx, node, src, compute)
     cv, cok = lanes[0]
     return dict_gather(vals, cv, fill), cok & dict_gather(valid, cv, False)
 
@@ -850,8 +910,8 @@ def _concat(node, lanes, ctx):
         at = parts.index(dict_parts[0])
         pre = "".join(p[1] for p in parts[:at] if p[0] == "c")
         post = "".join(p[1] for p in parts[at + 1:] if p[0] == "c")
-        d = dict_parts[0][1]
-        remap = register_derived_dict(ctx, node, [pre + str(x) + post for x in d])
+        remap = derived_remap(ctx, node, dict_parts[0][1],
+                              lambda d: [pre + str(x) + post for x in d])
         return dict_gather(remap, dict_parts[0][2][0], -1), ok
     size = 1
     for p in dict_parts:
@@ -1383,3 +1443,435 @@ def _const_eval_registry():
 
 CONST_EVAL = {k: v for k, v in _const_eval_registry().items() if v is not None}
 
+
+# -- array functions (expr/arrays.py; registered late to avoid a cycle) --
+
+
+def _sig_array_common(args):
+    t = args[0].type
+    if not getattr(t, "is_array", False):
+        raise ValueError("expected an array argument")
+    return t
+
+
+def _sig_cardinality(args):
+    t = args[0].type
+    if not (getattr(t, "is_array", False) or getattr(t, "is_map", False)):
+        raise ValueError("expected an array or map argument")
+    return T.BIGINT
+
+
+def _sig_element_at(args):
+    t = args[0].type
+    if getattr(t, "is_map", False):
+        return t.value
+    return _sig_array_common(args).element
+
+
+def _sig_array_bool(args):
+    _sig_array_common(args)
+    return T.BOOLEAN
+
+
+def _sig_array_elem(args):
+    return _sig_array_common(args).element
+
+
+def _sig_split(args):
+    _req_dict(args, 0, "split")
+    return T.array_of(T.VARCHAR)
+
+
+def _register_array_functions():
+    from .arrays import ARRAY_FUNCTIONS
+
+    FUNCTIONS.update(ARRAY_FUNCTIONS)
+    SIGNATURES.update({
+        "cardinality": _sig_cardinality,
+        "element_at": _sig_element_at,
+        "contains": _sig_array_bool,
+        "array_min": _sig_array_elem,
+        "array_max": _sig_array_elem,
+        "array_join": _sig_str_to_varchar_arr,
+        "array_distinct": _sig_array_common,
+        "array_sort": _sig_array_common,
+        "array_reverse": _sig_array_common,
+        "slice": _sig_array_common,
+        "array_position": _sig_cardinality,
+        "split": _sig_split,
+        "map_keys": _sig_map_keys,
+        "map_values": _sig_map_values,
+        "map_concat": _sig_map_common,
+        "any_match": _sig_array_bool,
+        "all_match": _sig_array_bool,
+        "none_match": _sig_array_bool,
+        # transform/filter/reduce are typed by the analyzer (lambda-aware)
+    })
+
+
+def _sig_str_to_varchar_arr(args):
+    _sig_array_common(args)
+    return T.VARCHAR
+
+
+def _sig_map_common(args):
+    t = args[0].type
+    if not getattr(t, "is_map", False):
+        raise ValueError("expected a map argument")
+    return t
+
+
+def _sig_map_keys(args):
+    return T.array_of(_sig_map_common(args).key)
+
+
+def _sig_map_values(args):
+    return T.array_of(_sig_map_common(args).value)
+
+
+_register_array_functions()
+
+
+# -- JSON functions (operator/scalar/json/*; JsonPath subset) ------------
+
+
+def _json_path_eval(doc: str, path: str):
+    """Evaluate a JsonPath subset ($.a.b[0], $[1].c) over a JSON text.
+    Returns the python value, or None on parse/navigation failure (the
+    reference returns NULL for invalid json in the _scalar flavors)."""
+    import json as _json
+    import re as _re
+
+    try:
+        v = _json.loads(doc)
+    except (ValueError, TypeError):
+        return None
+    if path in ("$", ""):
+        return v
+    if not path.startswith("$"):
+        return None
+    steps = _re.findall(r"\.([A-Za-z_][A-Za-z0-9_]*)|\[(\d+)\]|\[\"([^\"]+)\"\]", path[1:])
+    consumed = sum(len(f".{a}") if a else (len(f"[{b}]") if b else len(f'["{c}"]')) for a, b, c in steps)
+    if consumed != len(path) - 1:
+        return None  # unsupported path syntax
+    for attr, idx, quoted in steps:
+        key = attr or quoted
+        if key:
+            if not isinstance(v, dict) or key not in v:
+                return None
+            v = v[key]
+        else:
+            i = int(idx)
+            if not isinstance(v, list) or i >= len(v):
+                return None
+            v = v[i]
+    return v
+
+
+def _json_extract_scalar(node, lanes, ctx):
+    import json as _json
+
+    path = _const_str(node, 1)
+
+    def tf(s: str):
+        v = _json_path_eval(s, path)
+        if v is None or isinstance(v, (dict, list)):
+            return None
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, float) and v.is_integer():
+            return str(v)
+        return str(v)
+
+    return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+
+def _json_extract(node, lanes, ctx):
+    import json as _json
+
+    path = _const_str(node, 1)
+
+    def tf(s: str):
+        v = _json_path_eval(s, path)
+        return None if v is None else _json.dumps(v, separators=(",", ":"))
+
+    return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+
+def _json_array_length(node, lanes, ctx):
+    import json as _json
+
+    def f(s: str):
+        try:
+            v = _json.loads(s)
+        except (ValueError, TypeError):
+            return None
+        return len(v) if isinstance(v, list) else None
+
+    return _dict_numeric_fn(node, lanes, ctx, f)
+
+
+def _json_size(node, lanes, ctx):
+    path = _const_str(node, 1)
+
+    def f(s: str):
+        v = _json_path_eval(s, path)
+        if isinstance(v, (dict, list)):
+            return len(v)
+        return 0 if v is not None else None
+
+    return _dict_numeric_fn(node, lanes, ctx, f)
+
+
+def _json_array_contains(node, lanes, ctx):
+    import json as _json
+
+    needle = node.args[1]
+    assert isinstance(needle, ir.Constant), "json_array_contains needs a constant"
+    want = needle.value
+    if needle.type.is_decimal:
+        want = want / 10 ** needle.type.scale
+
+    def matches(x) -> bool:
+        if isinstance(want, bool) or isinstance(x, bool):
+            return x is want
+        if isinstance(want, (int, float)) and isinstance(x, (int, float)):
+            return x == want
+        return type(x) is type(want) and x == want
+
+    def f(s: str):
+        try:
+            v = _json.loads(s)
+        except (ValueError, TypeError):
+            return None
+        if not isinstance(v, list):
+            return None
+        return any(matches(x) for x in v)
+
+    return _dict_numeric_fn(node, lanes, ctx, f, dtype=np.bool_, fill=False)
+
+
+def _json_format(node, lanes, ctx):
+    import json as _json
+
+    def tf(s: str):
+        try:
+            return _json.dumps(_json.loads(s), separators=(",", ":"))
+        except (ValueError, TypeError):
+            return None
+
+    return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+
+# -- URL functions (operator/scalar/UrlFunctions) ------------------------
+
+
+def _url_fn(part: str):
+    from urllib.parse import urlparse
+
+    def low(node, lanes, ctx):
+        def tf(s: str):
+            try:
+                u = urlparse(s)
+            except ValueError:
+                return None
+            v = getattr(u, part)
+            if part == "port":
+                return None
+            return v if v else None
+
+        return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+    return low
+
+
+def _url_extract_port(node, lanes, ctx):
+    from urllib.parse import urlparse
+
+    def f(s: str):
+        try:
+            return urlparse(s).port
+        except ValueError:
+            return None
+
+    return _dict_numeric_fn(node, lanes, ctx, f)
+
+
+def _url_extract_parameter(node, lanes, ctx):
+    from urllib.parse import parse_qs, urlparse
+
+    name = _const_str(node, 1)
+
+    def tf(s: str):
+        try:
+            q = parse_qs(urlparse(s).query, keep_blank_values=True)
+        except ValueError:
+            return None
+        vals = q.get(name)
+        return vals[0] if vals else None
+
+    return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+
+def _url_encode(node, lanes, ctx):
+    from urllib.parse import quote
+
+    return _derived_string_fn(node, lanes, ctx, lambda s: quote(s, safe=""))
+
+
+def _url_decode(node, lanes, ctx):
+    from urllib.parse import unquote
+
+    return _derived_string_fn(node, lanes, ctx, unquote)
+
+
+# -- digest / encoding functions (VarbinaryFunctions; hex-string results) --
+
+
+def _hash_fn(algo: str):
+    import hashlib
+
+    def low(node, lanes, ctx):
+        def tf(s: str):
+            return getattr(hashlib, algo)(s.encode()).hexdigest()
+
+        return _derived_string_fn(node, lanes, ctx, tf)
+
+    return low
+
+
+def _crc32(node, lanes, ctx):
+    import zlib
+
+    return _dict_numeric_fn(node, lanes, ctx, lambda s: zlib.crc32(s.encode()))
+
+
+def _to_base64(node, lanes, ctx):
+    import base64
+
+    return _derived_string_fn(
+        node, lanes, ctx, lambda s: base64.b64encode(s.encode()).decode()
+    )
+
+
+def _from_base64(node, lanes, ctx):
+    import base64
+
+    def tf(s: str):
+        try:
+            return base64.b64decode(s).decode()
+        except Exception:
+            return None
+
+    return _derived_nullable_string_fn(node, lanes, ctx, tf)
+
+
+def _to_hex(node, lanes, ctx):
+    return _derived_string_fn(node, lanes, ctx, lambda s: s.encode().hex().upper())
+
+
+def _levenshtein_distance(node, lanes, ctx):
+    other = _const_str(node, 1)
+
+    def dist(a: str, b: str) -> int:
+        if len(a) < len(b):
+            a, b = b, a
+        prev = list(range(len(b) + 1))
+        for i, ca in enumerate(a, 1):
+            cur = [i]
+            for j, cb in enumerate(b, 1):
+                cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                               prev[j - 1] + (ca != cb)))
+            prev = cur
+        return prev[-1]
+
+    return _dict_numeric_fn(node, lanes, ctx, lambda s: dist(s, other))
+
+
+def _register_json_url_functions():
+    FUNCTIONS.update({
+        "json_extract_scalar": _json_extract_scalar,
+        "json_extract": _json_extract,
+        "json_array_length": _json_array_length,
+        "json_size": _json_size,
+        "json_array_contains": _json_array_contains,
+        "json_format": _json_format,
+        "url_extract_host": _url_fn("hostname"),
+        "url_extract_path": _url_fn("path"),
+        "url_extract_query": _url_fn("query"),
+        "url_extract_protocol": _url_fn("scheme"),
+        "url_extract_fragment": _url_fn("fragment"),
+        "url_extract_port": _url_extract_port,
+        "url_extract_parameter": _url_extract_parameter,
+        "url_encode": _url_encode,
+        "url_decode": _url_decode,
+        "md5": _hash_fn("md5"),
+        "sha1": _hash_fn("sha1"),
+        "sha256": _hash_fn("sha256"),
+        "sha512": _hash_fn("sha512"),
+        "crc32": _crc32,
+        "to_base64": _to_base64,
+        "from_base64": _from_base64,
+        "to_hex": _to_hex,
+        "levenshtein_distance": _levenshtein_distance,
+    })
+    SIGNATURES.update({
+        "json_extract_scalar": _sig_str_to_varchar,
+        "json_extract": _sig_str_to_varchar,
+        "json_array_length": _sig_str_to_bigint,
+        "json_size": _sig_str_to_bigint,
+        "json_array_contains": _sig_str_to_boolean,
+        "json_format": _sig_str_to_varchar,
+        "url_extract_host": _sig_str_to_varchar,
+        "url_extract_path": _sig_str_to_varchar,
+        "url_extract_query": _sig_str_to_varchar,
+        "url_extract_protocol": _sig_str_to_varchar,
+        "url_extract_fragment": _sig_str_to_varchar,
+        "url_extract_port": _sig_str_to_bigint,
+        "url_extract_parameter": _sig_str_to_varchar,
+        "url_encode": _sig_str_to_varchar,
+        "url_decode": _sig_str_to_varchar,
+        "md5": _sig_str_to_varchar,
+        "sha1": _sig_str_to_varchar,
+        "sha256": _sig_str_to_varchar,
+        "sha512": _sig_str_to_varchar,
+        "crc32": _sig_str_to_bigint,
+        "to_base64": _sig_str_to_varchar,
+        "from_base64": _sig_str_to_varchar,
+        "to_hex": _sig_str_to_varchar,
+        "levenshtein_distance": _sig_str_to_bigint,
+    })
+
+
+_register_json_url_functions()
+
+
+
+def _to_unixtime(node, lanes, ctx):
+    v, ok = lanes[0]
+    return v.to(torch.float64) / 1e6, ok
+
+
+def _from_unixtime(node, lanes, ctx):
+    v, ok = lanes[0]
+    return (v.to(torch.float64) * 1e6).to(torch.int64), ok
+
+
+def _sig_to_unixtime(args):
+    if args[0].type.name != "timestamp":
+        raise ValueError("to_unixtime expects a timestamp")
+    return T.DOUBLE
+
+
+def _sig_from_unixtime(args):
+    return T.TIMESTAMP
+
+
+FUNCTIONS.update({
+    "to_unixtime": _to_unixtime,
+    "from_unixtime": _from_unixtime,
+})
+SIGNATURES.update({
+    "to_unixtime": _sig_to_unixtime,
+    "from_unixtime": _sig_from_unixtime,
+})

@@ -60,6 +60,29 @@ def _all_valid(v: torch.Tensor) -> torch.Tensor:
     return torch.ones(v.shape, dtype=torch.bool, device=v.device)
 
 
+class ProjectionMemo:
+    """Bounded LRU map of host dictionary projections (functions.memoized),
+    kept by a session across its queries."""
+
+    def __init__(self, max_entries: int = 64):
+        from collections import OrderedDict
+
+        self.max_entries = max_entries
+        self.entries: "OrderedDict" = OrderedDict()
+
+    def get(self, key):
+        hit = self.entries.get(key)
+        if hit is not None:
+            self.entries.move_to_end(key)
+        return hit
+
+    def put(self, key, value) -> None:
+        self.entries[key] = value
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.max_entries:
+            self.entries.popitem(last=False)
+
+
 class LoweringContext:
     """Per-compilation context: column dictionaries for dict-code rewrites.
 
@@ -69,7 +92,10 @@ class LoweringContext:
     """
 
     def __init__(self, dictionaries: Dict[str, np.ndarray] | None = None):
-        self.dictionaries = dictionaries or {}
+        # the executor's own map (not a copy, even while empty): an
+        # operator registers its output's dictionary there after this
+        # context is made (an array_agg below a projection of it)
+        self.dictionaries = {} if dictionaries is None else dictionaries
         # dictionaries of *derived* string expressions (substring(col,..)
         # etc.), keyed by the (hashable, frozen) IR node that produced them
         self.expr_dicts: Dict[object, np.ndarray] = {}
@@ -81,6 +107,8 @@ class LoweringContext:
         self.overflow_flags: list = []
         # set by the executor's retry ladder after a flagged overflow
         self.force_wide_mul: bool = False
+        # the session's ProjectionMemo (None: every projection computed)
+        self.memo = None
 
     def dict_for_expr(self, e) -> np.ndarray | None:
         """Dictionary of a varchar-typed expression: source column's, or a

@@ -26,10 +26,15 @@ checksum as the wrapping sum of splitmix64 hashes, min_by/max_by as a
 two-pass argmin, and approx_distinct / approx_percentile exact (one
 sort each).
 
-Not in this slice (NotImplementedError): array_agg, map_agg and listagg
-(they wait for expr/arrays.py), and the PARTIAL/FINAL accumulator merge
-with the sketches of approx_distinct / approx_percentile (the mesh
-slice).
+array_agg, map_agg and listagg are host-staged (host_staged_lanes, the
+executor's call): the selected rows go into group order on the device,
+one copy of the lanes reaches the host, and each group's value becomes
+an entry of a fresh dictionary; accumulate refuses them, as the JAX
+package's traced kernels do.
+
+Not in this slice (NotImplementedError): the PARTIAL/FINAL accumulator
+merge with the sketches of approx_distinct / approx_percentile (the
+mesh slice).
 
 NULL semantics: a NULL key is its own group (the validity bit is an
 extra radix slot); sum/min/max ignore NULL inputs and return NULL for
@@ -72,10 +77,10 @@ def _needs_mesh_slice(kind: str):
     )
 
 
-def _needs_arrays(kind: str):
+def _host_staged(kind: str):
     return NotImplementedError(
-        f"aggregate {kind} builds arrays: it waits for expr/arrays.py, "
-        "which is not ported yet"
+        f"{kind} is host-staged (host_staged_lanes, at the SINGLE step)"
+        " and cannot run inside a PARTIAL/FINAL step (mesh path)"
     )
 
 
@@ -158,7 +163,7 @@ class AggSpec:
         if self.kind in SKETCHED_KINDS:
             raise _needs_mesh_slice(self.kind)
         if self.kind in HOST_STAGED_KINDS:
-            raise _needs_arrays(self.kind)
+            return [f"{o}$val", f"{o}$valid"]  # host-staged; not shipped
         if self.kind in ("count", "count_star", "count_if"):
             return [f"{o}$count"]
         raise _not_in_slice(f"aggregate {self.kind}")
@@ -843,7 +848,7 @@ def accumulate(
             out[f"{o}$val"] = val
             out[f"{o}$valid"] = valid.to(torch.int64)
         elif s.kind in HOST_STAGED_KINDS:
-            raise _needs_arrays(s.kind)
+            raise _host_staged(s.kind)
         else:
             raise _not_in_slice(f"aggregate {s.kind}")
     return out
@@ -977,3 +982,79 @@ def group_keys_output(
             continue
         out.append((v[safe], ok[safe] & present))
     return out
+
+
+def _host_values(lane: Lane, rows: torch.Tensor, d) -> list:
+    """The lane's values at `rows` as Python values in IR-constant form
+    (None for NULL; a dictionary column's entry as str), from one copy
+    of the lane to the host."""
+    import numpy as np
+
+    v, ok = lane
+    vv = v[rows].cpu().numpy()
+    oo = ok[rows].cpu().numpy()
+    if d is not None:
+        strs = np.empty(len(d), dtype=object)
+        strs[:] = [str(x) for x in d]
+        vals = strs[vv].tolist() if len(d) else [None] * len(vv)
+    else:
+        vals = vv.tolist()
+    for i in np.flatnonzero(~oo):
+        vals[i] = None
+    return vals
+
+
+def host_staged_lanes(spec: AggSpec, lanes, gid, sel, cap, dicts):
+    """array_agg / map_agg / listagg over the selected rows: one group
+    value per group as an entry of a fresh dictionary (the JAX package's
+    _host_agg_lanes, without its Python walk over every row).  The
+    selected rows are put in group order by one stable sort on the
+    device, so each group's rows keep their order; the lanes come to
+    the host once and split at the group bounds.  Dictionary entries
+    follow the order in which the groups first appear among the
+    selected rows (map_agg: among those with a non-NULL key); array_agg
+    keeps every value in row order, listagg joins the non-NULL ones as
+    str() of their IR-constant form, map_agg skips NULL keys, keeps the
+    first value per key and sorts the pairs by repr(key).  Returns the
+    (codes, present) lane on gid's device and the dictionary."""
+    import numpy as np
+
+    live = sel
+    if spec.kind == "map_agg":
+        live = sel & lanes[spec.input][1]  # NULL keys are skipped
+    rows = torch.nonzero(live).flatten()
+    g = gid[rows]
+    rows = rows[torch.argsort(g, stable=True)]
+    gs = gid[rows].cpu().numpy()
+    pos = rows.cpu().numpy()
+    vals = _host_values(lanes[spec.input], rows, dicts.get(spec.input))
+    if spec.kind == "map_agg":
+        # spec.input is the KEY, input2 the VALUE (map_agg(key, value))
+        mvals = _host_values(lanes[spec.input2], rows, dicts.get(spec.input2))
+    starts = np.flatnonzero(np.diff(gs)) + 1 if len(gs) else np.zeros(0, np.int64)
+    starts = np.concatenate([[0], starts]) if len(gs) else starts
+    ends = np.append(starts[1:], len(gs))
+    entries: list = []
+    index: dict = {}
+    codes = np.zeros(cap, dtype=np.int32)
+    has = np.zeros(cap, dtype=bool)
+    # a run's first row is its group's first selected row
+    for r in np.argsort(pos[starts], kind="stable"):
+        a, b = int(starts[r]), int(ends[r])
+        if spec.kind == "array_agg":
+            obj = tuple(vals[a:b])
+        elif spec.kind == "listagg":
+            obj = str(spec.param).join(str(x) for x in vals[a:b] if x is not None)
+        else:  # the first value per key wins: reversed, later rows lose
+            m = dict(zip(reversed(vals[a:b]), reversed(mvals[a:b])))
+            obj = tuple(sorted(m.items(), key=lambda kv: repr(kv[0])))
+        code = index.setdefault(obj, len(entries))
+        if code == len(entries):
+            entries.append(obj)
+        gi = int(gs[a])
+        codes[gi] = code
+        has[gi] = True
+    d_out = np.empty(len(entries), dtype=object)
+    d_out[:] = entries
+    dev = gid.device
+    return (torch.as_tensor(codes).to(dev), torch.as_tensor(has).to(dev)), d_out

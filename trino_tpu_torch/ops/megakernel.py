@@ -328,6 +328,9 @@ def _match(ctx, node: P.Aggregate):
     if not isinstance(cur, P.TableScan):
         raise Reject("source is not a Filter/Project chain over a scan")
     scan = cur
+    if any(getattr(t, "is_array", False) or getattr(t, "is_map", False)
+           for _, t in scan.types):
+        raise Reject("array or map lane")  # its functions run on the host
     # compose the chain bottom-up into expressions over scan symbols
     mapping: Dict[str, ir.Expr] = {
         s: ir.ColumnRef(t, s) for s, t in scan.types

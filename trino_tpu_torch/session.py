@@ -2,10 +2,13 @@
 
 Counterpart of trino_tpu/session.py, trimmed to the query path:
 parse -> analyze/plan -> optimize -> execute (exec/local.LocalExecutor)
-for SELECT, and EXPLAIN.  Session properties are the JAX package's
-(config.SessionProperties); the executor reads `megakernels`.  DML, the
-result cache, views, prepared statements, the doctor, the journal and
-the distributed executors are not in this slice.
+for SELECT and the writes (INSERT, CREATE TABLE AS, DELETE, UPDATE,
+MERGE), CREATE TABLE, DROP TABLE, SHOW TABLES and EXPLAIN.  Session
+properties are the JAX package's (config.SessionProperties); the
+executor reads `megakernels`.  Not in this slice: SET SESSION, EXPLAIN
+ANALYZE, views, prepared statements, streaming, spill, the device
+supervisor, the result cache, the doctor, the journal and the
+distributed executors.
 
 Sessions run on the CUDA card unless created with device="cpu"; without
 a card and without that request, creating one raises.
@@ -20,10 +23,12 @@ from . import types as T
 from .catalog import CatalogManager, Metadata
 from .config import SessionProperties
 from .expr import ir
+from .connectors.memory import MemoryConnectorFactory
 from .connectors.tpcds import TpcdsConnectorFactory
 from .connectors.tpch import TpchConnectorFactory
 from .exec.local import DeviceScanCache, LocalExecutor
-from .page import Page, column_from_pylist
+from .expr.lower import ProjectionMemo
+from .page import Page, column_from_pylist, page_from_pydict
 from .plan import nodes as P
 from .plan.optimizer import optimize
 from .sql import ast
@@ -42,6 +47,7 @@ class Session:
         self.catalogs = CatalogManager()
         self.catalogs.register_factory(TpchConnectorFactory())
         self.catalogs.register_factory(TpcdsConnectorFactory())
+        self.catalogs.register_factory(MemoryConnectorFactory())
         self.default_catalog = catalog
         self.properties = SessionProperties(config)
         self.metadata = Metadata(self.catalogs)
@@ -50,6 +56,8 @@ class Session:
         self._scan_cache = DeviceScanCache(device=self.device)
         self._plan_cache: dict = {}
         self._capacity_hints: dict = {}
+        # host dictionary projections reused across queries
+        self._projection_memo = ProjectionMemo()
         self.last_kernel_profile: Optional[dict] = None
 
     def create_catalog(self, name: str, connector: str, config: dict):
@@ -66,6 +74,7 @@ class Session:
                 if self.properties.get("scan_cache_enabled") else None
             ),
             "capacity_hints": self._capacity_hints,
+            "projection_memo": self._projection_memo,
         })
 
     # ------------------------------------------------------------------
@@ -98,24 +107,70 @@ class Session:
             lines = text.split("\n")
             return Page([column_from_pylist(T.VARCHAR, lines)], len(lines),
                         ["Query Plan"])
-        if not isinstance(stmt, ast.Query):
+        if isinstance(stmt, (ast.CreateTable, ast.DropTable)):
+            return self._ddl(stmt)
+        if isinstance(stmt, ast.ShowTables):
+            conn = self.catalogs.get(self.default_catalog)
+            tables = sorted(conn.metadata().list_tables())
+            return page_from_pydict([("table", T.VARCHAR)], {"table": tables})
+        if isinstance(stmt, ast.Query):
+            plan = self._plan_cache.get(sql)
+            if plan is None:
+                plan = self._plan_stmt(stmt)
+                # nondeterministic plans carry query-time folded constants
+                # (now() timestamps, rand() seeds): caching the plan by SQL
+                # text would replay the first execution's values forever
+                if plan_is_deterministic(plan):
+                    self._plan_cache[sql] = plan
+                    for k in list(self._plan_cache)[:-256]:
+                        self._plan_cache.pop(k, None)
+        elif isinstance(stmt, _WRITES):
+            # writes change data: cached plans and capacity hints are
+            # stale (the scan cache keys by the table's data version)
+            self._plan_cache.clear()
+            self._capacity_hints.clear()
+            plan = self._plan_stmt(stmt)
+        else:
             raise NotImplementedError(
                 f"{type(stmt).__name__} is not in this slice of the port"
             )
-        plan = self._plan_cache.get(sql)
-        if plan is None:
-            plan = self._plan_stmt(stmt)
-            # nondeterministic plans carry query-time folded constants
-            # (now() timestamps, rand() seeds): caching the plan by SQL
-            # text would replay the first execution's values forever
-            if plan_is_deterministic(plan):
-                self._plan_cache[sql] = plan
-                for k in list(self._plan_cache)[:-256]:
-                    self._plan_cache.pop(k, None)
         executor = self._executor()
         page = executor.execute(plan)
         self.last_kernel_profile = executor.kernel_profile
+        if isinstance(plan.source, P.TableWriter):
+            self._scan_cache.evict_table(plan.source.catalog, plan.source.table)
         return page
+
+    def _ddl(self, stmt) -> Page:
+        """CREATE TABLE [IF NOT EXISTS] / DROP TABLE [IF EXISTS] (the JAX
+        package's, without access control)."""
+        from .spi import ColumnSchema, TableSchema
+
+        self._plan_cache.clear()
+        self._capacity_hints.clear()
+        catalog, table = self.metadata.resolve_new_table(
+            stmt.table, self.default_catalog
+        )
+        md = self.catalogs.get(catalog).metadata()
+        zero = page_from_pydict([("rows", T.BIGINT)], {"rows": [0]})
+        if isinstance(stmt, ast.DropTable):
+            if stmt.if_exists and table not in md.list_tables():
+                return zero
+            md.drop_table(table)
+            self._scan_cache.evict_table(catalog, table)
+            return zero
+        if self.metadata.lookup_view(stmt.table, self.default_catalog):
+            raise ValueError(f"view with that name already exists: {table}")
+        if stmt.if_not_exists and table in md.list_tables():
+            return zero
+        md.create_table(TableSchema(table, tuple(
+            ColumnSchema(c.lower(), T.parse_type(t)) for c, t in stmt.columns
+        )))
+        return zero
+
+
+_WRITES = (ast.Insert, ast.CreateTableAs, ast.Delete, ast.Update,
+           ast.MergeInto)
 
 
 def _plan_exprs(plan: P.PlanNode):
