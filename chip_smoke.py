@@ -42,11 +42,21 @@ Phases (any failure exits non-zero and prints no result line):
      ... SELECT, DELETE, UPDATE, MERGE, each read back with the scan
      cache on), the JSON, URL, md5, crc32 and base64 functions over 1.5 M
      customers, and a MATCH_RECOGNIZE V shape over the orders of the
-     first 15,000 customers: cold once and warm three times, with
-     launches, peak memory and exact numpy or Python checks;
+     first 15,000 customers: cold once and warm twice, with launches,
+     peak memory and exact numpy or Python checks (the five string
+     families read the first 150,000 customers);
   7. each kernel timed with CUDA events at the main path's shapes beside
      its bound, its plain version and, where one exists, one PyTorch call
      computing the same function;
+  7b. queries larger than their memory budget at TPC-H SF10, in fresh
+     sessions limited to 8 GiB (Q1), 1 GiB (Q6, Q1, Q3, Q18, a filtered
+     lineitem-orders join, a grouped approx_distinct/approx_percentile;
+     Q18 again with broadcast joins) and 256 MiB (count(distinct), a
+     sort of all orders, a running sum over all orders): each cold and
+     once warm, the streamed fragments and tiles or the spill taken
+     against the JAX package's decisions, launches, peak memory beside
+     the limit, pages identical to the in-memory runs and numpy checks
+     (Q18 with its partitioned join is refused by both packages);
   8. TPC-DS SF10 (28.8 M store_sales rows), the TPC-H session freed
      first: the 22 statements of tests/test_tpcds.py, its null-FK
      count, Q27 with ROLLUP (DS-Q27-ROLLUP), the aggregate families per
@@ -58,9 +68,12 @@ Phases (any failure exits non-zero and prints no result line):
      relative 1e-9), the other 21 byte-identical to runs on the plain
      kernel versions.
 
---profile traces one warm run of every SF10 query, TPC-DS and the
-slice's phase included
-(busy and idle share of the device).  The last log line gives the run's seconds.
+--profile traces one warm run of every SF10 query, TPC-DS, the `ext`
+and the out-of-core statements included (busy and idle share of the
+device).  The last log line gives the run's seconds.
+
+Every earlier phase runs in sessions whose memory limit is the card's
+size and fails if a statement streams, spills or is forced to stream.
 
 With --parent DIR (a checkout of an earlier commit), that commit's
 direct_probe also runs the kernel cases and is timed beside this one's.
@@ -813,6 +826,29 @@ def check_q3(page, li, orders, cust, cdicts):
         raise AssertionError(f"Q3 top 10 {got} != reference {want}")
 
 
+def _card_session(factory, sf, **props):
+    """A session whose memory limit is the card's size, as an operator of
+    an 80 GB card would set it: the in-memory path.  Every statement it
+    runs must stay in memory (no streaming, no spill, no forced
+    streaming), or the phase fails."""
+    from trino_tpu_torch.memory import detect_device_bytes
+
+    s = factory(sf, query_max_memory_bytes=detect_device_bytes(), **props)
+    run = s.execute
+
+    def execute(sql):
+        page = run(sql)
+        prof = s.last_kernel_profile or {}
+        if prof.get("forcedStreaming") or prof.get("outOfCore"):
+            raise AssertionError(
+                f"left the in-memory path ({prof.get('outOfCore')}, forcedStreaming "
+                f"{prof.get('forcedStreaming', 0)}): {sql[:80]}")
+        return page
+
+    s.execute = execute
+    return s
+
+
 def _scan_host_columns(session, needed, table="lineitem"):
     """The host arrays (and dictionaries) of the session's cached scan of
     `table` that holds every column in `needed`."""
@@ -986,6 +1022,75 @@ WINDOW_ALL_SQL = (
     "select count(*), sum(s), min(s), max(s) from (select "
     "sum(o_totalprice) over (partition by o_custkey order by o_orderkey) s "
     "from orders)")
+# the out-of-core phase: TPC-H SF10 under three per-query memory limits
+# (Trino's query.max-memory-per-node with spill to the host)
+OOC_JOIN_SQL = (
+    "select o_orderpriority, count(*) n, sum(l_extendedprice) s "
+    "from lineitem join orders on l_orderkey = o_orderkey "
+    "where l_shipdate >= date '1995-01-01' and o_orderdate < date '1995-03-15' "
+    "group by o_orderpriority order by o_orderpriority")
+OOC_APPROX_SQL = (
+    "select l_returnflag, approx_distinct(l_partkey) d, "
+    "approx_percentile(l_extendedprice, 0.5) p "
+    "from lineitem group by l_returnflag order by l_returnflag")
+OOC_DISTINCT_SQL = "select count(distinct l_orderkey) from lineitem"
+OOC_SORT_SQL = ("select o_orderkey, o_totalprice from orders "
+                "order by o_totalprice desc, o_orderkey")
+# the sort again with o_clerk, whose generated dictionary holds one
+# entry per row: the spill's host merge unifies 15 M entries
+OOC_CLERK_SQL = ("select o_orderkey, o_clerk from orders "
+                 "order by o_totalprice desc, o_orderkey")
+
+
+def _ooc_statements():
+    """(limit, session properties, [(label, sql), ...]) for the
+    out-of-core phase's four sessions: the JAX package's default limit,
+    1 GiB (twice: the second with broadcast joins) and 256 MiB."""
+    qs = _tpch_sql()
+    return [
+        (8 << 30, {}, [("Q1", qs["Q1"])]),
+        (1 << 30, {}, [("Q6", qs["Q6"]), ("Q1", qs["Q1"]), ("Q3", qs["Q3"]),
+                       ("Q18", qs["Q18"]), ("OOC-JOIN", OOC_JOIN_SQL),
+                       ("OOC-APPROX", OOC_APPROX_SQL)]),
+        (1 << 30, {"join_distribution_type": "broadcast"},
+         [("Q18-BROADCAST", qs["Q18"])]),
+        (256 << 20, {}, [("OOC-DISTINCT", OOC_DISTINCT_SQL), ("OOC-SORT", OOC_SORT_SQL),
+                         ("OOC-WINDOW", WINDOW_ALL_SQL), ("OOC-CLERK", OOC_CLERK_SQL)]),
+    ]
+
+
+# the JAX package's decisions for them (exec/streaming.py and
+# exec/spill.py planned at SF10 with device_generation=False; the CPU
+# test tests/test_torch_streaming.py holds both packages to this table):
+# the path, the fragment count and the tiles of each source fragment
+OOC_WANT = {
+    ("Q1", 8 << 30): ("stream", 3, (("lineitem", 2),)),
+    ("Q6", 1 << 30): ("stream", 2, (("lineitem", 6),)),
+    ("Q1", 1 << 30): ("stream", 3, (("lineitem", 9),)),
+    ("Q3", 1 << 30): ("stream", 6, (("customer", 1), ("lineitem", 6), ("orders", 2))),
+    ("Q18", 1 << 30): ("stream", 9, (("orders", 2), ("customer", 1), ("lineitem", 4),
+                                     ("lineitem", 4))),
+    ("Q18-BROADCAST", 1 << 30): ("stream", 7, (("customer", 1), ("orders", 2),
+                                               ("lineitem", 4), ("lineitem", 4))),
+    ("OOC-JOIN", 1 << 30): ("stream", 5, (("lineitem", 4), ("orders", 1))),
+    ("OOC-APPROX", 1 << 30): ("stream", 3, (("lineitem", 4),)),
+    ("OOC-DISTINCT", 256 << 20): ("stream", 3, (("lineitem", 7),)),
+    ("OOC-SORT", 256 << 20): ("sort-spill",),
+    ("OOC-WINDOW", 256 << 20): ("window-spill", 4),
+    ("OOC-CLERK", 256 << 20): ("sort-spill",),
+}
+# statements whose spilled page numbers its strings another way than the
+# in-memory page: the merged batches' dictionary of o_clerk holds each
+# clerk once, the single-split load one entry per row (the rows agree)
+OOC_ROWS_ONLY = {"OOC-CLERK"}
+# statements both packages plan to stream and then refuse while running:
+# Q18's lineitem-orders join is partitioned at SF10 (orders pass the
+# broadcast threshold), so its join fragment gathers every lineitem row
+# the tiles send it, and that fragment's own limit check raises the
+# JAX package's ExceededMemoryLimitError
+OOC_REFUSED = {("Q18", 1 << 30)}
+
+
 SF1_EXTRA = {
     "UNION": "select c_mktsegment from customer union "
              "select o_orderpriority from orders order by 1",
@@ -1276,7 +1381,7 @@ def phase_sf1(dev, sf=1.0):
 
     statements = dict(_tpch_sql())
     statements.update(SF1_EXTRA)
-    s = tpch_session(sf)
+    s = _card_session(tpch_session, sf)
     real = kn.fused_agg_sums
 
     def rec_fused(*args):
@@ -1313,7 +1418,7 @@ def phase_sf1(dev, sf=1.0):
          f"grouping-set tests: on, off and plain agree")
     del s
     ds = _ds_statements()
-    s = tpcds_session(sf)
+    s = _card_session(tpcds_session, sf)
     pages = _four_ways(s, ds, tag="sf1-ds")
     _log(f"[sf1] the {len(ds)} TPC-DS statements: on, off and plain agree")
     host = _DsHost(sf)
@@ -1413,7 +1518,7 @@ def phase_sf10(dev, do_profile=False):
 
     qs, _ = _queries()
     sf = MAIN_SF
-    s = tpch_session(sf)
+    s = _card_session(tpch_session, sf)
     _log(f"[sf{sf:g}] scan cache budget {s._scan_cache.max_bytes} bytes "
          f"(the session's default on this card)")
     runs = [("Q6", "auto"), ("Q1", "auto"), ("Q1", "off"), ("Q3", "auto")]
@@ -1616,6 +1721,11 @@ def phase_sf10_rel(dev, do_profile=False):
 # on the host, so the pattern scan reads the orders of the first 1% of
 # customers (about 150 k rows), not all 15 M
 MR_CUSTKEY_MAX = 15000
+# a cut of depth for the run's time: the five string families read the
+# first 10% of customers (150,000), so their Python checks parse 150,000
+# names, not 1.5 M; and the phase repeats its statements warm twice
+STR_CUSTKEY_MAX = 150000
+EXT_REPS = 2
 JSON_DOC = "concat('{\"id\": \"', c_name, '\", \"tags\": [\"a\", \"b\"]}')"
 URL_HOST = "concat('https://', replace(c_name, '#', '-'), '.shop.example.com:8080/c?q=1')"
 URL_QUERY = "concat('https://shop.example.com/c?name=', replace(c_name, '#', '%23'), '&page=2')"
@@ -1642,15 +1752,17 @@ EXT_SQL = {
     "SAMPLE-SYS100": "select count(*) from lineitem tablesample system (100)",
     "JSON":
         f"select count(v) n, count(distinct v) d, min(v) lo, max(v) hi from (select "
-        f"json_extract_scalar({JSON_DOC}, '$.id') v from customer)",
+        f"json_extract_scalar({JSON_DOC}, '$.id') v from customer "
+        f"where c_custkey <= {STR_CUSTKEY_MAX})",
     "URL":
         f"select count(distinct h) dh, max(h) mh, count(distinct p) dp, min(p) mp from "
         f"(select url_extract_host({URL_HOST}) h, url_extract_parameter({URL_QUERY}, "
-        f"'name') p from customer)",
-    "MD5": "select count(distinct md5(c_name)) d, min(md5(c_name)) lo from customer",
-    "CRC32": "select sum(crc32(c_phone)) from customer",
+        f"'name') p from customer where c_custkey <= {STR_CUSTKEY_MAX})",
+    "MD5": "select count(distinct md5(c_name)) d, min(md5(c_name)) lo from customer "
+           f"where c_custkey <= {STR_CUSTKEY_MAX}",
+    "CRC32": f"select sum(crc32(c_phone)) from customer where c_custkey <= {STR_CUSTKEY_MAX}",
     "BASE64": "select count(distinct to_base64(c_name)) d, max(to_base64(c_name)) hi "
-              "from customer",
+              f"from customer where c_custkey <= {STR_CUSTKEY_MAX}",
     "MR-V": f"""with o as (select o_custkey, o_orderdate, o_orderkey, o_totalprice
     from orders where o_custkey <= {MR_CUSTKEY_MAX})
 select * from o match_recognize (
@@ -1777,8 +1889,8 @@ def check_strings(s, pages):
     import zlib
     from urllib.parse import parse_qs, urlparse
 
-    cols, dicts = _scan_host_columns(s, ["c_name"], "customer")
-    names = _strings(cols, dicts, "c_name").tolist()
+    cols, dicts = _scan_host_columns(s, ["c_name", "c_custkey"], "customer")
+    names = _strings(cols, dicts, "c_name")[cols["c_custkey"] <= STR_CUSTKEY_MAX].tolist()
     ids = [jsonlib.loads('{"id": "' + c + '", "tags": ["a", "b"]}')["id"] for c in names]
     md5 = [hashlib.md5(c.encode()).hexdigest() for c in names]
     b64 = [base64.b64encode(c.encode()).decode() for c in names]
@@ -1792,10 +1904,11 @@ def check_strings(s, pages):
     params = [parse_qs(urlparse("https://shop.example.com/c?name=" + c.replace("#", "%23")
                                 + "&page=2").query)["name"][0] for c in names]
     want["URL"] = [(len(set(hosts)), max(hosts), len(set(params)), min(params))]
-    cols, dicts = _scan_host_columns(s, ["c_phone"], "customer")
+    cols, dicts = _scan_host_columns(s, ["c_phone", "c_custkey"], "customer")
     d = dicts["c_phone"]
     crc = np.array([zlib.crc32(str(x).encode()) for x in d], dtype=np.int64)
-    want["CRC32"] = [(int(np.bincount(cols["c_phone"], minlength=len(d)) @ crc),)]
+    phones = cols["c_phone"][cols["c_custkey"] <= STR_CUSTKEY_MAX]
+    want["CRC32"] = [(int(np.bincount(phones, minlength=len(d)) @ crc),)]
     for q, rows in want.items():
         _expect_rows(q, pages[q].to_pylist(), rows)
     _log(f"[ext] JSON, URL, MD5, CRC32 and BASE64 over {len(names)} customers agree "
@@ -1920,8 +2033,8 @@ EXT_CHECKS = {"COLLECT": check_collect, "LISTAGG-SUPP": check_listagg,
 def phase_ext(dev, do_profile=False):
     """This slice at SF10 in the main path's session (its scans stay
     resident), a memory catalog added: each EXT_SQL statement cold once
-    and MAIN_REPS times warm, the ETL sequence (CTAS of all orders,
-    INSERT ... SELECT, DELETE, UPDATE, MERGE) cold once and MAIN_REPS
+    and EXT_REPS times warm, the ETL sequence (CTAS of all orders,
+    INSERT ... SELECT, DELETE, UPDATE, MERGE) cold once and EXT_REPS
     times warm with a read-after-write check after every write, every
     kernel's launches over the warm runs, the phase's peak device memory
     and cold time; each statement held by its numpy or Python check."""
@@ -1932,7 +2045,7 @@ def phase_ext(dev, do_profile=False):
     if s is None:  # --phase ext
         from trino_tpu_torch.session import tpch_session
 
-        s = MAIN["session"] = tpch_session(sf)
+        s = MAIN["session"] = _card_session(tpch_session, sf)
     s.properties.set("megakernels", "auto")
     if "memory" not in s.catalogs.names():
         s.create_catalog("memory", "memory", {})
@@ -1959,7 +2072,7 @@ def phase_ext(dev, do_profile=False):
     per_run = {q: dict.fromkeys(KERNEL_FNS, 0) for q in walls}
     pages = {}
     kn.reset_counts()  # the phase's warm runs start here
-    for _ in range(MAIN_REPS):
+    for _ in range(EXT_REPS):
         for q, sql in EXT_SQL.items():
             before = dict(kn.LAUNCHES)
             torch.cuda.synchronize()
@@ -1980,7 +2093,7 @@ def phase_ext(dev, do_profile=False):
         if q in ETL_SQL and q != "CTAS":
             continue
         _log(f"[ext{sf:g}]   {'ETL (all writes and checks)' if q == 'CTAS' else q} "
-             f"over {MAIN_REPS} runs: {n}")
+             f"over {EXT_REPS} runs: {n}")
     for q, w in walls.items():
         rows = f", {pages[q].count} rows" if q in pages else ""
         _log(f"[ext{sf:g}] warm {q}: median {statistics.median(w) * 1e3:.3f} ms over "
@@ -2011,6 +2124,196 @@ def phase_ext(dev, do_profile=False):
         s.execute(f"drop table if exists {ETL_TABLE}")
         for q, sql in ETL_SQL.items():
             _profile(s, sql, f"ext{sf:g} {q}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: queries larger than their memory budget (streaming and spill)
+
+
+# kernels each out-of-core statement must launch inside its tiles
+OOC_KERNELS = {"Q6": ("fused_agg_sums",), "Q3": ("direct_probe",)}
+
+
+def _check_ooc_path(label, limit, prof):
+    """The path, fragments and tiles the card took against OOC_WANT."""
+    want = OOC_WANT[(label, limit)]
+    path = prof.get("outOfCore")
+    if path != want[0] or prof.get("forcedStreaming"):
+        raise AssertionError(f"{label} under {limit} bytes took {path} "
+                             f"(forced {prof.get('forcedStreaming', 0)}), want {want[0]}")
+    if path == "stream":
+        tiles = sorted(prof["streamedTiles"].values())
+        if (prof["streamedFragments"], tiles) != (want[1], sorted(t for _, t in want[2])):
+            raise AssertionError(f"{label}: {prof['streamedFragments']} fragments, tiles "
+                                 f"{tiles}; want {want[1]}, {want[2]}")
+        return f"stream, {prof['streamedFragments']} fragments, tiles {tiles}"
+    return path
+
+
+def _expect_decoded(label, got, want):
+    """The same rows: names, counts, validity and values, dictionary
+    columns compared as their strings."""
+    if got.names != want.names or got.count != want.count:
+        raise AssertionError(f"{label}: {got.names} x{got.count} != {want.names} "
+                             f"x{want.count}")
+    for name, a, b in zip(got.names, got.columns, want.columns):
+        va, vb = (np.asarray(c.values)[: got.count] for c in (a, b))
+        if a.dictionary is not None:
+            va = np.asarray([str(x) for x in a.dictionary], dtype=object)[va]
+            vb = np.asarray([str(x) for x in b.dictionary], dtype=object)[vb]
+        oka, okb = (np.ones(got.count, bool) if c.validity is None
+                    else np.asarray(c.validity)[: got.count] for c in (a, b))
+        if not (np.array_equal(oka, okb) and np.array_equal(va[oka], vb[okb])):
+            raise AssertionError(f"{label}: column {name} differs from the in-memory run")
+
+
+def check_ooc_distinct(ref, page):
+    cols, _ = _scan_host_columns(ref, ["l_orderkey"])
+    k = cols["l_orderkey"]
+    n = (1 + int(np.count_nonzero(np.diff(k)))) if np.all(k[1:] >= k[:-1]) else len(np.unique(k))
+    _expect_rows("OOC-DISTINCT", page.to_pylist(), [(n,)])
+
+
+def check_ooc_sort(ref, page):
+    """All 15 M orders by o_totalprice desc, o_orderkey, against numpy."""
+    cols, _ = _scan_host_columns(ref, ["o_orderkey", "o_totalprice"], "orders")
+    key, price = cols["o_orderkey"], cols["o_totalprice"]
+    order = np.lexsort((key, -price))
+    for j, want in enumerate((key[order], price[order])):
+        got = np.asarray(page.columns[j].values)[: page.count]
+        if page.count != len(want) or not np.array_equal(got, want):
+            raise AssertionError(f"OOC-SORT column {j} differs from numpy's order")
+
+
+def check_ooc_approx(ref, page, exact_page):
+    """approx_distinct within three standard errors (3 x 1.04/sqrt(512))
+    of numpy's exact distinct count per flag, which the in-memory run
+    (the SINGLE step, exact) must give."""
+    cols, dicts = _scan_host_columns(ref, ["l_partkey", "l_returnflag"])
+    pk, rf = cols["l_partkey"], cols["l_returnflag"].astype(np.int64)
+    seen = np.zeros((len(dicts["l_returnflag"]), int(pk.max()) + 1), dtype=bool)
+    seen[rf, pk] = True
+    exact = {str(f): int(n) for f, n in zip(dicts["l_returnflag"], seen.sum(1))}
+    in_memory = {f: d for f, d, _p in exact_page.to_pylist()}
+    if in_memory != exact:
+        raise AssertionError(f"OOC-APPROX in memory {in_memory} != numpy {exact}")
+    for flag, est, _p in page.to_pylist():
+        want = exact[flag]
+        if abs(est - want) > 3 * 1.04 / 512 ** 0.5 * want:
+            raise AssertionError(f"OOC-APPROX {flag}: {est} vs exact {want}")
+        _log(f"[ooc] OOC-APPROX {flag}: approx_distinct {est}, exact {want} "
+             f"({(est - want) / want:+.4%})")
+
+
+def phase_ooc(dev, do_profile=False):
+    """TPC-H SF10 (no cut of scale) in three fresh sessions whose limits
+    are smaller than the queries: the JAX package's default 8 GiB (Q1),
+    1 GiB (Q6, Q1, Q3, Q18, a filtered lineitem-orders join, a grouped
+    approx_distinct / approx_percentile) and 256 MiB (count(distinct),
+    a sort of all orders, a running sum over all orders).  Each
+    statement cold and once warm: the path, fragments and tiles against
+    OOC_WANT, every kernel's launches, the peak device memory above what
+    was allocated before it, beside the limit; the page byte-identical
+    to the in-memory page of a session whose limit is the card's
+    (float64 at relative 1e-12) and warm to cold, Q6, Q1 and Q3 against
+    the numpy references, the approximate statement (exact in memory)
+    identical to a run on the plain kernels and within its error of
+    numpy's distinct count,
+    the sort, window and distinct count against numpy."""
+    import gc
+
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.session import tpch_session
+
+    sf = MAIN_SF
+    ref = MAIN.get("session") or _card_session(tpch_session, sf)
+    ref.properties.set("megakernels", "auto")
+    pages, totals = {}, dict.fromkeys(KERNEL_FNS, 0)
+    from trino_tpu_torch.utils.memory import ExceededMemoryLimitError
+
+    for limit, props, statements in _ooc_statements():
+        s = tpch_session(sf, query_max_memory_bytes=limit, **props)
+        for label, sql in statements:
+            if (label, limit) in OOC_REFUSED:
+                t0 = time.perf_counter()
+                try:
+                    s.execute(sql)
+                except ExceededMemoryLimitError as e:
+                    _log(f"[ooc] {label} limit {limit} bytes: refused as planned after "
+                         f"{time.perf_counter() - t0:.3f} s: {e}")
+                    continue
+                raise AssertionError(f"{label} ran under {limit} bytes; both packages "
+                                     f"refuse it")
+            kn.reset_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for _ in range(2):  # cold, then warm
+                t0 = time.perf_counter()
+                page = s.execute(sql)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if len(walls) == 1:
+                    cold = page
+            peak = torch.cuda.max_memory_allocated() - base
+            prof = s.last_kernel_profile
+            path = _check_ooc_path(label, limit, prof)
+            convert.assert_pages_identical(cold, page)
+            launches = {k: v for k, v in kn.LAUNCHES.items() if v}
+            for name in KERNEL_FNS:
+                totals[name] += kn.LAUNCHES[name]
+            for name in OOC_KERNELS.get(label, ()):
+                if not kn.LAUNCHES[name]:
+                    raise AssertionError(f"{label}: {name} never launched in its tiles")
+            if label == "Q1" and not (kn.LAUNCHES["fused_agg_sums"] or (
+                    kn.LAUNCHES["grouped_count"] and kn.LAUNCHES["grouped_sum_i64"])):
+                raise AssertionError("Q1's tiles launched neither the fused nor the "
+                                     "grouped kernels")
+            over = " ABOVE the limit" if peak > limit else ""
+            _log(f"[ooc] {label} limit {limit} bytes: {path}; cold {walls[0]:.3f} s, "
+                 f"warm {walls[1]:.3f} s; peak {peak} bytes above the "
+                 f"{base} allocated before it{over}; launches over both runs "
+                 f"{launches or 'none'}; preuploads {prof.get('preuploads', 0)} "
+                 f"({prof.get('preupload_bytes', 0)} bytes); warm tiles: load "
+                 f"{prof.get('streamLoadS', 0):.3f} s on the prefetch thread, wait "
+                 f"{prof.get('streamWaitS', 0):.3f} s, run {prof.get('streamRunS', 0):.3f} s")
+            if do_profile:
+                _profile(s, sql, f"ooc {label} {limit >> 20} MiB")
+            pages[(label, limit)] = page
+            if label == "OOC-APPROX":
+                # in memory the SINGLE step is exact: the sketches' page
+                # is held to the plain kernels and to numpy instead
+                with _plain_kernels():
+                    convert.assert_pages_identical(page, s.execute(sql))
+                pages["OOC-APPROX-EXACT"] = ref.execute(sql)
+                continue
+            t0 = time.perf_counter()
+            want = ref.execute(sql)
+            torch.cuda.synchronize()
+            if label in OOC_ROWS_ONLY:
+                _expect_decoded(label, page, want)
+            else:
+                convert.assert_pages_match(want, page, 1e-12)
+            _log(f"[ooc] {label}: agrees with the in-memory run "
+                 f"({time.perf_counter() - t0:.3f} s)")
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_reference({"Q6": pages[("Q6", 1 << 30)], "Q1": pages[("Q1", 1 << 30)]},
+                    *_scan_host_columns(ref, ["l_tax", "l_returnflag", "l_shipdate"]))
+    check_reference({"Q6": pages[("Q6", 1 << 30)], "Q1": pages[("Q1", 8 << 30)]},
+                    *_scan_host_columns(ref, ["l_tax", "l_returnflag", "l_shipdate"]))
+    check_q3_page(ref, pages[("Q3", 1 << 30)])
+    check_ooc_approx(ref, pages[("OOC-APPROX", 1 << 30)], pages["OOC-APPROX-EXACT"])
+    check_ooc_distinct(ref, pages[("OOC-DISTINCT", 256 << 20)])
+    check_ooc_sort(ref, pages[("OOC-SORT", 256 << 20)])
+    check_window_all(ref, pages[("OOC-WINDOW", 256 << 20)])
+    _log(f"[ooc] Q6, Q1 (8 GiB and 1 GiB) and Q3 agree with the numpy references; "
+         f"the distinct count, the 15 M sorted orders and the window sums with numpy")
+    _log(f"[ooc] launches over the phase (cold and warm runs): {totals}")
+    MAIN.update(ooc_launches=totals)
 
 
 # ---------------------------------------------------------------------------
@@ -2581,7 +2884,7 @@ def phase_ds(dev, do_profile=False):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     sf = DS_SF
-    s = tpcds_session(sf)
+    s = _card_session(tpcds_session, sf)
     # each statement scans its own column set of store_sales: the budget
     # holds all of them, so the warm runs regenerate nothing
     s._scan_cache.max_bytes = torch.cuda.get_device_properties(dev).total_memory // 2
@@ -2654,12 +2957,14 @@ def main(argv=None) -> int:
     global MAIN_REPS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "main", "ext", "ds"],
+                    choices=["all", "kernels", "main", "ext", "ooc", "ds"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 main path (which also runs on the package "
                          "of an earlier commit, for comparisons), only the build "
-                         "and this slice's SF10 phase (in a fresh session), or "
-                         "only the build and the TPC-DS path")
+                         "and the SF10 array/JSON/write phase (in a fresh session), "
+                         "only the build and the out-of-core phase (streaming and "
+                         "spill under 8 GiB, 1 GiB and 256 MiB limits), or only "
+                         "the build and the TPC-DS path")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -2689,6 +2994,8 @@ def main(argv=None) -> int:
         phases.append(("ds", lambda: phase_ds(dev, args.profile)))
     elif args.phase == "ext":
         phases.append(("ext", lambda: phase_ext(dev, args.profile)))
+    elif args.phase == "ooc":
+        phases.append(("ooc", lambda: phase_ooc(dev, args.profile)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -2698,6 +3005,7 @@ def main(argv=None) -> int:
             ("rel", lambda: phase_sf10_rel(dev, args.profile)),
             ("ext", lambda: phase_ext(dev, args.profile)),
             ("timing", lambda: phase_timing(dev)),
+            ("ooc", lambda: phase_ooc(dev, args.profile)),
             ("ds", lambda: phase_ds(dev, args.profile)),
         ]
     failed = []

@@ -145,12 +145,20 @@ def test_array_aggregates_match_jax(sessions, i):
 
 
 def test_streaming_spill_and_split_steps_stay_refused():
-    """What the port still refuses: the JAX package's spill, streaming
-    and memory-pool properties (no such executor yet), and a host-staged
-    aggregate inside a traced PARTIAL/FINAL step, as the JAX package."""
-    for prop in ("spill_enabled", "double_buffer_depth", "query_max_memory_bytes"):
-        with pytest.raises(KeyError, match="unknown session property: " + prop):
-            torch_session(SF, device="cpu", **{prop: 1})
+    """The JAX package's memory, spill and streaming properties are the
+    port's now, with its defaults; what stays refused is a host-staged
+    aggregate inside a PARTIAL/FINAL step, as in the JAX package, and an
+    oversized plan that cannot be tiled when spill is off."""
+    from trino_tpu_torch.utils.memory import ExceededMemoryLimitError
+
+    props = torch_session(SF, device="cpu").properties
+    assert [props.get(p) for p in ("query_max_memory_bytes", "spill_enabled",
+                                   "memory_blocked_timeout_s", "double_buffer_depth")
+            ] == [8 << 30, True, 0.0, 1]
+    tight = torch_session(SF, device="cpu", query_max_memory_bytes=50_000,
+                          spill_enabled=False)
+    with pytest.raises(ExceededMemoryLimitError, match="not spillable"):
+        tight.execute("select l_orderkey, l_partkey from lineitem")
     lane = (torch.zeros(3, dtype=torch.int64), torch.ones(3, dtype=torch.bool))
     spec = tagg.AggSpec("array_agg", "x", "o")
     assert spec.accumulator_names == ["o$val", "o$valid"]
@@ -160,14 +168,27 @@ def test_streaming_spill_and_split_steps_stay_refused():
 
 
 def test_sketch_steps_name_the_mesh_slice():
-    spec = tagg.AggSpec("approx_distinct", "x", "o")
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        spec.accumulator_names
-    lane = (torch.zeros(3, dtype=torch.int64), torch.ones(3, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        tagg.accumulate([tagg.AggSpec("approx_percentile", "x", "o", param=0.5)],
-                        {"x": lane}, torch.zeros(3, dtype=torch.int64),
-                        torch.ones(3, dtype=torch.bool), 1, step="partial")
+    """approx_distinct / approx_percentile at the PARTIAL step, once
+    refused until the mesh slice, ship the JAX package's sketch states:
+    the same accumulator names and, on seeded inputs, the same values
+    (tests/test_torch_sketches.py holds the pages)."""
+    rng = np.random.default_rng(7)
+    v = rng.integers(0, 500, 400).astype(np.int64)
+    gid = rng.integers(0, 3, 400).astype(np.int64)
+    sel = rng.random(400) < 0.9
+    for kind, param in (("approx_distinct", None), ("approx_percentile", 0.5)):
+        t = tagg.AggSpec(kind, "x", "o", param=param)
+        j = jagg.AggSpec(kind, "x", "o", param=param)
+        assert t.accumulator_names == j.accumulator_names
+        got = tagg.accumulate(
+            [t], {"x": (torch.as_tensor(v), torch.ones(400, dtype=torch.bool))},
+            torch.as_tensor(gid), torch.as_tensor(sel), 3, step="partial")
+        want = jagg.accumulate(
+            [j], {"x": (jnp.asarray(v), jnp.ones(400, dtype=bool))},
+            jnp.asarray(gid), jnp.asarray(sel), 3, step="partial")
+        assert sorted(got) == sorted(want)
+        for name in want:
+            np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]))
 
 
 # -- module-level parity on seeded inputs ------------------------------------

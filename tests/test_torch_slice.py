@@ -203,7 +203,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " or m == 'trino_tpu' or m.startswith('trino_tpu.')]\n"
         "assert not bad, bad\n"
         "walked = {'trino_tpu_torch.connectors.memory', 'trino_tpu_torch.expr.arrays',"
-        " 'trino_tpu_torch.ops.matcher'}\n"
+        " 'trino_tpu_torch.ops.matcher', 'trino_tpu_torch.utils.memory',"
+        " 'trino_tpu_torch.memory.pools', 'trino_tpu_torch.ops.sketches',"
+        " 'trino_tpu_torch.plan.fragment', 'trino_tpu_torch.exec.partitioner',"
+        " 'trino_tpu_torch.exec.dynamic_filter', 'trino_tpu_torch.exec.fragment_exec',"
+        " 'trino_tpu_torch.exec.streaming', 'trino_tpu_torch.exec.spill'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )

@@ -3,10 +3,11 @@
 Reference parity: airlift @Config binding (369 setters; TaskManagerConfig,
 QueryManagerConfig, FeaturesConfig...) and SystemSessionProperties.java
 (151 typed session properties) — reduced to the properties this port's
-optimizer, analyzer and executor actually read.  Any other name, including
-the JAX package's runtime properties (spill, memory, retries, caches,
-observatories), raises KeyError at SET time rather than being silently
-ignored; values are validated and typed at SET time.
+optimizer, analyzer and executor actually read, the memory limit, spill
+and streaming ones included.  Any other name, including the JAX
+package's other runtime properties (retries, caches, observatories),
+raises KeyError at SET time rather than being silently ignored; values
+are validated and typed at SET time.
 """
 from __future__ import annotations
 
@@ -162,6 +163,29 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             "--emit; when set (and readable) it overrides padding_ladder; "
             "empty = use the padding_ladder spec",
             str, "",
+        ),
+        PropertyMetadata(
+            "query_max_memory_bytes",
+            "per-query device memory reservation limit",
+            int, 8 << 30,
+        ),
+        PropertyMetadata(
+            "memory_blocked_timeout_s",
+            "seconds a blocked memory reservation waits for frees, "
+            "revocation, or a killer verdict before raising",
+            float, 0.0,
+        ),
+        PropertyMetadata(
+            "spill_enabled",
+            "allow out-of-core execution when input exceeds the memory limit",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "double_buffer_depth",
+            "streaming tiles staged (host-decoded + H2D-uploaded) ahead "
+            "of the executing tile; each staged tile holds its scan "
+            "working set in device memory",
+            int, 1,
         ),
         PropertyMetadata(
             "megakernels",

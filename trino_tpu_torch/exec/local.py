@@ -26,6 +26,20 @@ the executor's device:
   5. hands a write's host page to the connector's PageSink
      (_execute_write: INSERT, CREATE TABLE AS, DELETE, UPDATE, MERGE).
 
+Queries larger than their memory budget (`memory_limit_bytes`, the
+session's query_max_memory_bytes) take the JAX package's gate, in its
+order: the DISTINCT spill, streaming through the fragment DAG
+(exec/streaming.py, tiles of splits run by exec/fragment_exec.py), then
+the aggregation, join, sort and window spills (exec/spill.py).  The
+scan working set is accounted against the limit (_account_memory) and
+the device working set reserved against the session's
+LocalMemoryManager before the run; a device-tier refusal or a
+torch.OutOfMemoryError re-runs the plan streamed
+(_try_forced_streaming, counted in kernel_profile["forcedStreaming"]).
+The aggregate runs all three steps: SINGLE, PARTIAL (accumulator
+columns, ops/aggregation.accumulate) and FINAL / INTERMEDIATE
+(ops/aggregation.merge_accumulators).
+
 No padding ladder: eager execution has no compile to bound, so lanes
 keep their exact row counts, and group and join-expansion capacities
 are the true counts (no capacity retries).  Batch representation:
@@ -40,8 +54,8 @@ dictionary entry per group from one copy of the lanes
 device and runs the row-at-a-time matcher (ops/matcher.py) per
 partition.  Every lane they return lives on the executor's device.
 
-Not in this slice (ExecutionError / NotImplementedError): streaming and
-spill, the device supervisor and the mesh executor.
+Not in this slice (ExecutionError / NotImplementedError): the device
+supervisor and the mesh executor.
 """
 from __future__ import annotations
 
@@ -84,6 +98,14 @@ class DeviceScanCache:
         self.max_bytes = max_bytes
         self.entries: Dict[tuple, dict] = {}
         self.bytes = 0
+
+    def drop_all(self) -> int:
+        """Evict everything; returns the bytes freed (the session's
+        revocable listener: the scan cache goes first under pressure)."""
+        freed = self.bytes
+        self.entries.clear()
+        self.bytes = 0
+        return freed
 
     def get(self, key: tuple):
         return self.entries.get(key)
@@ -368,16 +390,153 @@ class LocalExecutor:
         self._scan_keys: Dict[int, tuple] = {}
         self.dicts: Dict[str, np.ndarray] = {}
         self.force_wide_mul = False
+        self.query_id = str(self.config.get("query_id", "query"))
+        self.scan_bytes = 0  # the host reservation (scan working set)
+        self.device_bytes = 0  # the device-tier reservation
+        # (plan, scans, dicts, counts) a streaming prefetcher loaded
+        self._preloaded = None
 
     # ------------------------------------------------------------------
     def execute(self, plan: P.PlanNode) -> Page:
         assert isinstance(plan, P.Output)
         if isinstance(plan.source, P.TableWriter):
             return self._execute_write(plan.source)
-        scans: Dict[int, dict] = {}
-        dicts: Dict[str, np.ndarray] = {}
-        counts: Dict[int, int] = {}
-        self._load_scans(plan, scans, dicts, counts)
+        return self._execute_inner(plan)
+
+    def _execute_inner(self, plan: P.Output) -> Page:
+        limit = self.config.get("memory_limit_bytes")
+        if limit and self.config.get("spill_enabled", True):
+            from . import spill, streaming
+
+            # DISTINCT aggregation first: the fragmenter keeps a distinct
+            # Aggregate single-step behind one hash exchange, which would
+            # gather every input row into one fragment
+            # kernel_profile["outOfCore"] names the path taken
+            sp = spill.plan_distinct_spill(self, plan, int(limit))
+            if sp is not None:
+                self.kernel_profile["outOfCore"] = "distinct-spill"
+                return spill.execute_spilled_distinct(self, plan, *sp)
+            frags = streaming.plan_streaming(self, plan, int(limit))
+            if frags is not None:
+                self.kernel_profile["outOfCore"] = "stream"
+                return streaming.execute_streaming(self, plan, frags, int(limit))
+            for path, planner, runner in (
+                ("aggregation-spill", spill.plan_spill,
+                 spill.execute_spilled_aggregation),
+                ("join-spill", spill.plan_join_spill, spill.execute_spilled_join),
+                ("sort-spill", spill.plan_sort_spill, spill.execute_spilled_sort),
+                ("window-spill", spill.plan_window_spill,
+                 spill.execute_spilled_window),
+            ):
+                sp = planner(self, plan, int(limit))
+                if sp is not None:
+                    self.kernel_profile["outOfCore"] = path
+                    return runner(self, plan, *sp)
+        pre = self._preloaded
+        if pre is not None and pre[0] is plan:
+            _, scans, dicts, counts = pre
+            self._preloaded = None
+        else:
+            scans, dicts, counts = {}, {}, {}
+            self._load_scans(plan, scans, dicts, counts)
+        self._account_memory(scans, limit)
+        manager = self.config.get("memory_manager")
+        self.device_bytes = 0
+        if manager is not None:
+            # the device tier: the estimated working set is reserved
+            # before the run, so a query that would not fit is blocked,
+            # streamed or refused here instead of failing mid-run
+            from ..memory import QueryKilledError
+            from ..utils.memory import ExceededMemoryLimitError
+            from .streaming import estimate_program_bytes
+
+            est = int(max(self.scan_bytes, estimate_program_bytes(self, plan)))
+            try:
+                manager.reserve(
+                    self.query_id, est, tier="device",
+                    timeout=float(self.config.get("memory_blocked_timeout_s") or 0.0),
+                )
+                self.device_bytes = est
+            except ExceededMemoryLimitError as exc:
+                manager.free(self.query_id, self.scan_bytes, tier="host")
+                self.scan_bytes = 0
+                if isinstance(exc, QueryKilledError):
+                    raise
+                out = self._try_forced_streaming(plan)
+                if out is not None:
+                    return out
+                raise
+        try:
+            try:
+                return self._run_plan(plan, scans, dicts, counts)
+            except torch.OutOfMemoryError as exc:
+                # leave the handler first: its traceback holds the failed
+                # run's tensors, which the streamed run needs freed
+                oom = exc.with_traceback(None)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            out = self._try_forced_streaming(plan)
+            if out is None:
+                raise oom
+            return out
+        finally:
+            if manager is not None:
+                manager.free(self.query_id, self.scan_bytes, tier="host")
+                if self.device_bytes:
+                    manager.free(self.query_id, self.device_bytes, tier="device")
+
+    def _try_forced_streaming(self, plan: P.Output) -> Optional[Page]:
+        """The out-of-memory fallback: re-run the query through the
+        streaming tiled executor although the estimate gate did not
+        trigger (the device said the in-memory run does not fit).
+        Returns None when the plan is untileable or streaming itself
+        fails; the caller then raises the original error."""
+        limit = self.config.get("memory_limit_bytes")
+        if not (limit and self.config.get("spill_enabled", True)):
+            return None
+        from . import streaming
+
+        try:
+            frags = streaming.plan_streaming(self, plan, int(limit), force=True)
+            if frags is None:
+                return None
+            out = streaming.execute_streaming(self, plan, frags, int(limit))
+        except Exception:  # noqa: BLE001 — the original error surfaces
+            return None
+        prof = self.kernel_profile
+        prof["forcedStreaming"] = prof.get("forcedStreaming", 0) + 1
+        return out
+
+    def _account_memory(self, scans, limit):
+        """Reserve the scan working set against the session's manager and
+        enforce the per-query limit (ExceededMemoryLimitException).
+        Scan arrays dominate the footprint; operator temporaries are
+        proportional and covered by the limit's headroom."""
+        from ..utils.memory import ExceededMemoryLimitError
+
+        scan_total = 0
+        for arrays in scans.values():
+            for v, ok in arrays.values():
+                scan_total += int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
+        # fragment tasks also hold the exchange pages they read: counted
+        # toward the host reservation, not against the device limit
+        total = scan_total + int(getattr(self, "exchange_bytes", 0))
+        self.scan_bytes = total
+        if limit and scan_total > int(limit):
+            raise ExceededMemoryLimitError(
+                f"query exceeded memory limit: scan working set "
+                f"{scan_total} > {limit} bytes (and plan is not spillable)"
+            )
+        manager = self.config.get("memory_manager")
+        if manager is not None:  # freed after the run (_execute_inner)
+            manager.reserve(
+                self.query_id, total, tier="host",
+                timeout=float(self.config.get("memory_blocked_timeout_s") or 0.0),
+            )
+
+    def _run_plan(self, plan: P.Output, scans, dicts, counts) -> Page:
+        """Run the operators over loaded scans through the retry ladder
+        and copy the selected output rows to the host."""
         self.dicts = dicts
         hints = self.config.get("capacity_hints")
         hint = hints.get(id(plan)) if hints is not None else None
@@ -594,10 +753,25 @@ class LocalExecutor:
         """Upload one scan's host arrays to device lanes (page-locked
         copies on CUDA), reusing device tensors cached by an earlier
         query of the same versioned scan."""
-        cache: Optional[DeviceScanCache] = self.config.get("scan_cache")
+        staged = getattr(self, "_preuploaded", None)
+        if staged and id(node) in staged:
+            # copied ahead on the prefetch thread's stream: order this
+            # stream after the copies, and tell the caching allocator the
+            # tensors are used here
+            lanes, event = staged.pop(id(node))
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                for v, ok in lanes.values():
+                    v.record_stream(stream)
+                    ok.record_stream(stream)
+            return lanes
+        cache: Optional[DeviceScanCache] = (
+            self.config.get("scan_cache") or getattr(self, "_streaming_cache", None)
+        )
         key = self._scan_keys.get(id(node))
         entry = cache.get(key) if (cache is not None and key) else None
-        sym_to_col = dict(node.assignments)
+        sym_to_col = dict(getattr(node, "assignments", ()))
         dev = self.device
         lanes = {}
         for sym, (arr, valid) in arrays.items():
@@ -710,6 +884,11 @@ class _TraceCtx:
         lanes = self.ex._device_lanes(node, self.scans[id(node)], count)
         sel = torch.ones(count, dtype=torch.bool, device=self.ex.device)
         return Batch(dict(lanes), sel)
+
+    def _visit_remotesource(self, node: P.RemoteSource) -> Batch:
+        """Exchange input of a fragment (exec/fragment_exec.py): the
+        merged remote pages load like a scan."""
+        return self._visit_tablescan(node)
 
     def _visit_values(self, node: P.Values) -> Batch:
         n = len(node.rows)
@@ -940,18 +1119,15 @@ class _TraceCtx:
 
     # -- aggregation ------------------------------------------------------
     def _visit_aggregate(self, node: P.Aggregate) -> Batch:
-        """SINGLE-step aggregation (PARTIAL/FINAL belong to the
-        distributed paths, not in this slice)."""
-        if node.step != "single":
-            raise ExecutionError(
-                f"{node.step} aggregation is not in this slice of the port "
-                "(the PARTIAL/FINAL merge comes with the mesh slice)"
-            )
-        from ..ops import megakernel
+        """All three steps (AggregationNode.java:346): SINGLE and PARTIAL
+        accumulate raw rows (PARTIAL emits the accumulator columns);
+        FINAL and INTERMEDIATE merge shipped accumulator columns."""
+        if node.step in ("single", "partial"):
+            from ..ops import megakernel
 
-        fused = megakernel.try_fused(self, node)
-        if fused is not None:
-            return fused
+            fused = megakernel.try_fused(self, node)
+            if fused is not None:
+                return fused
         b = self.visit(node.source)
         types = node.source.output_types()
         b, aggs = self._agg_dict_setup(node, b)
@@ -959,6 +1135,10 @@ class _TraceCtx:
         # array_agg / map_agg / listagg build their values on the host
         host_specs = [s for s in all_specs if s.kind in agg_ops.HOST_STAGED_KINDS]
         specs = [s for s in all_specs if s.kind not in agg_ops.HOST_STAGED_KINDS]
+        final = node.step in ("final", "intermediate")  # merges accumulators
+        partial = node.step in ("partial", "intermediate")  # emits them
+        if host_specs and (final or partial):
+            raise ExecutionError("host-staged aggregates cannot split PARTIAL/FINAL")
 
         def host_lanes(out, lanes, gid, sel, cap):
             for hs in host_specs:
@@ -967,17 +1147,29 @@ class _TraceCtx:
             return out
 
         def reduce_rows(lanes, gid, sel, cap, seg=None):
+            if final:
+                acc_in = {n: lanes[n] for s in specs for n in s.accumulator_names}
+                return agg_ops.merge_accumulators(
+                    specs, acc_in, gid, sel, cap, overflow_flags=self.sum_overflow,
+                )
             return agg_ops.accumulate(
-                specs, lanes, gid, sel, cap, step="single",
+                specs, lanes, gid, sel, cap,
+                step="partial" if partial else "single",
                 overflow_flags=self.sum_overflow,
                 wide_flags=self.lowering.overflow_flags,
                 force_wide=self.lowering.force_wide_mul,
                 seg=seg,
             )
 
+        def out_lanes(accs):
+            if partial:
+                return {n: (v, torch.ones(v.shape[0], dtype=torch.bool, device=v.device))
+                        for n, v in accs.items()}
+            return agg_ops.finalize(specs, accs)
+
         if not node.keys:
             gid = torch.zeros(b.sel.shape[0], dtype=torch.int64, device=b.sel.device)
-            lanes = agg_ops.finalize(specs, reduce_rows(b.lanes, gid, b.sel, 1))
+            lanes = out_lanes(reduce_rows(b.lanes, gid, b.sel, 1))
             host_lanes(lanes, b.lanes, gid, b.sel, 1)
             present = torch.ones(1, dtype=torch.bool, device=b.sel.device)
             return self._finish_aggregate(node, [], lanes, present, 1)
@@ -1012,7 +1204,7 @@ class _TraceCtx:
                 starts=ss.starts,
             )
             host_src = (sorted_lanes, gid, sel_sorted)
-        out = host_lanes(agg_ops.finalize(specs, accs), *host_src, cap)
+        out = host_lanes(out_lanes(accs), *host_src, cap)
         return self._finish_aggregate(node, keys_out, out, present, cap)
 
     def _finish_aggregate(self, node, keys_out, out, present, cap):
@@ -1031,12 +1223,16 @@ class _TraceCtx:
         min_by/max_by compare lexicographic ranks of the codes (the
         sorted dictionary is registered for a min/max output), and
         value-carrying aggregates (arbitrary, the min_by/max_by value)
-        keep the input's dictionary."""
+        keep the input's dictionary.  At the raw steps the dictionaries
+        are also registered for the $val/$key accumulator columns, so
+        PARTIAL pages stay decodable; the merge steps read them back."""
+        raw_step = node.step in ("single", "partial")
+        dicts = self.ex.dicts
         lanes = None
 
         def rank_lane(sym: str):
             nonlocal lanes
-            d = self.ex.dicts.get(sym)
+            d = dicts.get(sym)
             if d is None or len(d) == 0:
                 return sym, d if d is not None else np.array([], dtype=object)
 
@@ -1057,22 +1253,33 @@ class _TraceCtx:
             lanes[rsym] = (torch.where(v >= 0, rk, -1).to(v.dtype), ok)
             return rsym, d[order]
 
+        def carry(a, src):
+            """The output (and its $val state) keeps src's dictionary at a
+            raw step; a merge step reads it back from $val."""
+            if raw_step and src in dicts:
+                dicts[a.output] = dicts[f"{a.output}$val"] = dicts[src]
+            elif not raw_step and f"{a.output}$val" in dicts:
+                dicts[a.output] = dicts[f"{a.output}$val"]
+
         aggs = []
         for a in node.aggs:
             it, i2t = a.input_type, a.input2_type
             if a.kind in ("min", "max") and it is not None and it.is_dictionary:
-                rsym, sorted_d = rank_lane(a.arg)
-                a = dataclasses.replace(a, arg=rsym)
-                self.ex.dicts[a.output] = sorted_d
+                if raw_step:
+                    rsym, sorted_d = rank_lane(a.arg)
+                    a = dataclasses.replace(a, arg=rsym)
+                    dicts[a.output] = dicts[f"{a.output}$val"] = sorted_d
+                else:
+                    carry(a, None)
             elif a.kind in ("min_by", "max_by"):
-                if i2t is not None and i2t.is_dictionary:
-                    rsym, _ = rank_lane(a.arg2)
+                if i2t is not None and i2t.is_dictionary and raw_step:
+                    rsym, sorted_d = rank_lane(a.arg2)
                     a = dataclasses.replace(a, arg2=rsym)
-                if (it is not None and it.is_dictionary
-                        and a.arg in self.ex.dicts):
-                    self.ex.dicts[a.output] = self.ex.dicts[a.arg]
-            elif a.output_type.is_dictionary and a.arg in self.ex.dicts:
-                self.ex.dicts[a.output] = self.ex.dicts[a.arg]
+                    dicts[f"{a.output}$key"] = sorted_d
+                if it is not None and it.is_dictionary:
+                    carry(a, a.arg)
+            elif a.output_type.is_dictionary:  # arbitrary etc.
+                carry(a, a.arg)
             aggs.append(a)
         if lanes is not None:
             b = dataclasses.replace(b, lanes=lanes)

@@ -24,17 +24,22 @@ segment sums, bool_and/bool_or, the bitwise aggregates from per-bit
 group counts (one bit plane at a time, never an [n, 64] matrix),
 checksum as the wrapping sum of splitmix64 hashes, min_by/max_by as a
 two-pass argmin, and approx_distinct / approx_percentile exact (one
-sort each).
+sort each) at the SINGLE step.
+
+PARTIAL, INTERMEDIATE and FINAL follow the JAX package's accumulator
+layout column for column (AggSpec.accumulator_names, the plan's
+AggInfo.accumulator_schema): accumulate(step="partial") emits the
+states, merge_accumulators merges shipped states and finalize reads
+either form.  approx_distinct and approx_percentile ship mergeable
+sketches at those steps (ops/sketches.py: HLL registers, k-min-hash
+samples).  Merges of float64 states run in group order (_GroupOrder),
+so a streamed or spilled query repeats bit for bit on the card.
 
 array_agg, map_agg and listagg are host-staged (host_staged_lanes, the
 executor's call): the selected rows go into group order on the device,
 one copy of the lanes reaches the host, and each group's value becomes
 an entry of a fresh dictionary; accumulate refuses them, as the JAX
-package's traced kernels do.
-
-Not in this slice (NotImplementedError): the PARTIAL/FINAL accumulator
-merge with the sketches of approx_distinct / approx_percentile (the
-mesh slice).
+package's traced kernels do, and they never split PARTIAL/FINAL.
 
 NULL semantics: a NULL key is its own group (the validity bit is an
 extra radix slot); sum/min/max ignore NULL inputs and return NULL for
@@ -62,19 +67,11 @@ BINARY_MOMENT_KINDS = (
 BITWISE_KINDS = ("bitwise_and_agg", "bitwise_or_agg", "bitwise_xor_agg")
 NON_DECOMPOSABLE = ("array_agg", "map_agg", "listagg")
 HOST_STAGED_KINDS = ("array_agg", "map_agg", "listagg")
-SKETCHED_KINDS = ("approx_distinct", "approx_percentile")
 TWO_ARG_KINDS = ("min_by", "max_by") + BINARY_MOMENT_KINDS
 
 
 def _not_in_slice(what: str):
     return NotImplementedError(f"{what} is not in this slice of the port")
-
-
-def _needs_mesh_slice(kind: str):
-    return NotImplementedError(
-        f"{kind} at a PARTIAL/FINAL step needs the sketch merge of the "
-        "mesh slice, which is not ported yet (exact at the SINGLE step)"
-    )
 
 
 def _host_staged(kind: str):
@@ -160,8 +157,17 @@ class AggSpec:
                     f"{o}$syy", f"{o}$n"]
         if self.kind in ("min_by", "max_by"):
             return [f"{o}$val", f"{o}$key", f"{o}$valid", f"{o}$has"]
-        if self.kind in SKETCHED_KINDS:
-            raise _needs_mesh_slice(self.kind)
+        if self.kind == "approx_distinct":
+            from . import sketches
+
+            return [f"{o}$hll{i}" for i in range(sketches.HLL_LANES)]
+        if self.kind == "approx_percentile":
+            from . import sketches
+
+            K = sketches.KMV_K
+            return ([f"{o}$pv{i}" for i in range(K)]
+                    + [f"{o}$ph{i}" for i in range(K)]
+                    + [f"{o}$pmin", f"{o}$pmax"])
         if self.kind in HOST_STAGED_KINDS:
             return [f"{o}$val", f"{o}$valid"]  # host-staged; not shipped
         if self.kind in ("count", "count_star", "count_if"):
@@ -713,9 +719,14 @@ def accumulate(
         elif s.kind == "count_if":
             out[f"{o}$count"] = seg_cnt(live & v.to(torch.bool))
         elif s.kind == "approx_distinct":
-            if step != "single":
-                raise _needs_mesh_slice(s.kind)
-            out[f"{o}$count"] = distinct_count(gid, (v, ok), sel, cap)
+            if step == "single":
+                out[f"{o}$count"] = distinct_count(gid, (v, ok), sel, cap)
+            else:
+                from . import sketches
+
+                packed = sketches.hll_accumulate(_key_bits(v), live, gid, cap)
+                for i, arr in packed.items():
+                    out[f"{o}$hll{i}"] = arr
         elif s.kind in ("sum", "avg"):
             cnt = seg_cnt(live)
             if s._wide_sum:
@@ -841,12 +852,27 @@ def accumulate(
             out[f"{o}$key"] = kv
             out[f"{o}$valid"] = xvalid.to(torch.int64)
             out[f"{o}$has"] = has.to(torch.int64)
-        elif s.kind == "approx_percentile":
-            if step != "single":
-                raise _needs_mesh_slice(s.kind)
+        elif s.kind == "approx_percentile" and step == "single":
             val, valid = _percentile((v, ok), sel, gid, cap, float(s.param))
             out[f"{o}$val"] = val
             out[f"{o}$valid"] = valid.to(torch.int64)
+        elif s.kind == "approx_percentile":
+            from . import sketches
+
+            K = sketches.KMV_K
+            vals, hs = sketches.kmv_accumulate(v, live, gid, cap)
+            vals2, hs2 = vals.reshape(cap, K), hs.reshape(cap, K)
+            for i in range(K):
+                out[f"{o}$pv{i}"] = vals2[:, i]
+                out[f"{o}$ph{i}"] = hs2[:, i]
+            if v.is_floating_point():
+                lo = torch.where(live, v, float("inf"))
+                hi = torch.where(live, v, float("-inf"))
+            else:
+                lo = torch.where(live, v.to(torch.int64), I64_MAX)
+                hi = torch.where(live, v.to(torch.int64), -I64_MAX)
+            out[f"{o}$pmin"] = _seg_min(lo, gid, cap)
+            out[f"{o}$pmax"] = _seg_max(hi, gid, cap)
         elif s.kind in HOST_STAGED_KINDS:
             raise _host_staged(s.kind)
         else:
@@ -861,7 +887,32 @@ def finalize(
     out: Dict[str, Lane] = {}
     for s in specs:
         o = s.output
-        if s.kind in ("count", "count_star", "count_if", "approx_distinct"):
+        if s.kind == "approx_distinct" and f"{o}$count" not in accs:
+            # sketched (PARTIAL/FINAL) form: the HLL estimator
+            from . import sketches
+
+            lanes = {i: accs[f"{o}$hll{i}"] for i in range(sketches.HLL_LANES)}
+            c = sketches.hll_cardinality(lanes, lanes[0].shape[0])
+            out[o] = (c, torch.ones(c.shape, dtype=torch.bool, device=c.device))
+        elif s.kind == "approx_percentile" and f"{o}$val" not in accs:
+            from . import sketches
+
+            K = sketches.KMV_K
+            lo, hi = accs[f"{o}$pmin"], accs[f"{o}$pmax"]
+            vals = torch.stack([accs[f"{o}$pv{i}"] for i in range(K)], 1)
+            hs = torch.stack([accs[f"{o}$ph{i}"] for i in range(K)], 1)
+            q = float(s.param)
+            v, has = sketches.kmv_quantile(
+                vals.reshape(-1), hs.reshape(-1), lo.shape[0], q)
+            # p = 0 and p = 1 are exact; estimates clamp into the range
+            if q <= 0.0:
+                v = lo
+            elif q >= 1.0:
+                v = hi
+            else:
+                v = torch.clamp(v.to(lo.dtype), lo, hi)
+            out[o] = (v, has)
+        elif s.kind in ("count", "count_star", "count_if", "approx_distinct"):
             c = accs[f"{o}$count"]
             out[o] = (c, torch.ones(c.shape, dtype=torch.bool, device=c.device))
         elif s.kind == "sum":
@@ -950,6 +1001,170 @@ def finalize(
             else:
                 v = torch.div(ssum, den, rounding_mode="floor")
             out[o] = (v, cnt > 0)
+        else:
+            raise _not_in_slice(f"aggregate {s.kind}")
+    return out
+
+
+def merge_accumulators(
+    specs: Sequence[AggSpec],
+    acc_lanes: Dict[str, Lane],
+    gid: torch.Tensor,
+    sel: torch.Tensor,
+    capacity: int,
+    overflow_flags: Optional[list] = None,
+) -> Dict[str, torch.Tensor]:
+    """FINAL / INTERMEDIATE step: merge shipped accumulator rows grouped
+    by gid (the JAX package's merge, state for state).  Float64 states
+    sum in group order (_GroupOrder: the rows of a group in their order,
+    which is tile order for streamed partials), integer states beyond
+    the grouped kernels' 32 groups as sorted-run sums."""
+    out: Dict[str, torch.Tensor] = {}
+    cap = capacity
+    w = sel
+    order = _GroupOrder(gid, cap)
+    many = cap > kernels.MAX_GROUPS
+
+    def gsum(vv):
+        if vv.is_floating_point():
+            return order.fsum(vv)
+        if many:
+            return order.isum(vv)
+        return _seg_sum(vv.to(torch.int64), gid, cap)
+
+    def msum(name):
+        v, _ = acc_lanes[name]
+        out[name] = gsum(torch.where(w, v, 0.0 if v.is_floating_point() else 0))
+
+    def overflow_check(name):
+        vals = acc_lanes[name][0]
+        if overflow_flags is not None and not vals.is_floating_point():
+            overflow_flags.append(
+                _sum_overflow_flag(torch.where(w, vals, 0), gid, cap))
+
+    def valid_sum(o):
+        cv, _ = acc_lanes[f"{o}$valid"]
+        out[f"{o}$valid"] = gsum(torch.where(w, cv, 0))
+        return w & (cv > 0)
+
+    for s in specs:
+        o = s.output
+        if s.kind == "approx_distinct":
+            from . import sketches
+
+            packed = sketches.hll_merge(
+                {i: acc_lanes[f"{o}$hll{i}"][0] for i in range(sketches.HLL_LANES)},
+                w, gid, cap)
+            for i, arr in packed.items():
+                out[f"{o}$hll{i}"] = arr
+        elif s.kind == "approx_percentile":
+            from . import sketches
+
+            K = sketches.KMV_K
+            vals = torch.stack([acc_lanes[f"{o}$pv{i}"][0] for i in range(K)], 1)
+            hs = torch.stack([acc_lanes[f"{o}$ph{i}"][0] for i in range(K)], 1)
+            hs = torch.where(w[:, None], hs, sketches._H_EMPTY)
+            mv, mh = sketches.kmv_merge(vals, hs, w, gid, cap)
+            mv2, mh2 = mv.reshape(cap, K), mh.reshape(cap, K)
+            for i in range(K):
+                out[f"{o}$pv{i}"] = mv2[:, i]
+                out[f"{o}$ph{i}"] = mh2[:, i]
+            lo, _ = acc_lanes[f"{o}$pmin"]
+            hi, _ = acc_lanes[f"{o}$pmax"]
+            if lo.is_floating_point():
+                lo = torch.where(w, lo, float("inf"))
+                hi = torch.where(w, hi, float("-inf"))
+            else:
+                lo = torch.where(w, lo, I64_MAX)
+                hi = torch.where(w, hi, -I64_MAX)
+            out[f"{o}$pmin"] = _seg_min(lo, gid, cap)
+            out[f"{o}$pmax"] = _seg_max(hi, gid, cap)
+        elif s.kind in ("count", "count_star", "count_if"):
+            msum(f"{o}$count")
+        elif s.kind in ("sum", "avg") and s._wide_sum:
+            from . import wide_decimal as wd
+
+            merged = wd.merge_chunk_lanes(
+                [acc_lanes[f"{o}$c{i}"][0] for i in range(4)], w, gid, cap)
+            for i, c in enumerate(merged):
+                out[f"{o}$c{i}"] = c
+            msum(f"{o}$valid" if s.kind == "sum" else f"{o}$count")
+        elif s.kind == "avg":
+            msum(f"{o}$sum")
+            msum(f"{o}$count")
+            overflow_check(f"{o}$sum")
+        elif s.kind == "sum":
+            msum(f"{o}$val")
+            msum(f"{o}$valid")
+            overflow_check(f"{o}$val")
+        elif s.kind in MOMENT_KINDS:
+            for suf in ("$sum", "$sumsq", "$count"):
+                msum(o + suf)
+        elif s.kind == "geometric_mean":
+            msum(f"{o}$sumlog")
+            msum(f"{o}$count")
+        elif s.kind in BINARY_MOMENT_KINDS:
+            for suf in ("$sy", "$sx", "$sxy", "$sxx", "$syy", "$n"):
+                msum(o + suf)
+        elif s.kind in ("min", "max"):
+            sv, _ = acc_lanes[f"{o}$val"]
+            has = valid_sum(o)
+            if sv.dim() == 2:
+                out[f"{o}$val"] = _seg_minmax_wide(
+                    sv, has, gid, cap, s.kind == "min")
+                continue
+            if sv.is_floating_point():
+                sentinel = float("inf") if s.kind == "min" else float("-inf")
+            else:
+                # within the lane's dtype (varchar ranks ship as int32
+                # codes, where the JAX package's 2^62 wraps to 0)
+                info = torch.iinfo(sv.dtype)
+                sentinel = (min(I64_MAX, info.max) if s.kind == "min"
+                            else max(-I64_MAX, info.min))
+            out[f"{o}$val"] = _seg_extreme(
+                torch.where(has, sv, sentinel), gid, cap, s.kind == "min")
+        elif s.kind in ("bool_and", "bool_or"):
+            sv, _ = acc_lanes[f"{o}$val"]
+            has = valid_sum(o)
+            if s.kind == "bool_and":
+                out[f"{o}$val"] = _seg_min(torch.where(has, sv, 1), gid, cap)
+            else:
+                out[f"{o}$val"] = _seg_max(torch.where(has, sv, 0), gid, cap)
+        elif s.kind in BITWISE_KINDS:
+            sv, _ = acc_lanes[f"{o}$val"]
+            has = valid_sum(o)
+            out[f"{o}$val"] = _segment_bitwise(
+                sv, has, gid, cap, s.kind.split("_")[1])
+        elif s.kind == "checksum":
+            msum(f"{o}$val")
+            msum(f"{o}$valid")
+        elif s.kind == "arbitrary":
+            sv, _ = acc_lanes[f"{o}$val"]
+            cv, _ = acc_lanes[f"{o}$valid"]
+            has = w & (cv > 0)
+            n = gid.shape[0]
+            idx = torch.arange(n, dtype=torch.int64, device=gid.device)
+            ridx = _seg_min(torch.where(has, idx, n), gid, cap)
+            ok2 = ridx < n
+            val = sv[torch.clamp(ridx, 0, max(n - 1, 0))] if n else torch.zeros(
+                (cap,) + tuple(sv.shape[1:]), dtype=sv.dtype, device=sv.device)
+            out[f"{o}$val"] = torch.where(
+                ok2.reshape((cap,) + (1,) * (val.dim() - 1)), val,
+                torch.zeros_like(val))
+            out[f"{o}$valid"] = ok2.to(torch.int64)
+        elif s.kind in ("min_by", "max_by"):
+            sv, _ = acc_lanes[f"{o}$val"]
+            kv, _ = acc_lanes[f"{o}$key"]
+            xval, _ = acc_lanes[f"{o}$valid"]
+            hv, _ = acc_lanes[f"{o}$has"]
+            xv, kk, xvalid, has2 = _first_by_key(
+                (sv, xval > 0), kv, w & (hv > 0), gid, cap, s.kind == "min_by")
+            out[f"{o}$val"] = xv
+            out[f"{o}$key"] = kk
+            out[f"{o}$valid"] = xvalid.to(torch.int64)
+            out[f"{o}$has"] = has2.to(torch.int64)
+        elif s.kind in HOST_STAGED_KINDS:
+            raise _host_staged(s.kind)
         else:
             raise _not_in_slice(f"aggregate {s.kind}")
     return out

@@ -70,7 +70,7 @@ def build_unique(key: Lane, sel: torch.Tensor) -> LookupSource:
     kv = torch.where(live, v.to(torch.int64), _SENTINEL)
     sorted_keys, perm = _sort_live_first(kv, live)
     nvalid = live.sum()
-    idx = torch.arange(1, n, dtype=torch.int64, device=v.device)
+    idx = torch.arange(1, max(n, 1), dtype=torch.int64, device=v.device)
     dup = torch.sum((sorted_keys[1:] == sorted_keys[:-1]) & (idx < nvalid))
     return LookupSource(sorted_keys, perm, nvalid, dup)
 
@@ -79,7 +79,8 @@ def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """t[idx], reading zeros from an empty t (an empty build side) where
     PyTorch indexing would raise."""
     if t.shape[0] == 0:
-        return torch.zeros(idx.shape, dtype=t.dtype, device=t.device)
+        return torch.zeros(tuple(idx.shape) + tuple(t.shape[1:]), dtype=t.dtype,
+                           device=t.device)
     return t[idx]
 
 
@@ -99,10 +100,10 @@ def probe(
 def gather_build(
     build_cols: Dict[str, Lane], build_row: torch.Tensor, matched: torch.Tensor
 ) -> Dict[str, Lane]:
-    """Build-side payload lanes for each probe row."""
-    from .filter_project import permute_lanes
-
-    return permute_lanes(build_cols, build_row, extra_ok=matched)
+    """Build-side payload lanes for each probe row (zeros, unmatched,
+    from an empty build side)."""
+    return {s: (take(v, build_row), take(ok, build_row) & matched)
+            for s, (v, ok) in build_cols.items()}
 
 
 class DirectLookupSource(NamedTuple):

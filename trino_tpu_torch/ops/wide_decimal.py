@@ -256,6 +256,13 @@ def seg_sum_chunks(row_chunks, gid: torch.Tensor, cap: int):
     return normalize_chunks(sums)
 
 
+def merge_chunk_lanes(chunk_lanes, w: torch.Tensor, gid: torch.Tensor, cap: int):
+    """FINAL-step merge of shipped (canonical) chunk columns: plain
+    segment sums and one carry pass.  Exact while the merged partial
+    count stays below 2^31 (each chunk is below 2^32)."""
+    return seg_sum_chunks([torch.where(w, c, 0) for c in chunk_lanes], gid, cap)
+
+
 def promote(v: torch.Tensor) -> torch.Tensor:
     """Lane value -> wide form (no-op if already two-limb)."""
     return v if is_wide(v) else widen(v)

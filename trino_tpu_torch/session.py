@@ -5,10 +5,14 @@ parse -> analyze/plan -> optimize -> execute (exec/local.LocalExecutor)
 for SELECT and the writes (INSERT, CREATE TABLE AS, DELETE, UPDATE,
 MERGE), CREATE TABLE, DROP TABLE, SHOW TABLES and EXPLAIN.  Session
 properties are the JAX package's (config.SessionProperties); the
-executor reads `megakernels`.  Not in this slice: SET SESSION, EXPLAIN
-ANALYZE, views, prepared statements, streaming, spill, the device
-supervisor, the result cache, the doctor, the journal and the
-distributed executors.
+executor reads `megakernels` and the memory properties: a
+LocalMemoryManager sized by `query_max_memory_bytes` arbitrates each
+query's host and device reservations, the scan cache is registered with
+it as revocable, and queries over the limit stream or spill
+(`spill_enabled`, `double_buffer_depth`, `memory_blocked_timeout_s`).
+Not in this slice: SET SESSION, EXPLAIN ANALYZE, views, prepared
+statements, the device supervisor, the result cache, the doctor, the
+journal and the distributed executors.
 
 Sessions run on the CUDA card unless created with device="cpu"; without
 a card and without that request, creating one raises.
@@ -28,6 +32,7 @@ from .connectors.tpcds import TpcdsConnectorFactory
 from .connectors.tpch import TpchConnectorFactory
 from .exec.local import DeviceScanCache, LocalExecutor
 from .expr.lower import ProjectionMemo
+from .memory import LocalMemoryManager
 from .page import Page, column_from_pylist, page_from_pydict
 from .plan import nodes as P
 from .plan.optimizer import optimize
@@ -52,10 +57,16 @@ class Session:
         self.properties = SessionProperties(config)
         self.metadata = Metadata(self.catalogs)
         self.sql_functions: dict = {}
-        # cross-query scan cache (device-resident scan lanes)
+        # per-node memory arbitration: host pools and the device tier
+        self.memory_manager = LocalMemoryManager(
+            self.properties.get("query_max_memory_bytes"))
+        # cross-query scan cache (device-resident scan lanes), revoked
+        # first under memory pressure (_executor registers what it holds)
         self._scan_cache = DeviceScanCache(device=self.device)
         self._plan_cache: dict = {}
         self._capacity_hints: dict = {}
+        # streaming fragment DAGs keyed by id(plan)
+        self._fragment_cache: dict = {}
         # host dictionary projections reused across queries
         self._projection_memo = ProjectionMemo()
         self.last_kernel_profile: Optional[dict] = None
@@ -66,6 +77,12 @@ class Session:
             self.default_catalog = name
 
     def _executor(self) -> LocalExecutor:
+        # the bytes the cache holds, not its budget (a quarter of the
+        # card, above the default limit): only real pressure revokes it
+        self.memory_manager.unregister_revocable("scan-cache")
+        self.memory_manager.register_revocable(
+            "scan-cache", self._scan_cache.bytes, self._scan_cache.drop_all,
+        )
         return LocalExecutor(self.catalogs, {
             "device": self.device,
             "megakernels": self.properties.get("megakernels"),
@@ -75,6 +92,12 @@ class Session:
             ),
             "capacity_hints": self._capacity_hints,
             "projection_memo": self._projection_memo,
+            "memory_limit_bytes": self.properties.get("query_max_memory_bytes"),
+            "spill_enabled": self.properties.get("spill_enabled"),
+            "memory_manager": self.memory_manager,
+            "memory_blocked_timeout_s": self.properties.get("memory_blocked_timeout_s"),
+            "double_buffer_depth": self.properties.get("double_buffer_depth"),
+            "fragment_cache": self._fragment_cache,
         })
 
     # ------------------------------------------------------------------
