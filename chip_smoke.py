@@ -9,6 +9,11 @@ Phases (any failure exits non-zero and prints no result line):
   2. hold each kernel against its plain PyTorch version on the card,
      on random and edge inputs (exact equality); one fused call runs
      under torch.cuda.set_sync_debug_mode("error");
+  2b. `gen`: every TPC-H table at SF10, each column the on-device
+     generator makes (connectors/tpch_device.py), generated on the card
+     and held byte for byte against the port's host generator, lineitem
+     whole and in three order ranges; the card's seconds against host
+     generation plus the copy, and the peak memory of each generation;
   3. SF1: all 22 TPC-H queries of tests/tpch_sql.py, plus UNION,
      INTERSECT, EXCEPT and two window statements of the CPU tests, and
      the statements of tests/test_aggregates.py, test_functions.py,
@@ -20,7 +25,14 @@ Phases (any failure exits non-zero and prints no result line):
      kernels) and with every kernel function replaced by its plain
      version: the pages must be byte-identical, Q6, Q1 and Q3 agree
      with exact numpy references, and so do the
-     TPC-DS statements that phase 7 checks;
+     TPC-DS statements that phase 7 checks; a fifth way runs the 22
+     TPC-H queries over the host generator's scans (device_generation
+     off), byte-identical to the card-generated runs;
+  3b. `session` at SF1: SET/SHOW SESSION, a view over a join,
+     PREPARE/EXECUTE ... USING and re-PREPARE, DESCRIBE INPUT/OUTPUT,
+     ANALYZE then SHOW STATS against exact counts, EXPLAIN ANALYZE of
+     Q1, Q3 and Q6 (its operator rows equal a plain run's) and a
+     result-cache hit (the same page, no kernel launched);
   4. TPC-H SF10, the main path: Q6, Q1 and Q3 warm with megakernels=auto
      and Q1 with megakernels=off, held against the numpy references;
      every kernel's launch count must move (direct_probe twice per Q3);
@@ -74,6 +86,9 @@ device).  The last log line gives the run's seconds.
 
 Every earlier phase runs in sessions whose memory limit is the card's
 size and fails if a statement streams, spills or is forced to stream.
+Scans are generated on the card (`device_generation`, the default)
+wherever the generator makes every column a scan reads.  Every timed
+session runs with `result_cache` off (a warm repeat would be a lookup).
 
 With --parent DIR (a checkout of an earlier commit), that commit's
 direct_probe also runs the kernel cases and is timed beside this one's.
@@ -833,6 +848,8 @@ def _card_session(factory, sf, **props):
     streaming), or the phase fails."""
     from trino_tpu_torch.memory import detect_device_bytes
 
+    # timed runs repeat statements: the result cache would answer them
+    props.setdefault("result_cache", False)
     s = factory(sf, query_max_memory_bytes=detect_device_bytes(), **props)
     run = s.execute
 
@@ -851,9 +868,14 @@ def _card_session(factory, sf, **props):
 
 def _scan_host_columns(session, needed, table="lineitem"):
     """The host arrays (and dictionaries) of the session's cached scan of
-    `table` that holds every column in `needed`."""
+    `table` that holds every column in `needed`: a device-generated scan
+    has no host arrays, so its lanes are copied back (the gen phase holds
+    them byte for byte to the host generator)."""
     for key, entry in session._scan_cache.entries.items():
         if key[1] == table and set(needed) <= set(entry["merged"]):
+            if entry.get("devgen") is not None:
+                return ({c: v.cpu().numpy() for c, (v, _ok) in entry["dev"].items()},
+                        entry["dicts"])
             return ({c: v for c, (v, _ok) in entry["merged"].items()},
                     entry["dicts"])
     raise AssertionError(f"no cached {table} scan with columns {needed}")
@@ -1060,8 +1082,9 @@ def _ooc_statements():
 
 
 # the JAX package's decisions for them (exec/streaming.py and
-# exec/spill.py planned at SF10 with device_generation=False; the CPU
-# test tests/test_torch_streaming.py holds both packages to this table):
+# exec/spill.py planned at SF10, the same with device_generation off and
+# at its default, on; the CPU tests tests/test_torch_streaming.py and
+# test_torch_tpch_device.py hold both packages to this table):
 # the path, the fragment count and the tiles of each source fragment
 OOC_WANT = {
     ("Q1", 8 << 30): ("stream", 3, (("lineitem", 2),)),
@@ -1376,6 +1399,7 @@ def phase_sf1(dev, sf=1.0):
     TPC-DS path's statements on a TPC-DS session with its numpy checks."""
     import gc
 
+    from trino_tpu_torch import convert
     from trino_tpu_torch.ops import kernels as kn
     from trino_tpu_torch.session import tpcds_session, tpch_session
 
@@ -1407,6 +1431,21 @@ def phase_sf1(dev, sf=1.0):
     check_reference({q: pages[q] for q in ("Q6", "Q1")}, cols, dicts)
     check_q3_page(s, pages["Q3"])
     _log("[sf1] Q6, Q1 and Q3 agree exactly with the numpy references")
+    gen = [e for k, e in s._scan_cache.entries.items() if k[0] == "tpch"]
+    _log(f"[sf1] scans in the cache: {sum(e.get('devgen') is not None for e in gen)} "
+         f"generated on the card, {sum(e.get('devgen') is None for e in gen)} by the "
+         f"host (columns the generator cannot make)")
+    # the fifth way: every TPC-H query over the host generator's scans
+    host = _card_session(tpch_session, sf, device_generation=False)
+    for q, sql in _tpch_sql().items():
+        page = host.execute(sql)
+        if host.last_kernel_profile.get("deviceGeneratedScans"):
+            raise AssertionError(f"{q}: a scan was generated on the card with "
+                                 f"device_generation off")
+        convert.assert_pages_identical(pages[q], page)
+    _log("[sf1] the 22 TPC-H queries over the host generator's scans: pages "
+         "byte-identical to the card-generated runs")
+    del host
     for row in pages["Q1"].to_pylist():
         _log(f"[sf1] Q1 {row}")
     _log(f"[sf1] Q6 {pages['Q6'].to_pylist()}")
@@ -2233,7 +2272,7 @@ def phase_ooc(dev, do_profile=False):
     from trino_tpu_torch.utils.memory import ExceededMemoryLimitError
 
     for limit, props, statements in _ooc_statements():
-        s = tpch_session(sf, query_max_memory_bytes=limit, **props)
+        s = tpch_session(sf, query_max_memory_bytes=limit, result_cache=False, **props)
         for label, sql in statements:
             if (label, limit) in OOC_REFUSED:
                 t0 = time.perf_counter()
@@ -2276,9 +2315,12 @@ def phase_ooc(dev, do_profile=False):
                  f"warm {walls[1]:.3f} s; peak {peak} bytes above the "
                  f"{base} allocated before it{over}; launches over both runs "
                  f"{launches or 'none'}; preuploads {prof.get('preuploads', 0)} "
-                 f"({prof.get('preupload_bytes', 0)} bytes); warm tiles: load "
+                 f"({prof.get('preupload_bytes', 0)} bytes copied, "
+                 f"{prof.get('pregenerated_bytes', 0)} generated); warm tiles: load "
                  f"{prof.get('streamLoadS', 0):.3f} s on the prefetch thread, wait "
-                 f"{prof.get('streamWaitS', 0):.3f} s, run {prof.get('streamRunS', 0):.3f} s")
+                 f"{prof.get('streamWaitS', 0):.3f} s, run {prof.get('streamRunS', 0):.3f} s; "
+                 f"scans generated on the card {prof.get('deviceGeneratedScans', 0)}, "
+                 f"by the host {prof.get('hostGeneratedScans', 0)} (warm run)")
             if do_profile:
                 _profile(s, sql, f"ooc {label} {limit >> 20} MiB")
             pages[(label, limit)] = page
@@ -2314,6 +2356,258 @@ def phase_ooc(dev, do_profile=False):
          f"the distinct count, the 15 M sorted orders and the window sums with numpy")
     _log(f"[ooc] launches over the phase (cold and warm runs): {totals}")
     MAIN.update(ooc_launches=totals)
+
+
+# ---------------------------------------------------------------------------
+# the on-device TPC-H generator at SF10 against the host generator
+
+
+GEN_SPLITS = 3  # lineitem again in this many order ranges
+
+
+def _gen_on_card(dev, table, cols, lo, hi, count):
+    """(lanes, seconds, peak bytes above what was allocated before, the
+    lanes' own bytes) of one generation on the card."""
+    from trino_tpu_torch.connectors import tpch_device
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lanes = tpch_device.device_lanes(table, cols, lo, hi, MAIN_SF, count, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    own = sum(v.numel() * v.element_size() for v, _ok in lanes.values()) + count
+    return lanes, secs, peak, own
+
+
+def _same_lanes(label, lanes, values):
+    for c, want in values.items():
+        got = lanes[c][0].cpu().numpy()
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            bad = np.nonzero(got != want)[0][:5] if got.shape == want.shape else "shape"
+            raise AssertionError(f"{label}.{c}: card {got.dtype}{got.shape} differs "
+                                 f"from the host generator {want.dtype}{want.shape} at {bad}")
+
+
+def phase_gen(dev):
+    """Every table and every column the generator makes, at SF10 on the
+    card, byte for byte against the port's host generator
+    (connectors/tpch.py, the native lineitem generator): lineitem whole
+    and in GEN_SPLITS order ranges (the generator's row chunks end inside
+    orders); the card's seconds (cold, then warm) against host generation
+    plus the page-locked copy to the card, and the peak device memory of
+    each generation beside its lanes' own bytes."""
+    import gc
+
+    from trino_tpu_torch import device as D
+    from trino_tpu_torch.connectors import tpch, tpch_device
+
+    sf = MAIN_SF
+    n = tpch._counts(sf)
+    rows = {}
+    for table in sorted(tpch_device.DEVICE_COLS, key=lambda t: n[t]):
+        cols = sorted(tpch_device.DEVICE_COLS[table])
+        t0 = time.perf_counter()
+        values, _dicts, count = tpch.generate(table, sf, columns=cols)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = [D.to_device(np.asarray(values[c]), dev, pin=True) for c in cols]
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        del up
+        base_rows = n["orders"] if table == "lineitem" else n[table]
+        if table == "lineitem":
+            t0 = time.perf_counter()
+            count_s = tpch_device.lineitem_count(0, base_rows)
+            count_host_s = time.perf_counter() - t0
+            if count_s != count:
+                raise AssertionError(f"lineitem_count {count_s} != {count}")
+        lanes, cold_s, peak, own = _gen_on_card(dev, table, cols, 0, base_rows, count)
+        _same_lanes(table, lanes, values)
+        del lanes
+        _lanes, warm_s, _peak, _own = _gen_on_card(dev, table, cols, 0, base_rows, count)
+        del _lanes, values
+        rows[table] = (count, len(cols), cold_s, warm_s, host_s, upload_s, peak, own)
+        _log(f"[gen] {table}: {count} rows x {len(cols)} columns byte-identical to "
+             f"the host generator; card {cold_s:.3f} s cold, {warm_s:.3f} s warm; host "
+             f"{host_s:.3f} s + copy {upload_s:.3f} s; peak {peak} bytes above the "
+             f"allocated, lanes {own} bytes, temporaries {peak - own} bytes "
+             f"({(peak - own) / max(count, 1):.1f} B a row; the gate reserves "
+             f"{8 * tpch_device.DEVGEN_TEMP_LANES})"
+             + (f"; lineitem_count on the host {count_host_s:.3f} s"
+                if table == "lineitem" else ""))
+        gc.collect()
+        torch.cuda.empty_cache()
+    cols = sorted(tpch_device.DEVICE_COLS["lineitem"])
+    for split in range(GEN_SPLITS):
+        values, _d, count = tpch.generate("lineitem", sf, split=split,
+                                          num_splits=GEN_SPLITS, columns=cols)
+        lo = (n["orders"] * split) // GEN_SPLITS
+        hi = (n["orders"] * (split + 1)) // GEN_SPLITS
+        if tpch_device.lineitem_count(lo, hi) != count:
+            raise AssertionError(f"lineitem split {split}: line count differs")
+        lanes, secs, _peak, _own = _gen_on_card(dev, "lineitem", cols, lo, hi, count)
+        _same_lanes(f"lineitem[{lo}:{hi}]", lanes, values)
+        step = tpch_device.chunk_rows(count)
+        ln = values["l_linenumber"]
+        inside = sum(int(ln[e] != 1) for e in range(step, count, step))
+        _log(f"[gen] lineitem orders [{lo}, {hi}): {count} rows byte-identical in "
+             f"{secs:.3f} s; {inside} of its {(count - 1) // step} chunk edges fall "
+             f"inside an order")
+        del lanes, values
+        gc.collect()
+        torch.cuda.empty_cache()
+    MAIN["gen"] = rows
+
+
+# ---------------------------------------------------------------------------
+# the session's statements at SF1
+
+
+SESSION_SF = 1.0
+EXPLAINED = ("Q1", "Q3", "Q6")
+
+
+def _frames(timeline):
+    return [(f["operatorId"], f["operatorType"], f["inputRows"], f["outputRows"])
+            for f in timeline["operators"]]
+
+
+def phase_session(dev):
+    """The session's statements on the card at SF1: SET / SHOW SESSION,
+    a view over a join against the same query written out, PREPARE /
+    EXECUTE ... USING against the literal query (and re-PREPARE), DESCRIBE
+    INPUT / OUTPUT, ANALYZE then SHOW STATS against exact counts, EXPLAIN
+    ANALYZE of Q1, Q3 and Q6 whose per-operator rows equal a plain run's
+    (operator_stats) and the tables' counts, and a result-cache hit that
+    returns the same page with no kernel launched."""
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.session import tpch_session
+
+    qs = _tpch_sql()
+    s = _card_session(tpch_session, SESSION_SF)
+
+    def rows(sql):
+        return s.execute(sql).to_pylist()
+
+    rows("set session double_buffer_depth = 2")
+    rows("set session tpch.rows_per_split = 4096")
+    shown = {r[0]: r[1] for r in rows("show session")}
+    if (shown["double_buffer_depth"], shown["tpch.rows_per_split"],
+            shown["device_generation"], shown["result_cache"]) != ("2", "4096", "True", "False"):
+        raise AssertionError(f"SHOW SESSION: {shown}")
+    rows("set session double_buffer_depth = 1")
+    joined = ("select o_orderkey, c_mktsegment, o_totalprice from orders "
+              "join customer on o_custkey = c_custkey")
+    rows(f"create view ord_cust as {joined}")
+    view_q = ("select c_mktsegment, count(*), sum(o_totalprice) from {} "
+              "where o_totalprice > 300000 group by c_mktsegment order by c_mktsegment")
+    convert.assert_pages_identical(s.execute(view_q.format(f"({joined})")),
+                                   s.execute(view_q.format("ord_cust")))
+    if rows("show columns from ord_cust") != [("o_orderkey", "bigint"), (
+            "c_mktsegment", "varchar"), ("o_totalprice", "decimal(12,2)")]:
+        raise AssertionError(f"view columns {rows('show columns from ord_cust')}")
+    rows("drop view ord_cust")
+    rows("prepare pq from select count(*), sum(l_extendedprice) from lineitem "
+         "where l_quantity < ? and l_shipdate >= ?")
+    convert.assert_pages_identical(
+        s.execute("select count(*), sum(l_extendedprice) from lineitem "
+                  "where l_quantity < 24 and l_shipdate >= date '1995-01-01'"),
+        s.execute("execute pq using 24, date '1995-01-01'"))
+    if rows("describe input pq") != [(1, "unknown"), (2, "unknown")]:
+        raise AssertionError(f"DESCRIBE INPUT {rows('describe input pq')}")
+    if rows("describe output pq") != [("count", "bigint"), ("sum", "decimal(38,2)")]:
+        raise AssertionError(f"DESCRIBE OUTPUT {rows('describe output pq')}")
+    rows("prepare pq from select count(*) from lineitem where l_quantity >= ?")
+    n_li = rows("select count(*) from lineitem")[0][0]
+    lo = rows("select count(*) from lineitem where l_quantity < 24")[0][0]
+    if rows("execute pq using 24") != [(n_li - lo,)]:
+        raise AssertionError("EXECUTE after re-PREPARE ran the old statement")
+    rows("deallocate prepare pq")
+    t0 = time.perf_counter()
+    if rows("analyze lineitem (l_partkey, l_shipdate)") != [(n_li,)]:
+        raise AssertionError("ANALYZE counted other rows")
+    analyze_s = time.perf_counter() - t0
+    stats = {r[0]: r for r in rows("show stats for lineitem")}
+    exact = rows("select count(distinct l_partkey), min(l_shipdate), "
+                 "max(l_shipdate) from lineitem")[0]
+    ndv = stats["l_partkey"][1]
+    if stats[None][3] != float(n_li) or abs(ndv - exact[0]) > 0.15 * exact[0]:
+        raise AssertionError(f"SHOW STATS {stats[None]}, NDV {ndv} vs {exact[0]}")
+    _log(f"[session] SET/SHOW SESSION, a view over a join, PREPARE/EXECUTE USING "
+         f"(re-PREPARE too), DESCRIBE INPUT/OUTPUT; ANALYZE of lineitem "
+         f"({analyze_s:.3f} s): {n_li} rows, l_partkey NDV {ndv:.0f} against "
+         f"{exact[0]} exact, l_shipdate {stats['l_shipdate'][4]}..{stats['l_shipdate'][5]}")
+    counts = {t: rows(f"select count(*) from {t}")[0][0]
+              for t in ("lineitem", "orders", "customer")}
+    for q in EXPLAINED:
+        kn.reset_counts()
+        lines = [r[0] for r in rows("explain analyze " + qs[q])]
+        explained = _frames(s.last_timeline)
+        launched = dict(kn.LAUNCHES)
+        s.properties.set("operator_stats", True)
+        page = s.execute(qs[q])
+        plain = _frames(s.last_timeline)
+        s.properties.set("operator_stats", False)
+        if explained != plain:
+            raise AssertionError(f"EXPLAIN ANALYZE {q}: {explained} != {plain}")
+        convert.assert_pages_identical(page, s.execute(qs[q]))
+        scans = sorted(f[3] for f in explained if f[1] == "TableScan")
+        want = sorted(counts[t] for t in {"Q1": ["lineitem"], "Q6": ["lineitem"],
+                                          "Q3": ["lineitem", "orders", "customer"]}[q])
+        if scans and scans != want:
+            raise AssertionError(f"EXPLAIN ANALYZE {q}: scan rows {scans} != {want}")
+        if explained[0][3] != page.count:
+            raise AssertionError(f"EXPLAIN ANALYZE {q}: root rows {explained[0][3]}")
+        text = "\n".join(lines)
+        for needed in ("Operator timeline", f"Kernel profile ({dev.type}",
+                       "bandwidth ledger"):
+            if needed not in text:
+                raise AssertionError(f"EXPLAIN ANALYZE {q}: no {needed!r} block")
+        _log(f"[session] EXPLAIN ANALYZE {q}: {len(explained)} operators, rows equal a "
+             f"plain run's; launches {_launched(kn)}; "
+             + "; ".join(line.strip() for line in lines
+                         if line.strip().startswith(("kernel launches", "run eager"))))
+        if not any(launched.values()):
+            raise AssertionError(f"EXPLAIN ANALYZE {q} launched no kernel")
+    # EXPLAIN ANALYZE runs the session's executor under its properties
+    # (here no fusion and scans from the host generator), as execute does
+    rows("set session megakernels = 'off'")
+    rows("set session device_generation = false")
+    counted = ("deviceGeneratedScans", "hostGeneratedScans", "fusedAggregates")
+    rows("explain analyze " + qs["Q6"])
+    explained = _frames(s.last_timeline)
+    eprof = {k: s.last_kernel_profile.get(k, 0) for k in counted}
+    s.properties.set("operator_stats", True)
+    s.execute(qs["Q6"])
+    s.properties.set("operator_stats", False)
+    plain = _frames(s.last_timeline)
+    pprof = {k: s.last_kernel_profile.get(k, 0) for k in counted}
+    if explained != plain or eprof != pprof or pprof["fusedAggregates"]:
+        raise AssertionError(f"EXPLAIN ANALYZE Q6 (megakernels off, host generation): "
+                             f"{explained} {eprof} != {plain} {pprof}")
+    rows("set session megakernels = 'auto'")
+    rows("set session device_generation = true")
+    _log(f"[session] EXPLAIN ANALYZE Q6 with megakernels off and host generation: "
+         f"frames and profile counts equal a plain run's ({pprof})")
+    s.properties.set("result_cache", True)
+    first = s.execute(qs["Q6"])
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    hit = s.execute(qs["Q6"])
+    hit_s = time.perf_counter() - t0
+    convert.assert_pages_identical(first, hit)
+    rc = s.caches.result_cache
+    if rc.hits != 1 or any(kn.LAUNCHES.values()) or s.last_kernel_profile is not None:
+        raise AssertionError(f"result cache: hits {rc.hits}, launches {kn.LAUNCHES}")
+    s.execute("set session result_cache = false")
+    _log(f"[session] result cache: Q6 answered from the cache in {hit_s * 1e3:.3f} ms, "
+         f"the same page, no kernel launched ({rc.stats()})")
+    del s
 
 
 # ---------------------------------------------------------------------------
@@ -2957,8 +3251,12 @@ def main(argv=None) -> int:
     global MAIN_REPS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "main", "ext", "ooc", "ds"],
+                    choices=["all", "kernels", "gen", "session", "main", "ext", "ooc",
+                             "ds"],
                     help="run only the build and kernel phases, only the build "
+                         "and the SF10 on-device generator against the host "
+                         "generator, only the build and the SF1 session "
+                         "statements, only the build "
                          "and the SF10 main path (which also runs on the package "
                          "of an earlier commit, for comparisons), only the build "
                          "and the SF10 array/JSON/write phase (in a fresh session), "
@@ -2996,11 +3294,17 @@ def main(argv=None) -> int:
         phases.append(("ext", lambda: phase_ext(dev, args.profile)))
     elif args.phase == "ooc":
         phases.append(("ooc", lambda: phase_ooc(dev, args.profile)))
+    elif args.phase == "gen":
+        phases.append(("gen", lambda: phase_gen(dev)))
+    elif args.phase == "session":
+        phases.append(("session", lambda: phase_session(dev)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
         phases += [
+            ("gen", lambda: phase_gen(dev)),
             ("sf1", lambda: phase_sf1(dev)),
+            ("session", lambda: phase_session(dev)),
             main_path,
             ("rel", lambda: phase_sf10_rel(dev, args.profile)),
             ("ext", lambda: phase_ext(dev, args.profile)),

@@ -207,7 +207,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'trino_tpu_torch.memory.pools', 'trino_tpu_torch.ops.sketches',"
         " 'trino_tpu_torch.plan.fragment', 'trino_tpu_torch.exec.partitioner',"
         " 'trino_tpu_torch.exec.dynamic_filter', 'trino_tpu_torch.exec.fragment_exec',"
-        " 'trino_tpu_torch.exec.streaming', 'trino_tpu_torch.exec.spill'}\n"
+        " 'trino_tpu_torch.exec.streaming', 'trino_tpu_torch.exec.spill',"
+        " 'trino_tpu_torch.connectors.tpch_device', 'trino_tpu_torch.cache',"
+        " 'trino_tpu_torch.cache.signature', 'trino_tpu_torch.cache.result_cache',"
+        " 'trino_tpu_torch.serde', 'trino_tpu_torch.obs.opstats',"
+        " 'trino_tpu_torch.obs.bandwidth', 'trino_tpu_torch.stats.analyze',"
+        " 'trino_tpu_torch.utils.events', 'trino_tpu_torch.utils.tracing',"
+        " 'trino_tpu_torch.utils.metrics'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )

@@ -50,7 +50,10 @@ def jax_session(sf, **props):
 
 
 def torch_session(sf, **props):
-    return _torch_session(sf, device="cpu", **props)
+    # host generation, as jax_session's: the out-of-core gate counts the
+    # on-device generator's temporaries (tests/test_torch_tpch_device.py
+    # holds the gates with it on)
+    return _torch_session(sf, device="cpu", device_generation=False, **props)
 
 
 # name: (sf, limit, sql, the port's path: None = in memory); the
@@ -234,7 +237,7 @@ def test_dynamic_filter_pruning_matches_jax(keys):
         assert (0, "l_partkey") in dfs
         splits = s.catalogs.get("tpch").split_manager().get_splits("lineitem", 1)
         cfg = {"device_generation": False} if FE is JaxFragmentExecutor else {
-            "device": "cpu"}
+            "device": "cpu", "device_generation": False}
         ex = FE(s.catalogs, cfg, {0: splits}, remote, dfs)
         page = ex.execute(plan)
         unpruned = FE(s.catalogs, dict(cfg), {0: splits}, remote)

@@ -42,7 +42,10 @@ def jax_session(sf, **props):
 
 
 def torch_session(sf, **props):
-    return _torch_session(sf, device="cpu", **props)
+    # host generation, as jax_session's: the out-of-core gate counts the
+    # on-device generator's temporaries (tests/test_torch_tpch_device.py
+    # holds the gates with it on)
+    return _torch_session(sf, device="cpu", device_generation=False, **props)
 
 
 def run_both(sf, sql, **props):

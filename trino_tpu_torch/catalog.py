@@ -143,14 +143,26 @@ class Metadata:
         return catalog, table
 
     def table_statistics(self, catalog: str, table: str) -> TableStatistics:
+        from .utils.metrics import counter
+
         conn = self.catalogs.get(catalog)
         entry = self.analyzed.get((catalog, table))
         if entry is not None:
             version, stats = entry
             if conn.data_version(table) == version:
+                counter("trino_tpu_stats_served_total").inc()
                 return stats
             del self.analyzed[(catalog, table)]
         stats = conn.metadata().get_table_statistics(table)
+        # connector-stored ANALYZE results (histograms prove provenance)
+        # count as serves too; bare row-count fallbacks count as misses
+        if any(
+            c.histogram is not None or c.distinct_count is not None
+            for c in stats.columns.values()
+        ):
+            counter("trino_tpu_stats_served_total").inc()
+        else:
+            counter("trino_tpu_stats_missed_total").inc()
         return stats
 
     def store_table_statistics(

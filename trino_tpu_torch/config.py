@@ -3,9 +3,11 @@
 Reference parity: airlift @Config binding (369 setters; TaskManagerConfig,
 QueryManagerConfig, FeaturesConfig...) and SystemSessionProperties.java
 (151 typed session properties) — reduced to the properties this port's
-optimizer, analyzer and executor actually read, the memory limit, spill
-and streaming ones included.  Any other name, including the JAX
-package's other runtime properties (retries, caches, observatories),
+optimizer, analyzer, executor and session actually read: the memory
+limit, spill and streaming ones, on-device generation, the result
+cache, operator stats, the bandwidth ledger and ANALYZE's histogram.
+Any other name, including the JAX package's properties whose machinery
+the port does not have yet (retries, the compile cache, observatories),
 raises KeyError at SET time rather than being silently ignored; values
 are validated and typed at SET time.
 """
@@ -193,6 +195,43 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             "scan column): auto (on for CUDA tensors, off on the CPU) | "
             "on (the plain version on the CPU, for parity tests) | off",
             _megakernels, "auto",
+        ),
+        PropertyMetadata(
+            "device_generation",
+            "materialize counter-based generator scans (tpch) directly "
+            "in HBM instead of host numpy + upload",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "result_cache",
+            "serve repeated deterministic queries from the fragment "
+            "result cache (invalidated by connector data versions)",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "result_cache_max_bytes",
+            "in-memory byte budget for the fragment result cache "
+            "(cold entries spill to disk as checksummed frames)",
+            int, 256 << 20,
+        ),
+        PropertyMetadata(
+            "operator_stats",
+            "collect per-operator OperatorStats frames (rows/bytes/wall/"
+            "blocked) on every execution; forces eager per-node timing",
+            _bool, False,
+        ),
+        PropertyMetadata(
+            "bandwidth_ledger",
+            "bracket every supervised dispatch with block_until_ready "
+            "and account bytes-touched / device wall into per-kernel "
+            "effective GB/s (EXPLAIN ANALYZE always collects it)",
+            _bool, False,
+        ),
+        PropertyMetadata(
+            "analyze_histogram_buckets",
+            "equi-height histogram buckets ANALYZE collects per "
+            "numeric/date column (device-sort quantile boundaries)",
+            int, 8,
         ),
     ]
 }

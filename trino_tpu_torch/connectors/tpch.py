@@ -832,6 +832,43 @@ class TpchConnector(Connector):
     def page_source_provider(self):
         return TpchPageSourceProvider(self.sf)
 
+    def device_generation(self, table: str, cols, splits) -> Optional[dict]:
+        """On-device generation spec for a contiguous split range, or None
+        when any requested column needs host formatting or the splits are
+        not contiguous (connectors/tpch_device.py, the in-process row
+        generation of TpchPageSourceProvider made on the device).  Its
+        dictionaries are the host path's vocabularies."""
+        from . import tpch_device
+
+        if not splits or not tpch_device.supports(table, cols):
+            return None
+        tot = splits[0].total
+        ords = sorted(s.ordinal for s in splits)
+        if any(s.total != tot for s in splits):
+            return None
+        if ords != list(range(ords[0], ords[-1] + 1)):
+            return None
+        base = "orders" if table == "lineitem" else table
+        nb = _counts(self.sf)[base]
+        lo = (nb * ords[0]) // tot
+        hi = (nb * (ords[-1] + 1)) // tot
+        if table == "lineitem":
+            count = tpch_device.lineitem_count(lo, hi)
+        else:
+            count = hi - lo
+        types = dict(SCHEMAS[table])
+        dicts = {
+            c: _VOCABS[c]
+            for c in cols
+            if types[c].is_dictionary and c in _VOCABS
+        }
+        widths = {c: 4 if types[c].is_dictionary or types[c].name == "date"
+                  else 8 for c in cols}
+        return {
+            "table": table, "lo": lo, "hi": hi, "sf": self.sf,
+            "count": count, "dicts": dicts, "widths": widths,
+        }
+
 
 class TpchConnectorFactory(ConnectorFactory):
     """Reference: TpchConnectorFactory — config key tpch.scale-factor."""

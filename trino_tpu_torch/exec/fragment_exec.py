@@ -14,10 +14,11 @@ executor only changes where leaf data comes from:
     before they reach the device.
 
 Streaming tiles (exec/streaming.py) stage their inputs ahead: `preload`
-loads the tile's host arrays on the prefetch thread, and `preupload`
-copies its scan lanes to the card through page-locked memory on a side
-CUDA stream, recording an event the executing stream waits on before
-the tile's first use.
+loads the tile's scans on the prefetch thread (host arrays, or the
+on-device generation spec of a device-generated scan), and `preupload`
+puts its scan lanes on the card on a side CUDA stream (generating them
+there, or copying host arrays through page-locked memory), recording an
+event the executing stream waits on before the tile's first use.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from ..catalog import CatalogManager
 from ..page import Page
 from ..plan import nodes as P
 from ..spi import Split
-from .local import LocalExecutor, merge_pages_to_arrays
+from .local import LocalExecutor, _LazyDeviceLane, merge_pages_to_arrays
 
 
 class FragmentExecutor(LocalExecutor):
@@ -72,8 +73,8 @@ class FragmentExecutor(LocalExecutor):
         self._preloaded = (plan, scans, dicts, counts)
 
     def preupload(self, plan: P.Output, stream=None) -> None:
-        """Copy this tile's scan lanes to the device from the prefetch
-        thread.  On CUDA the copies run on `stream` (a side stream: a
+        """Generate or copy this tile's scan lanes on the device from the
+        prefetch thread.  On CUDA the copies run on `stream` (a side stream: a
         worker thread's current stream is the default one, where the
         copies would wait for the executing tile's kernels), and an
         event recorded after them orders the executing stream at the
@@ -103,9 +104,12 @@ class FragmentExecutor(LocalExecutor):
             else:
                 lanes, event = self._device_lanes(nodes[nid], arrays, counts[nid]), None
             self._preuploaded[nid] = (lanes, event)
+            # lanes generated on the card are counted apart from copies
+            generated = any(isinstance(v, _LazyDeviceLane) for v, _ok in arrays.values())
+            key = "pregenerated_bytes" if generated else "preupload_bytes"
             prof = self.kernel_profile
             prof["preuploads"] = prof.get("preuploads", 0) + 1
-            prof["preupload_bytes"] = prof.get("preupload_bytes", 0) + sum(
+            prof[key] = prof.get(key, 0) + sum(
                 v.numel() * v.element_size() + ok.numel() for v, ok in lanes.values()
             )
 
@@ -179,6 +183,11 @@ class FragmentExecutor(LocalExecutor):
         arrays = scans[id(node)]
         n = counts[id(node)]
         if n == 0:
+            return
+        if any(isinstance(v, _LazyDeviceLane) for v, _ok in arrays.values()):
+            # a device-generated scan has no host arrays to prune; the join
+            # still drops the rows that do not match (dynamic filtering is
+            # an optimization, never needed for the answer)
             return
         keep = np.ones(n, bool)
         for sym, doms in doms_by_sym.items():

@@ -8,8 +8,12 @@ package traces a whole fragment into one jitted XLA program over padded
 lanes, this executor walks the plan and runs each operator eagerly on
 the executor's device:
   1. loads splits on the host (numpy), merging per-split dictionaries,
-  2. uploads scan columns through page-locked memory and keeps them on
-     the device across queries (DeviceScanCache),
+     unless the connector generates the scan on the device
+     (`device_generation`: connectors/tpch_device.py makes the lanes from
+     a row range, and no host array exists),
+  2. uploads scan columns through page-locked memory (or generates them
+     on the device) and keeps them there across queries
+     (DeviceScanCache),
   3. runs the operators (filter / project / sample / join / cross join /
      semi join (IN, EXISTS and, under a NOT filter, their negations) /
      scalar join / GROUPING SETS row expansion / aggregate, DISTINCT
@@ -53,6 +57,11 @@ dictionary entry per group from one copy of the lanes
 (ops/aggregation.host_staged_lanes), and MATCH_RECOGNIZE sorts on the
 device and runs the row-at-a-time matcher (ops/matcher.py) per
 partition.  Every lane they return lives on the executor's device.
+
+With `collect_node_stats` (EXPLAIN ANALYZE, `operator_stats`) every
+operator's rows, bytes and walls land in `node_stats`, the card
+synchronized after each one; with `bandwidth_ledger` each run's bytes
+over its synchronized wall go to obs/bandwidth.py.
 
 Not in this slice (ExecutionError / NotImplementedError): the device
 supervisor and the mesh executor.
@@ -148,6 +157,17 @@ def _single_row_plan(n: P.PlanNode) -> bool:
     if isinstance(n, (P.Project, P.Filter)):
         return _single_row_plan(n.sources[0])
     return False
+
+
+class _LazyDeviceLane:
+    """Placeholder for a scan column that will be generated on the device
+    (no host array exists).  Carries the byte size of the lane it becomes
+    so memory accounting sees the device footprint."""
+
+    __slots__ = ("nbytes",)
+
+    def __init__(self, nbytes: int):
+        self.nbytes = int(nbytes)
 
 
 def merge_pages_to_arrays(pages, symbols, types, dicts):
@@ -370,6 +390,17 @@ def _dense_ranks(d: np.ndarray) -> np.ndarray:
     return ranks
 
 
+def _tensor_bytes(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def _scan_bytes(scans) -> int:
+    """Bytes of the scan lanes a run reads: host arrays, device-generated
+    lanes by their size, validity lanes included."""
+    return sum(int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
+               for arrays in scans.values() for v, ok in arrays.values())
+
+
 def _valid_of(col: Column, n: int) -> np.ndarray:
     return (
         np.ones(n, bool)
@@ -388,6 +419,8 @@ class LocalExecutor:
         self.device = D.resolve(self.config.get("device"))
         self.kernel_profile: Dict[str, object] = {"kernels": [], "summary": {}}
         self._scan_keys: Dict[int, tuple] = {}
+        # id(scan node) -> the connector's on-device generation spec
+        self._devgen: Dict[int, dict] = {}
         self.dicts: Dict[str, np.ndarray] = {}
         self.force_wide_mul = False
         self.query_id = str(self.config.get("query_id", "query"))
@@ -395,6 +428,20 @@ class LocalExecutor:
         self.device_bytes = 0  # the device-tier reservation
         # (plan, scans, dicts, counts) a streaming prefetcher loaded
         self._preloaded = None
+        # EXPLAIN ANALYZE / operator_stats: id(plan node) -> {rows, bytes,
+        # wall_s, device_wall_s, calls} (OperatorStats), filled when
+        # collect_node_stats is set; obs/opstats.frames_from_plan turns
+        # them into frames.  blocked_memory_s: waiting on reservations.
+        self.node_stats: Dict[int, dict] = {}
+        self.blocked_memory_s = 0.0
+        self.bandwidth_ledger = None
+        # generator temporaries of the scans generated during the run the
+        # ledger is timing (warm scans and host-path scans generate none)
+        self._devgen_temp_bytes = 0
+        if self.config.get("bandwidth_ledger"):
+            from ..obs.bandwidth import BandwidthLedger
+
+            self.bandwidth_ledger = BandwidthLedger()
 
     # ------------------------------------------------------------------
     def execute(self, plan: P.PlanNode) -> Page:
@@ -452,10 +499,12 @@ class LocalExecutor:
 
             est = int(max(self.scan_bytes, estimate_program_bytes(self, plan)))
             try:
+                t_blk = time.perf_counter()
                 manager.reserve(
                     self.query_id, est, tier="device",
                     timeout=float(self.config.get("memory_blocked_timeout_s") or 0.0),
                 )
+                self.blocked_memory_s += time.perf_counter() - t_blk
                 self.device_bytes = est
             except ExceededMemoryLimitError as exc:
                 manager.free(self.query_id, self.scan_bytes, tier="host")
@@ -529,10 +578,12 @@ class LocalExecutor:
             )
         manager = self.config.get("memory_manager")
         if manager is not None:  # freed after the run (_execute_inner)
+            t_blk = time.perf_counter()
             manager.reserve(
                 self.query_id, total, tier="host",
                 timeout=float(self.config.get("memory_blocked_timeout_s") or 0.0),
             )
+            self.blocked_memory_s += time.perf_counter() - t_blk
 
     def _run_plan(self, plan: P.Output, scans, dicts, counts) -> Page:
         """Run the operators over loaded scans through the retry ladder
@@ -549,9 +600,15 @@ class LocalExecutor:
         self.force_no_direct = set(hint[3]) if hint else set()
         self.group_salt = 0  # the grouping hash's salt
         for attempt in range(7):
+            if self.bandwidth_ledger is not None:
+                self._sync()  # the ledger times this run's device work only
+                self._devgen_temp_bytes = 0
             t0 = time.perf_counter()
             ctx = _TraceCtx(self, scans, counts)
             out_lanes, sel = self._run(plan, ctx)
+            if self.bandwidth_ledger is not None:
+                self._ledger_record(out_lanes, sel, "eager-%d" % attempt, plan,
+                                    scans, t0)
             wides = ctx.lowering.overflow_flags
             fired = (
                 int(torch.stack([f.reshape(()) for f in wides]).sum())
@@ -577,7 +634,59 @@ class LocalExecutor:
             s: (D.to_numpy(out_lanes[s][0][idx]), D.to_numpy(out_lanes[s][1][idx]))
             for s in plan.symbols
         }
+        self._finalize_kernel_profile(scans, counts, host_lanes)
         return self._materialize_host(plan, host_lanes)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _ledger_record(self, out_lanes, sel, digest, plan, scans, start):
+        """Close one bandwidth-ledger observation: wait for the run's
+        device work and fold its bytes over the wall."""
+        from . import streaming
+
+        self._sync()
+        wall = time.perf_counter() - start
+        try:
+            inter = int(streaming.wide_agg_temp_bytes(
+                streaming.estimate_plan_scan_bytes(self, plan), plan))
+        except Exception:  # noqa: BLE001 — exotic plans: input+output only
+            inter = 0
+        inter += self._devgen_temp_bytes
+        out = sel.numel() + sum(_tensor_bytes(v) + _tensor_bytes(ok)
+                                for v, ok in out_lanes.values())
+        self.bandwidth_ledger.record(
+            digest, "eager", input_bytes=_scan_bytes(scans),
+            output_bytes=out, intermediate_bytes=inter, wall_s=wall,
+        )
+
+    def _finalize_kernel_profile(self, scans, counts, host_lanes) -> None:
+        """The profile's summary once the run settles: the runs made, the
+        rows scanned, the bytes copied to the device (host scan arrays;
+        device-generated lanes copy nothing) and back."""
+        kernels: List[dict] = self.kernel_profile["kernels"]  # type: ignore[assignment]
+        h2d = sum(int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
+                  for arrays in scans.values() for v, ok in arrays.values()
+                  if not isinstance(v, _LazyDeviceLane))
+        d2h = sum(int(v.nbytes) + int(ok.nbytes) for v, ok in host_lanes.values())
+        summary = {
+            "kernels": len(kernels),
+            "executions": sum(k["executions"] for k in kernels),
+            "actualRows": sum(int(c) for c in counts.values()),
+            "h2dBytes": h2d,
+            "d2hBytes": d2h,
+        }
+        led = self.bandwidth_ledger
+        if led is not None:
+            ls = led.summary()
+            self.kernel_profile["bandwidth"] = led.entries()
+            summary.update(effectiveGbps=ls["effectiveGbps"],
+                           rooflinePct=ls["rooflinePct"],
+                           rooflineGbps=ls["rooflineGbps"],
+                           ledgerBytes=ls["totalBytes"],
+                           deviceWallS=ls["deviceWallS"])
+        self.kernel_profile["summary"] = summary
 
     def _execute_write(self, w: P.TableWriter) -> Page:
         """INSERT / CREATE TABLE AS / DELETE / UPDATE / MERGE
@@ -700,9 +809,14 @@ class LocalExecutor:
                 for col, d in hit["dicts"].items():
                     dicts[sym_of[col]] = d
                 counts[id(node)] = hit["total"]
+                if hit.get("devgen") is not None:
+                    self._devgen[id(node)] = hit["devgen"]
                 return
         conn = self.catalogs.get(node.catalog)
         cols = [c for _, c in node.assignments]
+        if self._try_device_generation(conn, node, cols, splits, key, cache,
+                                       scans, dicts, counts):
+            return
         provider = conn.page_source_provider()
         tmap = dict(node.types)
         sym_of = {c: self._sym_for(node, c) for c in cols}
@@ -749,6 +863,66 @@ class LocalExecutor:
                 nbytes,
             )
 
+    def _try_device_generation(self, conn, node, cols, splits, key, cache,
+                               scans, dicts, counts) -> bool:
+        """On-device scan materialization: when the connector makes every
+        requested column as a pure function of the row index
+        (connectors/tpch_device.py), no host array is made; _device_lanes
+        generates the lanes on the device.  A scan that reads a column the
+        generator cannot make takes the host generator (the connector's
+        `supports`), counted as hostGeneratedScans; a generator that fails
+        raises."""
+        devgen_fn = getattr(conn, "device_generation", None)
+        if devgen_fn is None or not self.config.get("device_generation", True):
+            return False
+        spec = devgen_fn(node.table, cols, splits)
+        prof = self.kernel_profile
+        if spec is None:
+            prof["hostGeneratedScans"] = prof.get("hostGeneratedScans", 0) + 1
+            return False
+        prof["deviceGeneratedScans"] = prof.get("deviceGeneratedScans", 0) + 1
+        sym_of = {c: self._sym_for(node, c) for c in cols}
+        count = int(spec["count"])
+        merged = {
+            sym_of[c]: (_LazyDeviceLane(count * spec["widths"].get(c, 8)), None)
+            for c in cols
+        }
+        tmap = dict(node.types)
+        for c, d in spec["dicts"].items():
+            dicts[sym_of[c]] = d
+        for c in cols:
+            s = sym_of[c]
+            if tmap[s].is_dictionary and s not in dicts:
+                dicts[s] = np.array([], dtype=object)
+        scans[id(node)] = merged
+        counts[id(node)] = count
+        self._devgen[id(node)] = spec
+        if cache is not None and key is not None:
+            col_of = {s: c for s, c in node.assignments}
+            cache.put(
+                key,
+                {"merged": {col_of[s]: merged[s] for s in merged},
+                 "dicts": dict(spec["dicts"]), "total": count, "dev": {},
+                 "devgen": spec},
+                sum(lane[0].nbytes for lane in merged.values()),
+            )
+        return True
+
+    def _generate_device_scan(self, spec: dict, syms, sym_to_col):
+        """Run the connector's on-device generator for one scan; returns
+        {symbol: (values, ok)} on this executor's device."""
+        from ..connectors import tpch_device
+
+        from .streaming import DEVGEN_TEMP_LANES
+
+        cols = [sym_to_col.get(s, s) for s in syms]
+        self._devgen_temp_bytes += int(spec["count"]) * 8 * DEVGEN_TEMP_LANES
+        lanes = tpch_device.device_lanes(
+            spec["table"], cols, int(spec["lo"]), int(spec["hi"]),
+            float(spec["sf"]), int(spec["count"]), self.device,
+        )
+        return {s: lanes[c] for s, c in zip(syms, cols)}
+
     def _device_lanes(self, node: P.TableScan, arrays, count):
         """Upload one scan's host arrays to device lanes (page-locked
         copies on CUDA), reusing device tensors cached by an earlier
@@ -774,10 +948,23 @@ class LocalExecutor:
         sym_to_col = dict(getattr(node, "assignments", ()))
         dev = self.device
         lanes = {}
+        generated = None
         for sym, (arr, valid) in arrays.items():
             col = sym_to_col.get(sym, sym)
             if entry is not None and col in entry["dev"]:
                 lanes[sym] = entry["dev"][col]
+                continue
+            if isinstance(arr, _LazyDeviceLane):
+                if generated is None:  # every missing lane in one pass
+                    lazy = [s for s, (a, _v) in arrays.items()
+                            if isinstance(a, _LazyDeviceLane)
+                            and not (entry is not None
+                                     and sym_to_col.get(s, s) in entry["dev"])]
+                    generated = self._generate_device_scan(
+                        self._devgen[id(node)], lazy, sym_to_col)
+                lanes[sym] = generated[sym]
+                if entry is not None:
+                    entry["dev"][col] = generated[sym]
                 continue
             v = D.to_device(arr, dev, pin=True)
             if valid is None:
@@ -876,7 +1063,30 @@ class _TraceCtx:
         m = getattr(self, f"_visit_{name.lower()}", None)
         if m is None:
             raise ExecutionError(f"{name} is not in this slice of the port")
-        return m(node)
+        if not self.ex.config.get("collect_node_stats"):
+            return m(node)
+        # EXPLAIN ANALYZE instrumentation (OperatorContext timing): the
+        # wall is inclusive of the children (obs/opstats subtracts); the
+        # enqueue-to-sync split approximates host vs device wall
+        t0 = time.perf_counter()
+        b = m(node)
+        t1 = time.perf_counter()
+        self.ex._sync()
+        t2 = time.perf_counter()
+        st = self.ex.node_stats.setdefault(
+            id(node), {"rows": 0, "bytes": 0, "wall_s": 0.0,
+                       "device_wall_s": 0.0, "calls": 0})
+        rows = int(b.sel.sum())
+        cap = int(b.sel.shape[0])
+        lane_bytes = sum(_tensor_bytes(v) + _tensor_bytes(ok)
+                         for v, ok in b.lanes.values())
+        st["rows"] = rows
+        # logical bytes: the lanes' footprint scaled by the live fraction
+        st["bytes"] = int(lane_bytes * rows / cap) if cap else lane_bytes
+        st["wall_s"] += t2 - t0
+        st["device_wall_s"] += t2 - t1
+        st["calls"] += 1
+        return b
 
     # -- leaves ---------------------------------------------------------
     def _visit_tablescan(self, node: P.TableScan) -> Batch:

@@ -15,19 +15,21 @@ Downstream fragments consume the gathered pages as a remote worker
 would: local streaming is distributed execution with one worker and
 host memory as the exchange buffer.
 
-The gate and the tile counts are the JAX package's with
-device_generation=False: the estimate is the scan bytes times
-(1 + 0.28 per wide aggregate), tiles are ceil(estimate / (limit // 3)),
-and the generator temporaries of on-device generation add nothing (the
-port's tpch connector has no on-device generator).  The JAX package
-also quantizes a tile's padded capacity onto its padding ladder
-(scan_cap_override), so every tile reuses one compiled program; eager
-execution pads nothing and compiles nothing, so that step is left out.
+The gate and the tile counts are the JAX package's: the estimate is the
+scan bytes times (1 + 0.28 per wide aggregate) plus, with
+device_generation on, DEVGEN_TEMP_LANES int64 lanes a row of every scan
+whose connector generates on the device (the generator's temporaries,
+connectors/tpch_device.py), and tiles are ceil(scan estimate /
+(limit // 3)).  The JAX package also quantizes a tile's padded capacity
+onto its padding ladder (scan_cap_override), so every tile reuses one
+compiled program; eager execution pads nothing and compiles nothing, so
+that step is left out.
 
 Tiles run double-buffered: while tile i runs on the card, up to
-`double_buffer_depth` later tiles generate their host arrays and copy
-them to the device on a prefetch thread, the copies on a side CUDA
-stream (FragmentExecutor.preupload).
+`double_buffer_depth` later tiles load on a prefetch thread and put
+their scan lanes on the device on a side CUDA stream
+(FragmentExecutor.preupload): a device-generated scan generates its
+row range there, any other scan copies its host arrays.
 """
 from __future__ import annotations
 
@@ -115,30 +117,58 @@ def _wide_agg_count(plan: P.PlanNode) -> int:
     return n
 
 
+# int64 lanes the generator keeps live per row on top of its output
+# lanes: the row-index lane, the splitmix64 hash state, one value lane
+# (reused across columns), and lineitem's cumsum/searchsorted slot
+# machinery (connectors/tpch_device.py generates in chunks to stay inside)
+DEVGEN_TEMP_LANES = 4
+
+
 def _devgen_temp_bytes(executor, plan: P.PlanNode) -> float:
-    """Device temporaries of on-device scan generation: none, as the
-    port's connectors generate on the host.  Kept so the gate is the JAX
-    package's with device_generation=False."""
-    return 0.0
+    """Device temporaries of on-device scan generation: DEVGEN_TEMP_LANES
+    int64 lanes a row of every scan whose connector generates on the
+    device (the JAX package's estimate, whatever columns the scan reads)."""
+    if not executor.config.get("device_generation", True):
+        return 0.0
+    total = 0.0
+    for sc in _find_scan_nodes(plan):
+        conn = executor.catalogs.get(sc.catalog)
+        if getattr(conn, "device_generation", None) is None:
+            continue
+        try:
+            stats = conn.metadata().get_table_statistics(sc.table)
+        except Exception:  # noqa: BLE001 — unknown stats: assume small
+            continue
+        total += float(stats.row_count) * 8.0 * DEVGEN_TEMP_LANES
+    return total
+
+
+def wide_agg_temp_bytes(scan_bytes: float, plan: P.PlanNode) -> float:
+    """Wide-decimal accumulation temporaries (the JAX package's
+    calibration: 0.28 of the scan bytes per wide aggregate)."""
+    return scan_bytes * 0.28 * _wide_agg_count(plan)
 
 
 def estimate_program_bytes(executor, plan: P.PlanNode) -> float:
     """Estimated device peak of the in-memory run: scan lanes plus
-    wide-decimal accumulation temporaries (the JAX package's calibration,
-    1 + 0.28 per wide aggregate) plus on-device generator temporaries."""
+    wide-decimal accumulation temporaries plus on-device generator
+    temporaries."""
     scan = estimate_plan_scan_bytes(executor, plan)
     return (
-        scan * (1.0 + 0.28 * _wide_agg_count(plan))
+        scan + wide_agg_temp_bytes(scan, plan)
         + _devgen_temp_bytes(executor, plan)
     )
 
 
 # additive counters a tile executor accumulates that must surface in the
 # parent executor's kernel profile (tile executors are discarded)
-# (streamLoadS: a tile's host load and upload on the prefetch thread;
+# (streamLoadS: a tile's load and its lanes' generation or upload on the
+# prefetch thread;
 # streamWaitS: the executing thread waiting for it; streamRunS: the
 # tile's run, its copy of the output to the host included)
-_TILE_COUNTERS = ("preuploads", "preupload_bytes", "fusedAggregates",
+_TILE_COUNTERS = ("preuploads", "preupload_bytes", "pregenerated_bytes",
+                  "deviceGeneratedScans",
+                  "hostGeneratedScans", "fusedAggregates",
                   "fusedTerms", "fusionRejects", "streamLoadS", "streamWaitS",
                   "streamRunS")
 

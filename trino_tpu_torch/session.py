@@ -1,32 +1,42 @@
 """Session facade of the port: SQL in, Pages out.
 
-Counterpart of trino_tpu/session.py, trimmed to the query path:
+Counterpart of trino_tpu/session.py.  Reference parity: the in-process
+query path of testing/PlanTester.java:250 / StandaloneQueryRunner —
 parse -> analyze/plan -> optimize -> execute (exec/local.LocalExecutor)
-for SELECT and the writes (INSERT, CREATE TABLE AS, DELETE, UPDATE,
-MERGE), CREATE TABLE, DROP TABLE, SHOW TABLES and EXPLAIN.  Session
-properties are the JAX package's (config.SessionProperties); the
-executor reads `megakernels` and the memory properties: a
-LocalMemoryManager sized by `query_max_memory_bytes` arbitrates each
-query's host and device reservations, the scan cache is registered with
-it as revocable, and queries over the limit stream or spill
-(`spill_enabled`, `double_buffer_depth`, `memory_blocked_timeout_s`).
-Not in this slice: SET SESSION, EXPLAIN ANALYZE, views, prepared
-statements, the device supervisor, the result cache, the doctor, the
-journal and the distributed executors.
+— with the session machinery around it:
+  - typed session properties and SET / SHOW SESSION, catalog properties
+    included (SystemSessionProperties; config.SessionProperties);
+  - per-phase spans (utils/tracing.TRACER) and query lifecycle events to
+    registered listeners (utils/events);
+  - views, SQL functions, USE, transaction control, prepared statements
+    (PREPARE / EXECUTE ... USING / DEALLOCATE / DESCRIBE INPUT|OUTPUT),
+    ANALYZE and SHOW STATS (stats/analyze.py), EXPLAIN [ANALYZE]
+    (obs/opstats.py operator timeline, the kernel profile with the
+    launches of each CUDA kernel, obs/bandwidth.py ledger);
+  - the result cache (cache/): deterministic queries over versioned
+    tables are answered from earlier pages, invalidated by writes;
+  - a LocalMemoryManager sized by `query_max_memory_bytes` arbitrates
+    each query's host and device reservations; the scan cache is
+    registered with it as revocable, and queries over the limit stream
+    or spill.
+Not in this slice: access control, the device supervisor and fault
+injection, the query history, the doctor and journal, the compile
+cache and the distributed executors.
 
 Sessions run on the CUDA card unless created with device="cpu"; without
 a card and without that request, creating one raises.
 """
 from __future__ import annotations
 
-import dataclasses
+import time
+import uuid
 from typing import Optional
 
 from . import device as D
 from . import types as T
+from .cache import CacheManager, FragmentResultCache, plan_signature
 from .catalog import CatalogManager, Metadata
 from .config import SessionProperties
-from .expr import ir
 from .connectors.memory import MemoryConnectorFactory
 from .connectors.tpcds import TpcdsConnectorFactory
 from .connectors.tpch import TpchConnectorFactory
@@ -39,6 +49,28 @@ from .plan.optimizer import optimize
 from .sql import ast
 from .sql.analyzer import Analyzer
 from .sql.parser import parse
+from .utils.events import EventListenerManager
+from .utils.tracing import TRACER
+
+# statements that change planning state: cached plans and capacity hints
+# are stale after them (read-only EXECUTE / SHOW / EXPLAIN keep them)
+_REPLANNING = (ast.Prepare, ast.Deallocate, ast.CreateFunction,
+               ast.DropFunction, ast.CreateTable, ast.DropTable, ast.Use,
+               ast.SetSession, ast.CreateView, ast.DropView)
+_WRITES = (ast.Insert, ast.CreateTableAs, ast.Delete, ast.Update,
+           ast.MergeInto)
+
+
+def _ok_page() -> Page:
+    return page_from_pydict([("result", T.BOOLEAN)], {"result": [True]})
+
+
+def _rows_page(n: int) -> Page:
+    return page_from_pydict([("rows", T.BIGINT)], {"rows": [n]})
+
+
+def _varchar_page(name: str, lines) -> Page:
+    return Page([column_from_pylist(T.VARCHAR, list(lines))], len(lines), [name])
 
 
 class Session:
@@ -56,6 +88,11 @@ class Session:
         self.default_catalog = catalog
         self.properties = SessionProperties(config)
         self.metadata = Metadata(self.catalogs)
+        self.events = EventListenerManager()
+        self.tracer = TRACER
+        # PREPARE name FROM ... (the reference keeps these per client
+        # session) and the CREATE FUNCTION registry
+        self.prepared: dict = {}
         self.sql_functions: dict = {}
         # per-node memory arbitration: host pools and the device tier
         self.memory_manager = LocalMemoryManager(
@@ -63,6 +100,13 @@ class Session:
         # cross-query scan cache (device-resident scan lanes), revoked
         # first under memory pressure (_executor registers what it holds)
         self._scan_cache = DeviceScanCache(device=self.device)
+        self.caches = CacheManager(
+            FragmentResultCache(
+                max_bytes=self.properties.get("result_cache_max_bytes"),
+                on_event=self.events.cache_event,
+            ),
+            self._scan_cache,
+        )
         self._plan_cache: dict = {}
         self._capacity_hints: dict = {}
         # streaming fragment DAGs keyed by id(plan)
@@ -70,35 +114,51 @@ class Session:
         # host dictionary projections reused across queries
         self._projection_memo = ProjectionMemo()
         self.last_kernel_profile: Optional[dict] = None
+        # the scan working set of the last query (0 when served from the
+        # result cache)
+        self.last_scan_bytes = 0
+        # operator timeline of the last instrumented execution (EXPLAIN
+        # ANALYZE / operator_stats = true)
+        self.last_timeline: Optional[dict] = None
 
     def create_catalog(self, name: str, connector: str, config: dict):
         self.catalogs.create_catalog(name, connector, config)
         if self.default_catalog is None:
             self.default_catalog = name
 
-    def _executor(self) -> LocalExecutor:
+    def _executor(self, **overrides) -> LocalExecutor:
+        """The executor of one query under the session's properties
+        (`overrides` replace config keys: EXPLAIN ANALYZE's instrumented
+        run is otherwise the run `execute` performs)."""
         # the bytes the cache holds, not its budget (a quarter of the
         # card, above the default limit): only real pressure revokes it
         self.memory_manager.unregister_revocable("scan-cache")
         self.memory_manager.register_revocable(
             "scan-cache", self._scan_cache.bytes, self._scan_cache.drop_all,
         )
-        return LocalExecutor(self.catalogs, {
+        props = self.properties
+        config = {
             "device": self.device,
-            "megakernels": self.properties.get("megakernels"),
+            "megakernels": props.get("megakernels"),
+            "device_generation": props.get("device_generation"),
             "scan_cache": (
-                self._scan_cache
-                if self.properties.get("scan_cache_enabled") else None
+                self._scan_cache if props.get("scan_cache_enabled") else None
             ),
             "capacity_hints": self._capacity_hints,
             "projection_memo": self._projection_memo,
-            "memory_limit_bytes": self.properties.get("query_max_memory_bytes"),
-            "spill_enabled": self.properties.get("spill_enabled"),
+            "memory_limit_bytes": props.get("query_max_memory_bytes"),
+            "spill_enabled": props.get("spill_enabled"),
             "memory_manager": self.memory_manager,
-            "memory_blocked_timeout_s": self.properties.get("memory_blocked_timeout_s"),
-            "double_buffer_depth": self.properties.get("double_buffer_depth"),
+            "memory_blocked_timeout_s": props.get("memory_blocked_timeout_s"),
+            "double_buffer_depth": props.get("double_buffer_depth"),
             "fragment_cache": self._fragment_cache,
-        })
+            # operator_stats = true times every operator (synchronizing
+            # the card after each one)
+            "collect_node_stats": bool(props.get("operator_stats")),
+            "bandwidth_ledger": bool(props.get("bandwidth_ledger")),
+        }
+        config.update(overrides)
+        return LocalExecutor(self.catalogs, config)
 
     # ------------------------------------------------------------------
     def plan(self, sql: str, optimized: bool = True) -> P.PlanNode:
@@ -108,11 +168,13 @@ class Session:
         return self._plan_stmt(stmt, optimized)
 
     def _plan_stmt(self, stmt, optimized: bool = True) -> P.PlanNode:
-        analyzer = Analyzer(self.metadata, self.default_catalog,
-                            self.sql_functions)
-        plan = analyzer.plan_statement(stmt)
+        with self.tracer.span("analyze_plan"):
+            analyzer = Analyzer(self.metadata, self.default_catalog,
+                                self.sql_functions)
+            plan = analyzer.plan_statement(stmt)
         if optimized:
-            plan = optimize(plan, self.metadata, self.properties)
+            with self.tracer.span("optimize"):
+                plan = optimize(plan, self.metadata, self.properties)
         return plan
 
     def explain(self, sql: str) -> str:
@@ -120,22 +182,28 @@ class Session:
 
     # ------------------------------------------------------------------
     def execute(self, sql: str) -> Page:
-        stmt = parse(sql)
-        if isinstance(stmt, ast.Explain):
-            if stmt.analyze:
-                raise NotImplementedError(
-                    "EXPLAIN ANALYZE is not in this slice of the port"
-                )
-            text = P.plan_to_string(self._plan_stmt(stmt.query))
-            lines = text.split("\n")
-            return Page([column_from_pylist(T.VARCHAR, lines)], len(lines),
-                        ["Query Plan"])
-        if isinstance(stmt, (ast.CreateTable, ast.DropTable)):
-            return self._ddl(stmt)
-        if isinstance(stmt, ast.ShowTables):
-            conn = self.catalogs.get(self.default_catalog)
-            tables = sorted(conn.metadata().list_tables())
-            return page_from_pydict([("table", T.VARCHAR)], {"table": tables})
+        query_id = f"q_{uuid.uuid4().hex[:12]}"
+        created = self.events.query_created(query_id, sql)
+        try:
+            with self.tracer.span("query", query_id=query_id):
+                with self.tracer.span("parse"):
+                    stmt = parse(sql)
+                page = self._execute_statement(stmt, sql, query_id)
+            self.events.query_completed(query_id, sql, "FINISHED", created,
+                                        page.count)
+            return page
+        except Exception as e:
+            self.events.query_completed(query_id, sql, "FAILED", created,
+                                        error=str(e))
+            raise
+
+    def _execute_statement(self, stmt, sql: str, query_id: str) -> Page:
+        if isinstance(stmt, _REPLANNING):
+            self._plan_cache.clear()
+            self._capacity_hints.clear()
+        utility = self._utility(stmt, sql, query_id)
+        if utility is not None:
+            return utility
         if isinstance(stmt, ast.Query):
             plan = self._plan_cache.get(sql)
             if plan is None:
@@ -143,7 +211,7 @@ class Session:
                 # nondeterministic plans carry query-time folded constants
                 # (now() timestamps, rand() seeds): caching the plan by SQL
                 # text would replay the first execution's values forever
-                if plan_is_deterministic(plan):
+                if plan_signature(plan).deterministic:
                     self._plan_cache[sql] = plan
                     for k in list(self._plan_cache)[:-256]:
                         self._plan_cache.pop(k, None)
@@ -157,74 +225,428 @@ class Session:
             raise NotImplementedError(
                 f"{type(stmt).__name__} is not in this slice of the port"
             )
+        rkey = None
+        if isinstance(stmt, ast.Query):
+            rkey, page = self.cached_result(plan)
+            if page is not None:
+                return page
         executor = self._executor()
-        page = executor.execute(plan)
+        executor.query_id = query_id
+        with self.tracer.span("execute", query_id=query_id):
+            t0 = time.time()
+            page = executor.execute(plan)
+            wall = time.time() - t0
+        self.last_scan_bytes = executor.scan_bytes
         self.last_kernel_profile = executor.kernel_profile
+        if executor.node_stats:
+            from .obs import opstats
+
+            self.last_timeline = {
+                "queryId": query_id, "wallS": wall,
+                "operators": opstats.frames_from_plan(
+                    plan, executor.node_stats,
+                    blocked_memory_s=executor.blocked_memory_s),
+            }
+        if rkey is not None:
+            self.store_result(rkey, page)
         if isinstance(plan.source, P.TableWriter):
-            self._scan_cache.evict_table(plan.source.catalog, plan.source.table)
+            self.caches.invalidate_table(plan.source.catalog, plan.source.table)
         return page
+
+    # -- utility statements --------------------------------------------
+    def _utility(self, stmt, sql: str, query_id: str) -> Optional[Page]:
+        """The page of a statement that runs no query plan, or None."""
+        if isinstance(stmt, ast.SetSession):
+            if "." in stmt.name:
+                # per-catalog session property, validated against the
+                # connector's declared metadata
+                cat, _, prop = stmt.name.partition(".")
+                conn = self.catalogs.get(cat)
+                meta = conn.session_property_metadata().get(prop)
+                if meta is None:
+                    raise KeyError(f"unknown catalog session property: {stmt.name}")
+                value = (meta.parse(stmt.value)
+                         if isinstance(stmt.value, str) else stmt.value)
+                conn.set_session_property(prop, value)
+            else:
+                self.properties.set(stmt.name, stmt.value)
+            return _ok_page()
+        if isinstance(stmt, ast.ShowSession):
+            rows = list(self.properties.show())
+            for cat in self.catalogs.names():
+                conn = self.catalogs.get(cat)
+                for name, meta in sorted(conn.session_property_metadata().items()):
+                    rows.append((f"{cat}.{name}", str(conn.get_session_property(name)),
+                                 str(meta.default), meta.description))
+            cols = ("name", "value", "default", "description")
+            return page_from_pydict([(c, T.VARCHAR) for c in cols],
+                                    {c: [r[i] for r in rows] for i, c in enumerate(cols)})
+        if isinstance(stmt, (ast.CreateView, ast.DropView, ast.ShowCreateView)):
+            return self._view_statement(stmt)
+        if isinstance(stmt, ast.ShowTables):
+            conn = self.catalogs.get(self.default_catalog)
+            tables = sorted(set(conn.metadata().list_tables())
+                            | set(self.metadata.list_views(self.default_catalog)))
+            return page_from_pydict([("table", T.VARCHAR)], {"table": tables})
+        if isinstance(stmt, ast.ShowColumns):
+            view = self.metadata.lookup_view(stmt.table, self.default_catalog)
+            if view is not None:
+                cols = list(view.columns)
+            else:
+                _, schema = self.metadata.resolve_table(stmt.table, self.default_catalog)
+                cols = [(c.name, str(c.type)) for c in schema.columns]
+            return page_from_pydict([("column", T.VARCHAR), ("type", T.VARCHAR)],
+                                    {"column": [c for c, _ in cols],
+                                     "type": [t for _, t in cols]})
+        if isinstance(stmt, (ast.CreateFunction, ast.DropFunction, ast.ShowFunctions)):
+            return self._function_statement(stmt)
+        if isinstance(stmt, ast.Use):
+            self.catalogs.get(stmt.name[0])  # raises if unknown
+            self.default_catalog = stmt.name[0]
+            return _ok_page()
+        if isinstance(stmt, ast.TransactionControl):
+            if stmt.kind == "rollback":
+                raise ValueError(
+                    "ROLLBACK is not supported: statements auto-commit "
+                    "(one transaction per query)"
+                )
+            return _ok_page()
+        if isinstance(stmt, ast.ShowStats):
+            return self._show_stats(stmt)
+        if isinstance(stmt, ast.Analyze):
+            return self.execute_analyze(stmt)
+        if isinstance(stmt, ast.ShowCreateTable):
+            catalog, schema = self.metadata.resolve_table(stmt.table, self.default_catalog)
+            cols = ",\n   ".join(f"{c.name} {c.type}" for c in schema.columns)
+            return _varchar_page("create_table",
+                                 [f"CREATE TABLE {catalog}.{schema.name} (\n   {cols}\n)"])
+        if isinstance(stmt, ast.ShowSchemas):
+            self.catalogs.get(stmt.catalog or self.default_catalog)  # raises if unknown
+            # catalogs here are single-schema: the flattened layout
+            return _varchar_page("schema", ["default", "information_schema"])
+        if isinstance(stmt, ast.ShowCatalogs):
+            return _varchar_page("catalog", sorted(self.catalogs.names()))
+        if isinstance(stmt, (ast.Prepare, ast.Deallocate, ast.ExecutePrepared,
+                             ast.Describe)):
+            return self._prepared_statement(stmt, sql, query_id)
+        if isinstance(stmt, ast.Explain):
+            if stmt.analyze:
+                return self._explain_analyze(stmt.query, query_id)
+            return self._explain(stmt)
+        if isinstance(stmt, (ast.CreateTable, ast.DropTable)):
+            return self._ddl(stmt)
+        return None
+
+    def _view_statement(self, stmt) -> Page:
+        from .catalog import ViewDefinition
+
+        if isinstance(stmt, ast.ShowCreateView):
+            view = self.metadata.lookup_view(stmt.name, self.default_catalog)
+            if view is None:
+                raise KeyError(f"view not found: {'.'.join(stmt.name)}")
+            return _varchar_page("create_view", [
+                f"CREATE VIEW {view.catalog}.{view.name} AS\n{view.original_sql}"])
+        if isinstance(stmt, ast.DropView):
+            self.metadata.drop_view(stmt.name, self.default_catalog, stmt.if_exists)
+            return _ok_page()
+        catalog, name = self.metadata.resolve_new_table(stmt.name, self.default_catalog)
+        # plan the query now: validates it and captures the view's
+        # declared column names and types
+        plan = Analyzer(self.metadata, self.default_catalog,
+                        self.sql_functions).plan_statement(stmt.query)
+        types = plan.source.output_types()
+        cols = tuple((n, str(types[s])) for n, s in zip(plan.names, plan.symbols))
+        seen = set()
+        for n, _t in cols:
+            if n.lower() in seen:
+                raise ValueError(f"duplicate view column name {n}")
+            seen.add(n.lower())
+        self.metadata.create_view(
+            ViewDefinition(catalog, name, stmt.query_sql, stmt.query, cols,
+                           context_catalog=self.default_catalog),
+            stmt.replace,
+        )
+        return _ok_page()
+
+    def _function_statement(self, stmt) -> Page:
+        from .expr.functions import SIGNATURES
+        from .sql.analyzer import AGGREGATES, SqlFunction
+
+        if isinstance(stmt, ast.ShowFunctions):
+            names = sorted(set(SIGNATURES) | AGGREGATES | set(self.sql_functions))
+            kinds = ["sql" if n in self.sql_functions
+                     else "aggregate" if n in AGGREGATES else "scalar"
+                     for n in names]
+            return page_from_pydict([("function", T.VARCHAR), ("kind", T.VARCHAR)],
+                                    {"function": names, "kind": kinds})
+        name = stmt.name.lower()
+        if isinstance(stmt, ast.DropFunction):
+            if name not in self.sql_functions:
+                if stmt.if_exists:
+                    return _ok_page()
+                raise KeyError(f"function not found: {name}")
+            del self.sql_functions[name]
+            return _ok_page()
+        if name in self.sql_functions and not stmt.replace:
+            raise ValueError(f"function {name} already exists")
+        T.parse_type(stmt.return_type)  # validate eagerly
+        for _, pt in stmt.params:
+            T.parse_type(pt)
+        self.sql_functions[name] = SqlFunction(
+            name, tuple((p.lower(), t) for p, t in stmt.params),
+            stmt.return_type, stmt.body,
+        )
+        return _ok_page()
+
+    def _prepared_statement(self, stmt, sql: str, query_id: str) -> Page:
+        key = stmt.name.lower()
+        if isinstance(stmt, ast.Prepare):
+            self.prepared[key] = stmt.statement
+            return _ok_page()
+        if key not in self.prepared:
+            raise KeyError(f"prepared statement not found: {stmt.name}")
+        target = self.prepared[key]
+        if isinstance(stmt, ast.Deallocate):
+            del self.prepared[key]
+            return _ok_page()
+        if isinstance(stmt, ast.ExecutePrepared):
+            bound = ast.substitute_parameters(target, stmt.args)
+            nparams = ast.count_parameters(bound)
+            if nparams:
+                raise ValueError(
+                    f"{nparams} parameter(s) left unbound; "
+                    f"EXECUTE ... USING must supply all values"
+                )
+            return self._execute_statement(bound, sql, query_id)
+        n = ast.count_parameters(target)
+        if stmt.kind == "input":
+            return page_from_pydict([("position", T.BIGINT), ("type", T.VARCHAR)],
+                                    {"position": list(range(1, n + 1)),
+                                     "type": ["unknown"] * n})
+        # DESCRIBE OUTPUT: plan with NULL-bound parameters for typing
+        bound = ast.substitute_parameters(
+            target, tuple(ast.Literal("null", None) for _ in range(n)))
+        plan = self._plan_stmt(bound)
+        types = plan.source.output_types()
+        return page_from_pydict([("column", T.VARCHAR), ("type", T.VARCHAR)],
+                                {"column": list(plan.names),
+                                 "type": [str(types[s]) for s in plan.symbols]})
+
+    def _explain(self, stmt) -> Page:
+        plan = self._plan_stmt(stmt.query)
+        if stmt.plan_type == "distributed":
+            from .plan.fragment import fragment_plan
+
+            parts = []
+            for f in fragment_plan(plan):
+                parts.append(
+                    f"Fragment {f.id} [{f.partitioning}"
+                    + (f" keys={list(f.partition_keys)}" if f.partition_keys else "")
+                    + f" -> output {f.output_partitioning}]")
+                parts.append("\n".join(
+                    "  " + line for line in P.plan_to_string(f.root).split("\n")))
+            text = "\n".join(parts)
+        else:
+            text = P.plan_to_string(plan, costs=self._costs(plan))
+        return _varchar_page("Query Plan", text.split("\n"))
+
+    def _costs(self, plan) -> Optional[dict]:
+        """The cost model's per-node estimates, or None where it cannot
+        cost the plan (as in the JAX package, EXPLAIN then prints none)."""
+        from .plan.cost import annotate
+
+        try:
+            return annotate(plan, self.metadata, self.properties)
+        except Exception:  # noqa: BLE001 — estimates are optional
+            return None
 
     def _ddl(self, stmt) -> Page:
         """CREATE TABLE [IF NOT EXISTS] / DROP TABLE [IF EXISTS] (the JAX
         package's, without access control)."""
         from .spi import ColumnSchema, TableSchema
 
-        self._plan_cache.clear()
-        self._capacity_hints.clear()
         catalog, table = self.metadata.resolve_new_table(
             stmt.table, self.default_catalog
         )
         md = self.catalogs.get(catalog).metadata()
-        zero = page_from_pydict([("rows", T.BIGINT)], {"rows": [0]})
         if isinstance(stmt, ast.DropTable):
             if stmt.if_exists and table not in md.list_tables():
-                return zero
+                return _rows_page(0)
             md.drop_table(table)
-            self._scan_cache.evict_table(catalog, table)
-            return zero
+            self.caches.invalidate_table(catalog, table)
+            return _rows_page(0)
         if self.metadata.lookup_view(stmt.table, self.default_catalog):
             raise ValueError(f"view with that name already exists: {table}")
         if stmt.if_not_exists and table in md.list_tables():
-            return zero
+            return _rows_page(0)
         md.create_table(TableSchema(table, tuple(
             ColumnSchema(c.lower(), T.parse_type(t)) for c, t in stmt.columns
         )))
-        return zero
+        return _rows_page(0)
 
+    # -- the result cache ------------------------------------------------
+    def _result_cache_key(self, plan):
+        """(digest, params, table versions), or None when the plan must
+        not be result-cached: the tier is off, the plan nondeterministic,
+        or a scanned connector is not cacheable."""
+        if not self.properties.get("result_cache"):
+            return None
+        sig = plan_signature(plan)
+        if not sig.deterministic:
+            return None
+        versions = []
+        for cat, tab in sig.tables:
+            try:
+                conn = self.catalogs.get(cat)
+            except Exception:  # noqa: BLE001 — an unknown catalog: no key
+                return None
+            if not getattr(conn, "cacheable", True):
+                return None
+            versions.append((cat, tab, conn.data_version(tab)))
+        return (sig.digest, sig.params, tuple(versions))
 
-_WRITES = (ast.Insert, ast.CreateTableAs, ast.Delete, ast.Update,
-           ast.MergeInto)
+    def cached_result(self, plan):
+        """(key, page) of a planned query: key None when uncacheable, a
+        page on a hit (the query then runs nothing)."""
+        key = self._result_cache_key(plan)
+        if key is None:
+            return None, None
+        rc = self.caches.result_cache
+        # SET SESSION result_cache_max_bytes resizes the live budget
+        rc.max_bytes = int(self.properties.get("result_cache_max_bytes"))
+        page = rc.get(key)
+        if page is None:
+            return key, None
+        self.last_scan_bytes = 0  # served from cache: nothing was scanned
+        self.last_kernel_profile = None  # and no kernel ran
+        # relabel with this plan's output names: the digest is alias-
+        # invariant, so the cached page may carry another query's names
+        return key, Page(list(page.columns), page.count, list(plan.names))
 
+    def store_result(self, key, page: Page) -> None:
+        # the scanned tables ride in the key's version component
+        tables = tuple((c, t) for c, t, _v in key[2])
+        self.caches.result_cache.put(key, page, tables=tables)
 
-def _plan_exprs(plan: P.PlanNode):
-    """Every ir.Expr reachable from any node field (predicates,
-    projections, aggregates, ...)."""
+    # -- EXPLAIN ANALYZE -------------------------------------------------
+    def _explain_analyze(self, query, query_id: str) -> Page:
+        """Execute with per-node instrumentation and print the plan with
+        rows and walls, the operator timeline, the kernel profile (each
+        CUDA kernel's launches) and the bandwidth ledger
+        (ExplainAnalyzeOperator + PlanPrinter; single node)."""
+        from .obs import opstats
+        from .ops import kernels as kn
 
-    def from_val(v):
-        if isinstance(v, P.PlanNode):
-            return
-        if isinstance(v, ir.Expr):
-            yield v
-        elif isinstance(v, tuple):
-            for x in v:
-                yield from from_val(x)
-        elif dataclasses.is_dataclass(v):
-            for f in dataclasses.fields(v):
-                yield from from_val(getattr(v, f.name))
+        plan = self._plan_stmt(query)
+        # the session's run, instrumented; its point is per-operator
+        # accounting, so always with the ledger
+        executor = self._executor(collect_node_stats=True,
+                                  bandwidth_ledger=True)
+        executor.query_id = query_id
+        before = dict(kn.LAUNCHES)
+        t0 = time.perf_counter()
+        page = executor.execute(plan)
+        wall = time.perf_counter() - t0
+        launches = {k: v - before.get(k, 0) for k, v in kn.LAUNCHES.items()}
+        prof = executor.kernel_profile
+        self.last_kernel_profile = prof
+        text = P.plan_to_string(plan, executor.node_stats)
+        text += (f"\n\nQuery: {page.count} output rows in {wall * 1000:.2f}ms "
+                 f"(single node)")
+        frames = opstats.frames_from_plan(
+            plan, executor.node_stats, costs=self._costs(plan),
+            blocked_memory_s=executor.blocked_memory_s)
+        self.last_timeline = {"queryId": query_id, "wallS": wall, "operators": frames}
+        text += "\n\n" + opstats.format_timeline(frames, wall)
+        summary = prof.get("summary") or {}
+        text += (
+            f"\n\nKernel profile ({self.device}):"
+            f"\n  runs: {summary.get('executions', 0)}"
+            f" over {summary.get('actualRows', 0)} scanned rows"
+            f"\n  scans generated on the device: {prof.get('deviceGeneratedScans', 0)},"
+            f" by the host: {prof.get('hostGeneratedScans', 0)}"
+            f"\n  transfers: {summary.get('h2dBytes', 0)}B host->device, "
+            f"{summary.get('d2hBytes', 0)}B device->host"
+        )
+        launched = {k: v for k, v in sorted(launches.items()) if v}
+        text += "\n  kernel launches: " + (
+            ", ".join(f"{k} {v}" for k, v in launched.items()) or "none")
+        if prof.get("fusedAggregates"):
+            text += (f"\n  fused aggregates: {prof['fusedAggregates']} "
+                     f"({prof.get('fusedTerms', 0)} terms)")
+        bandwidth = prof.get("bandwidth") or []
+        if bandwidth:
+            text += (
+                f"\n\nDevice memory bandwidth ledger ({summary.get('effectiveGbps', 0.0):.2f}"
+                f" GB/s effective, {summary.get('rooflinePct', 0.0):.3f}% of"
+                f" {summary.get('rooflineGbps', 0.0):.0f} GB/s):"
+            )
+            for e in bandwidth:
+                text += (
+                    f"\n  run {e['kernel']} [{e['mode']}]: {e['gbps']:.2f} GB/s "
+                    f"({e['rooflinePct']:.3f}% roofline), in {e['inputBytes']}B, "
+                    f"out {e['outputBytes']}B, inter {e['intermediateBytes']}B over "
+                    f"{e['deviceWallS'] * 1000:.2f}ms device wall"
+                )
+        return _varchar_page("Query Plan", text.split("\n"))
 
-    stack = [plan]
-    while stack:
-        n = stack.pop()
-        stack.extend(n.sources)
-        for f in dataclasses.fields(n):
-            yield from from_val(getattr(n, f.name))
+    # -- ANALYZE / SHOW STATS --------------------------------------------
+    def _show_stats(self, stmt) -> Page:
+        catalog, schema = self.metadata.resolve_table(stmt.table, self.default_catalog)
+        stats = self.metadata.table_statistics(catalog, schema.name)
+        names, dvs, nfs, lows, highs = [], [], [], [], []
+        for c in schema.columns:
+            cs = stats.columns.get(c.name)
+            names.append(c.name)
+            dvs.append(None if cs is None else cs.distinct_count)
+            nfs.append(None if cs is None else cs.null_fraction)
+            lows.append(None if cs is None or cs.min_value is None
+                        else str(cs.min_value))
+            highs.append(None if cs is None or cs.max_value is None
+                         else str(cs.max_value))
+        # summary row (the reference's NULL-column row_count row)
+        for col in (names, dvs, nfs, lows, highs):
+            col.append(None)
+        rc = [None] * len(schema.columns) + [float(stats.row_count)]
+        return page_from_pydict(
+            [("column_name", T.VARCHAR), ("distinct_values_count", T.DOUBLE),
+             ("nulls_fraction", T.DOUBLE), ("row_count", T.DOUBLE),
+             ("low_value", T.VARCHAR), ("high_value", T.VARCHAR)],
+            {"column_name": names, "distinct_values_count": dvs,
+             "nulls_fraction": nfs, "row_count": rc,
+             "low_value": lows, "high_value": highs},
+        )
 
+    def execute_analyze(self, stmt) -> Page:
+        """ANALYZE <table> [(cols)]: collect and store; cached plans were
+        costed without these statistics."""
+        from .utils.metrics import counter
 
-def plan_is_deterministic(plan: P.PlanNode) -> bool:
-    """True when no expression of the plan calls a nondeterministic
-    function and no constant was folded from one (the reference's
-    plan_signature(plan).deterministic)."""
-    return all(ir.is_deterministic(e) for e in _plan_exprs(plan))
+        catalog, schema = self.metadata.resolve_table(stmt.table, self.default_catalog)
+        stats = self.collect_statistics(catalog, schema, stmt.columns)
+        self.metadata.store_table_statistics(catalog, schema.name, stats)
+        self._plan_cache.clear()
+        self._capacity_hints.clear()
+        counter("trino_tpu_stats_analyze_total").inc()
+        return _rows_page(int(stats.row_count))
+
+    def collect_statistics(self, catalog: str, schema, columns=()):
+        """Run the synthesized ANALYZE aggregations (ordinary SQL through
+        the planner and executor) and assemble a TableStatistics."""
+        from .stats import analyze_queries, assemble, column_tasks
+
+        buckets = max(1, int(self.properties.get("analyze_histogram_buckets")))
+        tasks = column_tasks(schema, columns)
+        qualified = f"{catalog}.default.{schema.name}"
+        executor = self._executor()
+        chunk_results = []
+        with self.tracer.span("analyze_collect", table=qualified):
+            for csql, chunk in analyze_queries(qualified, tasks, buckets):
+                page = executor.execute(self._plan_stmt(parse(csql)))
+                row = [c.to_python(page.count)[0] if page.count else None
+                       for c in page.columns]
+                chunk_results.append((chunk, row))
+        return assemble(chunk_results, buckets)
 
 
 def tpch_session(sf: float = 0.01, device=None, **config) -> Session:
