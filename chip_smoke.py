@@ -78,7 +78,33 @@ Phases (any failure exits non-zero and prints no result line):
      Q96, Q13, DS-AGG and DS-Q27-ROLLUP against numpy references over
      the generated host arrays (exact, DS-AGG's float64 columns at
      relative 1e-9), the other 21 byte-identical to runs on the plain
-     kernel versions.
+     kernel versions;
+  9. `faults`: seeded faults on the card in a TPC-H SF10 session of its
+     own: Q6, Q1 and Q3 warm with the device supervisor's boundary and
+     bare, in turns (its overhead), beside the main path's walls; a
+     device_loss keyed to fused_agg_sums during Q6 raises DeviceFaultError
+     naming the kernel and its shapes, quarantines the device, is
+     journaled and is the flight recorder's last record; the canary
+     (grouped_count on the card) restores the device and Q6 runs on the
+     card again against the numpy reference; a device_wedge under a 2 s
+     watchdog raises within twice the timeout; a third fault
+     blacklists the device and execute refuses (the port has no CPU
+     re-run: a fault fails the query);
+ 10. `lake`: a lakehouse table made by CTAS of lineitem's eight Q1/Q6/Q3
+     columns at SF10 (60 M rows, 3.12 GB of .npz), an INSERT of one
+     orderkey range and a DELETE of another, then ANALYZE of Q1's and
+     Q6's columns; Q1 and Q6 (megakernels auto, so ANALYZE's decimal
+     bounds reach the fused gate) FOR VERSION AS OF each snapshot and Q3
+     with lineitem from the lake, cold once and warm twice, against
+     numpy references; expire_snapshots and remove_orphan_files by
+     counts; the same columns written as parquet (write_parquet_table)
+     into a hive catalog, ANALYZE of its group keys and date (the
+     decimals' bounds stay the footers'), Q1 and Q6 over it equal to the
+     lake's pages and the references, and an orderkey range reading only
+     the row groups its footers allow.
+
+Every phase but `faults` ends with each of its sessions' supervisors
+ACTIVE and no fault, or fails.
 
 --profile traces one warm run of every SF10 query, TPC-DS, the `ext`
 and the out-of-core statements included (busy and idle share of the
@@ -1744,7 +1770,6 @@ def phase_sf10_rel(dev, do_profile=False):
     for q in ("Q4", "Q16", "Q18", "Q21", "Q22"):
         for row in pages[q].to_pylist()[:5]:
             _log(f"[rel{sf:g}] {q} {row}")
-    MAIN.update(rel_launches=launches, rel_walls=walls)
     if do_profile:
         for q, sql in sqls.items():
             _profile(s, sql, f"sf{sf:g} {q}")
@@ -2156,7 +2181,6 @@ def phase_ext(dev, do_profile=False):
     for q in ("EXPLODE-ORD", "SAMPLE-10", "LISTAGG-SUPP", "MR-V"):
         for row in pages[q].to_pylist()[:3]:
             _log(f"[ext{sf:g}] {q} {str(row)[:160]}")
-    MAIN.update(ext_launches=launches, ext_walls=walls)
     if do_profile:
         for q, sql in EXT_SQL.items():
             _profile(s, sql, f"ext{sf:g} {q}")
@@ -2355,7 +2379,6 @@ def phase_ooc(dev, do_profile=False):
     _log(f"[ooc] Q6, Q1 (8 GiB and 1 GiB) and Q3 agree with the numpy references; "
          f"the distinct count, the 15 M sorted orders and the window sums with numpy")
     _log(f"[ooc] launches over the phase (cold and warm runs): {totals}")
-    MAIN.update(ooc_launches=totals)
 
 
 # ---------------------------------------------------------------------------
@@ -2460,7 +2483,6 @@ def phase_gen(dev):
         del lanes, values
         gc.collect()
         torch.cuda.empty_cache()
-    MAIN["gen"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -2853,7 +2875,6 @@ def phase_timing(dev):
     # (SUM_GATE) and runs unfused, so Q1's fused shape is timed at SF1 only.
     # The direct_probe row is Q3's orderkey join, the larger of its two
     MAIN["kernels"] = line
-    MAIN["all_rows"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -3238,13 +3259,468 @@ def phase_ds(dev, do_profile=False):
     for q in ("DS-Q27-ROLLUP", "DS-AGG", "DS-FN", "Q96", "Q13"):
         for row in pages[q].to_pylist()[:4]:
             _log(f"[ds{sf:g}] {q} {row}")
-    MAIN.update(ds_launches=launches, ds_walls=walls)
     if do_profile:
         for q, sql in sqls.items():
             _profile(s, sql, f"ds{sf:g} {q}")
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the fault path (seeded faults on the card, the supervisor's
+# quarantine, canary recovery, watchdog, blacklist)
+
+
+FAULT_SF = 10.0
+FAULT_REPS = 3
+WATCHDOG_S = 2.0
+SUPERVISED = []              # every session's supervisor but the faults phase's
+
+
+@contextlib.contextmanager
+def _bare(sup):
+    """The supervisor's boundary as bare calls meanwhile: the walls
+    without the breadcrumbs, the flight recorder and the watchdog."""
+    sup.dispatch = lambda thunk, bc, device_id=0: thunk()
+    sup.device_get = lambda fn, bc, device=None, device_id=0: fn()
+    try:
+        yield
+    finally:
+        del sup.dispatch, sup.device_get
+
+
+def _expect_fault(s, sql, kind, kernel):
+    """Run `sql`, which must raise DeviceFaultError of `kind` naming
+    `kernel`; returns (error, seconds to the raise)."""
+    from trino_tpu_torch.runtime import DeviceFaultError
+
+    t0 = time.perf_counter()
+    try:
+        s.execute(sql)
+    except DeviceFaultError as e:
+        wall = time.perf_counter() - t0
+        if e.kind != kind or (kernel and e.breadcrumb.kernel != kernel):
+            raise AssertionError(f"expected {kind} at {kernel}, got {e}") from e
+        return e, wall
+    raise AssertionError(f"no {kind} raised by {sql[:60]}")
+
+
+def _recover(s, backoff):
+    """Wait out the backoff; the next execute probes the canary."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    time.sleep(backoff * 1.5)
+    before = kn.LAUNCHES["grouped_count"]
+    if not s.device_supervisor.maybe_probe():
+        raise AssertionError("the canary did not restore the device")
+    if kn.LAUNCHES["grouped_count"] != before + 1:
+        raise AssertionError("the canary did not launch grouped_count on the card")
+
+
+def phase_faults(dev):
+    """Seeded faults on the card in a TPC-H SF10 session of its own:
+    (timing) Q6/Q1/Q3 warm with the supervisor's boundary and bare, in
+    turns; (a) a device_loss keyed to fused_agg_sums during Q6 raises
+    DeviceFaultError naming it and its shapes, quarantines the device,
+    is journaled and is the flight recorder's last record; (b) the
+    canary (grouped_count on the card) restores it and Q6 runs again on
+    the card against the numpy reference; (c) a device_wedge under a
+    2 s watchdog raises within twice the timeout; (d) a third fault
+    blacklists the device and execute refuses."""
+    import gc
+
+    from trino_tpu_torch.obs import journal
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.session import tpch_session
+
+    qs, _ = _queries()
+    sf = FAULT_SF
+    backoff = 0.05
+    kn.reset_counts()  # the phase's launches, canaries included
+    s = _card_session(tpch_session, sf, device_probe_backoff_s=backoff)
+    sup = s.device_supervisor
+    runs = [("Q6", "auto"), ("Q1", "auto"), ("Q3", "auto")]
+    for q, mode in runs:  # cold: generation, upload, first run
+        s.properties.set("megakernels", mode)
+        s.execute(qs[q])
+    torch.cuda.synchronize()
+    walls = {(q, how): [] for q, _ in runs for how in ("supervised", "bare")}
+    for how in ("bare", "supervised", "supervised", "bare") * FAULT_REPS:
+        for q, mode in runs:
+            s.properties.set("megakernels", mode)
+            with _bare(sup) if how == "bare" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.execute(qs[q])
+                torch.cuda.synchronize()
+                walls[(q, how)].append(time.perf_counter() - t0)
+    main_walls = MAIN.get("walls") or {}
+    for q, mode in runs:
+        sup_ms = statistics.median(walls[(q, "supervised")]) * 1e3
+        bare_ms = statistics.median(walls[(q, "bare")]) * 1e3
+        main = main_walls.get((q, mode))
+        _log(f"[faults] warm {q} megakernels={mode}: supervised median {sup_ms:.3f} ms, "
+             f"bare {bare_ms:.3f} ms ({len(walls[(q, 'bare')])} runs each, in turns), "
+             f"overhead {sup_ms - bare_ms:.3f} ms; main path (phase 4) "
+             + (f"{statistics.median(main) * 1e3:.3f} ms" if main else "not run"))
+    if sup.device_state() != "ACTIVE" or sup.faults():
+        raise AssertionError("the supervisor left ACTIVE with no fault injected")
+    cols, dicts = _scan_host_columns(s, ["l_tax", "l_returnflag", "l_shipdate"])
+
+    # (a) a lost device at the fused kernel's launch
+    s.properties.set("megakernels", "auto")
+    s.properties.set("fault_injection", json.dumps(
+        {"device_loss": {"match": "fused_agg_sums", "nth": 1}}))
+    journal._reset_journal()
+    e, _ = _expect_fault(s, qs["Q6"], "device_loss", "fused_agg_sums")
+    shapes = e.breadcrumb.shapes
+    if not shapes.get("live", "").startswith("bool(") or e.surfaced_at is None:
+        raise AssertionError(f"the fault's breadcrumb lacks its shapes: {e}")
+    if sup.device_state() != "QUARANTINED":
+        raise AssertionError(f"device {sup.device_state()} after a loss")
+    kinds = [ev["eventType"] for ev in journal.get_journal().tail()]
+    if journal.DEVICE_FAULT not in kinds or journal.DEVICE_QUARANTINE not in kinds:
+        raise AssertionError(f"the loss was not journaled: {kinds}")
+    last = sup.flight_recorder.tail(1)[0]
+    if (last["recordType"], last["kernel"], last["faultKind"]) != (
+            "fault", "fused_agg_sums", "device_loss"):
+        raise AssertionError(f"the flight recorder's last record is {last}")
+    _log(f"[faults] (a) {e}")
+    _log(f"[faults] (a) journal {kinds}; flight recorder last record "
+         f"{last['recordType']} {last['kernel']} {last['faultKind']}")
+
+    # (b) recovery through the canary, then Q6 on the card again
+    s.properties.set("fault_injection", "")
+    _recover(s, backoff)
+    before = kn.LAUNCHES["fused_agg_sums"]
+    page = s.execute(qs["Q6"])
+    torch.cuda.synchronize()
+    if kn.LAUNCHES["fused_agg_sums"] == before or sup.device_state() != "ACTIVE":
+        raise AssertionError("Q6 did not run on the card after recovery")
+    check_reference({"Q6": page, "Q1": s.execute(qs["Q1"])}, cols, dicts)
+    _log(f"[faults] (b) the canary restored the device; Q6 on the card again "
+         f"({kn.LAUNCHES['fused_agg_sums'] - before} fused launches), Q6 and Q1 "
+         f"agree with the numpy references")
+
+    # (c) a wedged device under a 2 s watchdog
+    s.properties.set("device_watchdog_timeout_s", WATCHDOG_S)
+    s.properties.set("fault_injection", json.dumps(
+        {"device_wedge": {"match": "fused_agg_sums", "nth": 1}}))
+    e, wall = _expect_fault(s, qs["Q6"], "device_wedge", "fused_agg_sums")
+    if not WATCHDOG_S <= wall < 2 * WATCHDOG_S:
+        raise AssertionError(f"the wedge raised after {wall:.3f} s, watchdog "
+                             f"{WATCHDOG_S} s")
+    _log(f"[faults] (c) device_wedge raised after {wall:.3f} s (watchdog "
+         f"{WATCHDOG_S:g} s): {e}")
+
+    # (d) the third strike blacklists the device
+    s.properties.set("fault_injection", "")
+    _recover(s, backoff * 2)
+    s.properties.set("fault_injection", json.dumps(
+        {"device_loss": {"match": "direct_probe", "nth": 1}}))
+    _expect_fault(s, qs["Q3"], "device_loss", "direct_probe")
+    if sup.device_state() != "BLACKLISTED" or sup.faults() != 3:
+        raise AssertionError(f"{sup.faults()} faults left the device {sup.device_state()}")
+    s.properties.set("fault_injection", "")
+    time.sleep(backoff * 4)
+    _expect_fault(s, qs["Q6"], "device_blacklisted", None)
+    _log(f"[faults] (d) {sup.faults()} strikes: BLACKLISTED, execute refuses "
+         f"(device_blacklisted); journal "
+         f"{[ev['eventType'] for ev in journal.get_journal().tail()][-3:]}")
+    _log(f"[faults] launches over the phase (cold, timing, faults, canaries): "
+         f"{dict(kn.LAUNCHES)}")
+    del s, cols, dicts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the data connectors (lakehouse snapshots and time travel, hive
+# parquet with row-group pruning)
+
+
+LAKE_SF = 10.0
+LAKE_COLS = ("l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+             "l_returnflag", "l_linestatus", "l_shipdate")
+LAKE_REPS = 2                # warm runs after the cold one
+HIVE_ROWS_PER_GROUP = 1 << 20
+
+
+def _lake_ranges(sf):
+    """The INSERT's and the DELETE's l_orderkey ranges (orderkeys run to
+    6,000,000 x SF, sparsely)."""
+    top = int(6_000_000 * sf)
+    return (top // 10, top // 10 + top // 50), (top // 2, top // 2 + top // 25)
+
+
+def _timed(mod, name, acc):
+    """Wrap mod.name to add its seconds to acc[name]; returns the undo."""
+    real = getattr(mod, name)
+
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, real)
+
+
+def phase_lake(dev):
+    """Lakehouse and hive tables at TPC-H SF10: CTAS of lineitem's eight
+    Q1/Q6/Q3 columns into lake.default.lineitem, an INSERT of one
+    orderkey range and a DELETE of another (three snapshots with data);
+    Q1 and Q6 FOR VERSION AS OF each snapshot and Q3 with lineitem from
+    the lake, cold once and warm twice, against numpy references over
+    the generated host arrays; expire_snapshots and remove_orphan_files
+    checked by counts; the same columns written with
+    write_parquet_table into hive, Q1 and Q6 over hive equal to the lake's
+    pages and the references, and an l_orderkey range whose row groups
+    are pruned as the footers' statistics say.  Every query runs with
+    megakernels auto: ANALYZE's and the footers' decimal bounds (value
+    units) reach the fused gate, which converts them to the lanes'
+    units."""
+    import gc
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.connectors import hive as hive_mod
+    from trino_tpu_torch.connectors import lakehouse
+    from trino_tpu_torch.connectors.hive import write_parquet_table
+    from trino_tpu_torch.exec.local import LocalExecutor
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.session import tpch_session
+
+    qs, _ = _queries()
+    sf = LAKE_SF
+    root = tempfile.mkdtemp(prefix="chip_smoke_lake_")
+    lake_dir, hive_dir = os.path.join(root, "lake"), os.path.join(root, "hive")
+    s = _card_session(tpch_session, sf)
+    s.create_catalog("lake", "lakehouse", {"lake.warehouse-dir": lake_dir})
+    s.create_catalog("hive", "hive", {"hive.warehouse-dir": hive_dir})
+    conn = s.catalogs.get("lake")
+    cols = ", ".join(LAKE_COLS)
+    src = "tpch.default.lineitem"
+    (i_lo, i_hi), (d_lo, d_hi) = _lake_ranges(sf)
+    secs = {}
+    undo = [_timed(lakehouse, "_decode_data_file", secs),
+            _timed(lakehouse, "_encode_data_file", secs),
+            _timed(LocalExecutor, "_device_lanes", secs)]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        writes = (
+            ("ctas", f"create table lake.default.lineitem as select {cols} from {src}"),
+            ("insert", f"insert into lake.default.lineitem select {cols} from {src} "
+                       f"where l_orderkey between {i_lo} and {i_hi}"),
+            ("delete", f"delete from lake.default.lineitem where l_orderkey between "
+                       f"{d_lo} and {d_hi}"),
+        )
+        for what, sql in writes:
+            t0 = time.perf_counter()
+            s.execute(sql)
+            secs[what] = time.perf_counter() - t0
+            if what == "ctas":
+                host, dicts = _scan_host_columns(s, list(LAKE_COLS))
+        # the current snapshot's statistics of Q1's and Q6's columns: the
+        # fused aggregate needs bounded null-free column stats (as in the
+        # JAX package), so both reach the fused gate at version 3 and run
+        # unfused at 1 and 2
+        t0 = time.perf_counter()
+        s.execute("analyze lake.default.lineitem (l_shipdate, l_discount, "
+                  "l_quantity, l_extendedprice, l_tax, l_returnflag, l_linestatus)")
+        secs["analyze"] = time.perf_counter() - t0
+        snaps = [r for r in conn.snapshots_rows() if r[0] == "lineitem"]
+        if [(r[1], r[3]) for r in snaps] != [(0, "create"), (1, "append"),
+                                              (2, "append"), (3, "overwrite")]:
+            raise AssertionError(f"snapshots {snaps}")
+        files = conn.fs.list_files("lineitem/data")
+        _log(f"[lake] CTAS {secs['ctas']:.3f} s, INSERT {secs['insert']:.3f} s, "
+             f"DELETE {secs['delete']:.3f} s, ANALYZE (Q1's and Q6's columns, "
+             f"snapshot 3) "
+             f"{secs['analyze']:.3f} s; data files "
+             f"{[e.size for e in files]} bytes; snapshots "
+             f"{[(r[1], r[3], r[5]) for r in snaps]} (id, operation, rows)")
+        # the host arrays of each snapshot: the scan, + the INSERT's rows,
+        # - the DELETE's rows
+        key = host["l_orderkey"]
+        ins = (key >= i_lo) & (key <= i_hi)
+        v2 = {c: np.concatenate([host[c], host[c][ins]]) for c in LAKE_COLS}
+        keep = ~((v2["l_orderkey"] >= d_lo) & (v2["l_orderkey"] <= d_hi))
+        v3 = {c: v2[c][keep] for c in LAKE_COLS}
+        versions = {1: host, 2: v2, 3: v3}
+        for v, arrays in versions.items():
+            if snaps[v][5] != len(arrays["l_orderkey"]):
+                raise AssertionError(f"snapshot {v} holds {snaps[v][5]} rows, "
+                                     f"reference {len(arrays['l_orderkey'])}")
+        lake_sql = {}
+        for v in versions:
+            for q in ("Q6", "Q1"):
+                lake_sql[(q, v)] = qs[q].replace(
+                    "from lineitem", f"from lake.default.lineitem for version as of {v}")
+        lake_sql[("Q3", 3)] = qs["Q3"].replace(
+            "from customer, orders, lineitem",
+            "from tpch.default.customer, tpch.default.orders, lake.default.lineitem")
+        walls = {k: [] for k in lake_sql}
+        pages, fused, rejects = {}, {}, {}
+        write_secs = dict(secs)
+        secs.clear()
+        kn.reset_counts()  # the lake path starts here
+        for rep in range(1 + LAKE_REPS):
+            for k, sql in lake_sql.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pages[k] = s.execute(sql)
+                torch.cuda.synchronize()
+                walls[k].append(time.perf_counter() - t0)
+                fused[k] = s.last_kernel_profile.get("fusedAggregates") or 0
+                rejects[k] = s.last_kernel_profile.get("lastFusionReject")
+            if rep == 0:
+                cold_secs = dict(secs)
+        launches = dict(kn.LAUNCHES)  # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for u in undo:
+            u()
+    for v, arrays in versions.items():
+        check_reference({"Q6": pages[("Q6", v)], "Q1": pages[("Q1", v)]}, arrays, dicts)
+    orders, _ = _scan_host_columns(s, ["o_custkey"], "orders")
+    cust, cdicts = _scan_host_columns(s, ["c_mktsegment"], "customer")
+    check_q3(pages[("Q3", 3)], v3, orders, cust, cdicts)
+    if (launches["direct_probe"] == 0 or launches["fused_agg_sums"] == 0
+            or not fused[("Q6", 3)]):
+        raise AssertionError(f"the lake path launched {launches}")
+    for k, w in walls.items():
+        _log(f"[lake] {k[0]} version {k[1]} megakernels=auto (fused aggregates "
+             f"{fused[k]}, last fusion reject {rejects[k]!r}): cold {w[0] * 1e3:.3f} ms, warm "
+             f"{', '.join(f'{x * 1e3:.3f}' for x in w[1:])} ms, {pages[k].count} rows")
+    _log(f"[lake] launches {launches}; peak device memory {peak / 2**30:.2f} GiB "
+         f"(writes and queries); the writes' seconds in np.savez (_encode_data_file) "
+         f"{write_secs.get('_encode_data_file', 0):.3f}, np.load (_decode_data_file) "
+         f"{write_secs.get('_decode_data_file', 0):.3f}, upload (_device_lanes) "
+         f"{write_secs.get('_device_lanes', 0):.3f}; the queries' cold pass np.load "
+         f"{cold_secs.get('_decode_data_file', 0):.3f}, upload "
+         f"{cold_secs.get('_device_lanes', 0):.3f}; all three passes np.load "
+         f"{secs.get('_decode_data_file', 0):.3f}, upload "
+         f"{secs.get('_device_lanes', 0):.3f}")
+    _log("[lake] Q1 and Q6 at every snapshot and Q3 agree exactly with the numpy "
+         "references")
+    # maintenance
+    conn.fs.write_file("lineitem/data/crashed-writer-leftover.npz", b"\0" * 4096)
+    res = conn.expire_snapshots("lineitem", keep=1)
+    if (res["expiredSnapshots"], res["removedFiles"], res["currentSnapshotId"]) != (3, 2, 3):
+        raise AssertionError(f"expire_snapshots {res}")
+    orphans = conn.remove_orphan_files("lineitem", older_than_s=0.0)
+    if (orphans["removedFiles"], orphans["freedBytes"]) != (1, 4096):
+        raise AssertionError(f"remove_orphan_files {orphans}")
+    left = conn.fs.list_files("lineitem/data")
+    if len(left) != 1:
+        raise AssertionError(f"{len(left)} data files left after maintenance")
+    convert.assert_pages_identical(pages[("Q6", 3)], s.execute(
+        qs["Q6"].replace("from lineitem", "from lake.default.lineitem")))
+    _log(f"[lake] expire_snapshots {res}; remove_orphan_files {orphans}; one data "
+         f"file left, the current snapshot reads the same")
+
+    # hive: the first snapshot's columns as parquet
+    table = s.execute(f"select {cols} from {src}")
+    t0 = time.perf_counter()
+    write_parquet_table(hive_dir, "lineitem", table, rows_per_group=HIVE_ROWS_PER_GROUP)
+    hive_write = time.perf_counter() - t0
+    del table
+    # the group keys' and the date's statistics, which footers do not
+    # give, so that Q1 and Q6 reach the fused gate with the decimals'
+    # footer bounds
+    t0 = time.perf_counter()
+    s.execute("analyze hive.default.lineitem (l_returnflag, l_linestatus, l_shipdate)")
+    hive_analyze = time.perf_counter() - t0
+    hsecs = {}
+    undo = _timed(hive_mod.HivePageSource, "_to_column", hsecs)
+    undo_read = _timed(hive_mod.pq.ParquetFile, "read_row_group", hsecs)
+    try:
+        hwalls, hpages, hfused = {}, {}, {}
+        for q in ("Q6", "Q1"):
+            sql = qs[q].replace("from lineitem", "from hive.default.lineitem")
+            hwalls[q] = []
+            for _ in range(1 + LAKE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hpages[q] = s.execute(sql)
+                torch.cuda.synchronize()
+                hwalls[q].append(time.perf_counter() - t0)
+            prof = s.last_kernel_profile
+            hfused[q] = (prof.get("fusedAggregates") or 0, prof.get("lastFusionReject"))
+    finally:
+        undo()
+        undo_read()
+    check_reference(hpages, host, dicts)
+    for q in ("Q6", "Q1"):
+        if hpages[q].to_pylist() != pages[(q, 1)].to_pylist():
+            raise AssertionError(f"hive {q} differs from the lake's version 1")
+        _log(f"[hive] {q} megakernels=auto (fused aggregates {hfused[q][0]}, last "
+             f"fusion reject {hfused[q][1]!r}): cold {hwalls[q][0] * 1e3:.3f} ms, warm "
+             f"{', '.join(f'{x * 1e3:.3f}' for x in hwalls[q][1:])} ms")
+    path = os.path.join(hive_dir, "lineitem", "part-0.parquet")
+    md = pq.ParquetFile(path).metadata
+    lo, hi = i_lo, i_hi
+    ci = md.schema.names.index("l_orderkey")
+    want = sum(1 for g in range(md.num_row_groups)
+               if not (md.row_group(g).column(ci).statistics.max < lo
+                       or md.row_group(g).column(ci).statistics.min > hi))
+    rng_sql = (f"select count(*), sum(l_quantity) from hive.default.lineitem "
+               f"where l_orderkey between {lo} and {hi}")
+    splits = s.catalogs.get("hive").split_manager().get_splits(
+        "lineitem", 1, (("l_orderkey", float(lo), float(hi)),))
+    rng = s.execute(rng_sql)
+    got = rng.to_pylist()[0]
+    if (len(splits) != want or got[0] != int(ins.sum())
+            or _raw(rng.columns[1], 0) != int(host["l_quantity"][ins].sum())):
+        raise AssertionError(f"range scan read {len(splits)} row groups (footers say "
+                             f"{want}), answered {got}")
+    _log(f"[hive] write_parquet_table {hive_write:.3f} s ({os.path.getsize(path)} bytes, "
+         f"{md.num_row_groups} row groups), ANALYZE of three columns {hive_analyze:.3f} s; "
+         f"seconds reading row groups "
+         f"{hsecs.get('read_row_group', 0):.3f} and converting them "
+         f"{hsecs.get('_to_column', 0):.3f}; the l_orderkey range [{lo}, {hi}] read "
+         f"{len(splits)} of {md.num_row_groups} row groups ({md.num_row_groups - len(splits)} "
+         f"pruned, as the footer statistics say), {got[0]} rows; Q1 and Q6 over hive "
+         f"equal the lake's and the numpy references")
+    del s, host, v2, v3, versions, pages, hpages
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+
+
+def _track_supervisors():
+    """Keep every session's device supervisor (SUPERVISED), so a phase
+    can be held to no fault."""
+    from trino_tpu_torch import session as tsession
+
+    init = tsession.Session.__init__
+
+    def tracked(self, *args, **kw):
+        init(self, *args, **kw)
+        SUPERVISED.append(self.device_supervisor)
+
+    tsession.Session.__init__ = tracked
+    SUPERVISED.clear()
+
+
+def _check_supervisors(name):
+    """With the fault injector off, every session made so far (a phase
+    may reuse an earlier phase's) must end the phase with its supervisor
+    ACTIVE and no fault."""
+    bad = [(sup.device_state(), sup.faults()) for sup in SUPERVISED
+           if sup.device_state() != "ACTIVE" or sup.faults()]
+    if bad:
+        raise AssertionError(f"{name}: supervisors (state, faults) {bad}")
+    _log(f"[supervisor] after {name}: {len(SUPERVISED)} sessions so far, every "
+         f"supervisor ACTIVE, 0 faults")
 
 
 def main(argv=None) -> int:
@@ -3252,7 +3728,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "gen", "session", "main", "ext", "ooc",
-                             "ds"],
+                             "ds", "faults", "lake"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 on-device generator against the host "
                          "generator, only the build and the SF1 session "
@@ -3261,8 +3737,10 @@ def main(argv=None) -> int:
                          "of an earlier commit, for comparisons), only the build "
                          "and the SF10 array/JSON/write phase (in a fresh session), "
                          "only the build and the out-of-core phase (streaming and "
-                         "spill under 8 GiB, 1 GiB and 256 MiB limits), or only "
-                         "the build and the TPC-DS path")
+                         "spill under 8 GiB, 1 GiB and 256 MiB limits), only "
+                         "the build and the TPC-DS path, only the build and the "
+                         "fault path (seeded faults, supervisor, canary, watchdog), or "
+                         "only the build and the lakehouse/hive path")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -3298,6 +3776,10 @@ def main(argv=None) -> int:
         phases.append(("gen", lambda: phase_gen(dev)))
     elif args.phase == "session":
         phases.append(("session", lambda: phase_session(dev)))
+    elif args.phase == "faults":
+        phases.append(("faults", lambda: phase_faults(dev)))
+    elif args.phase == "lake":
+        phases.append(("lake", lambda: phase_lake(dev)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -3311,12 +3793,20 @@ def main(argv=None) -> int:
             ("timing", lambda: phase_timing(dev)),
             ("ooc", lambda: phase_ooc(dev, args.profile)),
             ("ds", lambda: phase_ds(dev, args.profile)),
+            ("faults", lambda: phase_faults(dev)),
+            ("lake", lambda: phase_lake(dev)),
         ]
+    _track_supervisors()
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()
+        first = len(SUPERVISED)
         try:
             fn()
+            if name == "faults":  # the one phase that injects faults
+                del SUPERVISED[first:]
+            else:
+                _check_supervisors(name)
             _log(f"[phase] {name} ok in {time.perf_counter() - t0:.1f} s")
         except Exception:
             traceback.print_exc()

@@ -9,6 +9,9 @@ with the same message.  Statements whose pages differ on purpose are
 compared otherwise, and named in CHANGES.md:
   - SHOW SESSION lists the port's properties: the rows of the names both
     packages know must agree (name, value, default);
+  - a query after `SET SESSION distributed = true`: the port refuses it
+    (ExecutionError naming the mesh executor, a later slice) where the
+    JAX package runs it on its device mesh;
   - SHOW CATALOGS: the JAX package mounts its `system` catalog, which
     the port does not have yet;
   - statements over `system.*` tables wait for that connector;
@@ -24,6 +27,9 @@ import trino_tpu.session as jsession
 import trino_tpu_torch.session as tsession
 from test_torch_dml import assert_same_outcome, replay_events, replayed_tests
 from trino_tpu_torch import convert
+from trino_tpu_torch.exec.local import ExecutionError
+from trino_tpu_torch.sql import ast as tast
+from trino_tpu_torch.sql.parser import parse
 from trino_tpu_torch.utils.events import EventListener
 from trino_tpu_torch.utils.memory import (
     ExceededMemoryLimitError,
@@ -77,10 +83,22 @@ def replay_statements(filename, test):
             assert arg is not None, f"{test}: a session statement's text is computed"
             if _differs_on_purpose(arg):
                 _port_alone(pairs[name], arg)
+            elif (pairs[name][1].properties.get("distributed")
+                  and isinstance(parse(arg), tast.Query)):
+                _refused_distributed(pairs[name], arg)
             else:
                 assert_same_outcome(pairs[name], arg, _check)
             ran += 1
     return ran
+
+
+def _refused_distributed(pair, sql):
+    """distributed = true: the JAX package answers on its mesh, the port
+    refuses at execute until its mesh executor exists."""
+    js, ts = pair
+    js.execute(sql)
+    with pytest.raises(ExecutionError, match="mesh executor"):
+        ts.execute(sql)
 
 
 def _port_alone(pair, sql):
@@ -104,7 +122,6 @@ SESSION_SKIP = (
     "test_memory_connector", "test_tablesample", "test_tablesample_after_alias",
     "test_datetime_constants",  # now() differs by the clock
     "test_http_event_listener",  # the HTTP listener waits for the server
-    "test_blackhole_connector",  # connector not ported yet
 )
 SESSION_TESTS = replayed_tests("test_session_features.py", SESSION_SKIP)
 VIEW_TESTS = replayed_tests("test_views.py")

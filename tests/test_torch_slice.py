@@ -213,7 +213,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'trino_tpu_torch.serde', 'trino_tpu_torch.obs.opstats',"
         " 'trino_tpu_torch.obs.bandwidth', 'trino_tpu_torch.stats.analyze',"
         " 'trino_tpu_torch.utils.events', 'trino_tpu_torch.utils.tracing',"
-        " 'trino_tpu_torch.utils.metrics'}\n"
+        " 'trino_tpu_torch.utils.metrics', 'trino_tpu_torch.utils.faults',"
+        " 'trino_tpu_torch.obs.journal', 'trino_tpu_torch.obs.flight_recorder',"
+        " 'trino_tpu_torch.runtime', 'trino_tpu_torch.runtime.supervisor',"
+        " 'trino_tpu_torch.fs', 'trino_tpu_torch.fs.filesystem',"
+        " 'trino_tpu_torch.fs.objectstore', 'trino_tpu_torch.connectors.blackhole',"
+        " 'trino_tpu_torch.connectors.hive', 'trino_tpu_torch.connectors.lakehouse'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )

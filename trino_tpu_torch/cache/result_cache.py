@@ -12,9 +12,9 @@ Memory discipline: a byte-budgeted LRU accounted through utils.memory's
 MemoryContext.  Cold (evicted) entries spill to disk as checksummed page
 frames (serde.serialize_page); a corrupt spilled entry is a miss and a
 heal (the frame is deleted and the query recomputes), never a query
-error.  `get`'s `injector` is any object with the fault injector's
-``corrupt(site, frame, key=)`` (the ``cache_read`` site); the port's own
-fault injector waits for its slice, so the session passes none.
+error, and a heal is journaled (CACHE_HEAL).  `get`'s `injector` is the
+session's FaultInjector (utils/faults.py), or any object with its
+``corrupt(site, frame, key=)``: the ``cache_read`` site.
 """
 from __future__ import annotations
 
@@ -190,6 +190,7 @@ class FragmentResultCache:
             self._drop_spilled(digest)
             self.heals += 1
             self._event("heal")
+            self._journal_heal(digest, "unreadable spilled frame")
             return None
         if injector is not None:
             frame = injector.corrupt("cache_read", frame, key=digest)
@@ -201,7 +202,17 @@ class FragmentResultCache:
             self._drop_spilled(digest)
             self.heals += 1
             self._event("heal")
+            self._journal_heal(digest, "checksum mismatch")
             return None
+
+    @staticmethod
+    def _journal_heal(digest: str, why: str):
+        from ..obs import journal
+
+        journal.emit(
+            journal.CACHE_HEAL, severity=journal.WARN,
+            digest=str(digest)[:16], reason=why,
+        )
 
     def put(self, key, page: Page, tables=()) -> bool:
         nbytes = page_nbytes(page)

@@ -5,11 +5,19 @@ QueryManagerConfig, FeaturesConfig...) and SystemSessionProperties.java
 (151 typed session properties) — reduced to the properties this port's
 optimizer, analyzer, executor and session actually read: the memory
 limit, spill and streaming ones, on-device generation, the result
-cache, operator stats, the bandwidth ledger and ANALYZE's histogram.
-Any other name, including the JAX package's properties whose machinery
-the port does not have yet (retries, the compile cache, observatories),
-raises KeyError at SET time rather than being silently ignored; values
-are validated and typed at SET time.
+cache, operator stats, the bandwidth ledger, ANALYZE's histogram, and
+the fault path's (fault injection, the device supervisor, the incident
+journal and the flight recorder).  Any other name, including the JAX
+package's properties whose machinery the port does not have yet
+(retries, the compile cache, observatories) or never will (the padding
+ladder: an eager executor pads nothing), raises KeyError at SET time
+rather than being silently ignored; values are validated and typed at
+SET time.
+
+The JAX package's ``device_cpu_fallback`` is not here on purpose: a
+device fault raises DeviceFaultError, and SET refuses the property.
+`distributed` and `num_devices` are read by the planner's costing; the
+executor refuses ``distributed = true`` until the mesh executor exists.
 """
 from __future__ import annotations
 
@@ -31,16 +39,6 @@ def _bool(s: str) -> bool:
     if str(s).lower() in ("false", "0", "no"):
         return False
     raise ValueError(f"not a boolean: {s}")
-
-
-def _padding_ladder(s: str) -> str:
-    """Validate (but keep as string) the bucketed-batch ABI spec: the
-    executor resolves it to an exec.shapes.PaddingLadder lazily so SET
-    SESSION stays import-light."""
-    from .exec.shapes import parse_ladder_spec
-
-    parse_ladder_spec(str(s))  # raises ValueError on a bad spec
-    return str(s).strip().lower()
 
 
 def _megakernels(s: str) -> str:
@@ -152,21 +150,6 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             _bool, True,
         ),
         PropertyMetadata(
-            "padding_ladder",
-            "bucketed-batch ABI rungs every padded capacity quantizes "
-            "onto before tracing: geometric (128*2^k, the default) | "
-            "off (legacy next-multiple-of-128) | explicit "
-            "comma-separated rung list",
-            _padding_ladder, "geometric",
-        ),
-        PropertyMetadata(
-            "padding_ladder_file",
-            "census-tuned ladder JSON written by scripts/bucket_ladder.py "
-            "--emit; when set (and readable) it overrides padding_ladder; "
-            "empty = use the padding_ladder spec",
-            str, "",
-        ),
-        PropertyMetadata(
             "query_max_memory_bytes",
             "per-query device memory reservation limit",
             int, 8 << 30,
@@ -226,6 +209,56 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             "and account bytes-touched / device wall into per-kernel "
             "effective GB/s (EXPLAIN ANALYZE always collects it)",
             _bool, False,
+        ),
+        PropertyMetadata(
+            "fault_injection",
+            "seeded fault-injection spec (JSON: {seed, site: rule...}) "
+            "for chaos testing; empty = off",
+            str, "",
+        ),
+        PropertyMetadata(
+            "device_fault_max_strikes",
+            "device faults inside the strike window before the device is "
+            "blacklisted for the process lifetime",
+            int, 3,
+        ),
+        PropertyMetadata(
+            "device_probe_backoff_s",
+            "base backoff between canary re-probes of a quarantined "
+            "device (doubles per failure, capped)",
+            float, 1.0,
+        ),
+        PropertyMetadata(
+            "device_watchdog_timeout_s",
+            "watchdog timeout on a supervised device->host sync; a sync "
+            "exceeding it is treated as a device wedge (0=off)",
+            float, 60.0,
+        ),
+        PropertyMetadata(
+            "flight_recorder_dir",
+            "directory for the crash-safe on-disk dispatch ring (mmap'd "
+            "JSONL segments); empty keeps the flight recorder in-memory "
+            "only",
+            str, "",
+        ),
+        PropertyMetadata(
+            "flight_recorder_max_records",
+            "bound on the flight-recorder dispatch ring (oldest records "
+            "rotate out)",
+            int, 512,
+        ),
+        PropertyMetadata(
+            "event_journal_dir",
+            "directory for the crash-safe engine-wide incident journal "
+            "(mmap'd JSONL segments); empty keeps the journal in-memory "
+            "only",
+            str, "",
+        ),
+        PropertyMetadata(
+            "event_journal_max_bytes",
+            "byte budget of the on-disk incident journal (the two "
+            "segments rotate, oldest events drop first)",
+            int, 1 << 20,
         ),
         PropertyMetadata(
             "analyze_histogram_buckets",

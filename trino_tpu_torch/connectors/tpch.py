@@ -743,7 +743,10 @@ class TpchMetadata(ConnectorMetadata):
                     distinct_count=float(len(_VOCABS[c]))
                 )
             elif lo is not None:
-                cols[c] = ColumnStatistics(min_value=lo, max_value=hi)
+                cols[c] = ColumnStatistics(
+                    min_value=lo, max_value=hi,
+                    decimal_lanes=bool(getattr(t, "is_decimal", False)),
+                )
         cache[table] = TableStatistics(float(n), cols)
         return cache[table]
 

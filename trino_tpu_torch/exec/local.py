@@ -63,8 +63,15 @@ operator's rows, bytes and walls land in `node_stats`, the card
 synchronized after each one; with `bandwidth_ledger` each run's bytes
 over its synchronized wall go to obs/bandwidth.py.
 
-Not in this slice (ExecutionError / NotImplementedError): the device
-supervisor and the mesh executor.
+Every operator visit, kernel launch and device->host sync crosses the
+session's device supervisor (runtime/supervisor.py): a lost or wedged
+card raises DeviceFaultError naming the culprit kernel and quarantines
+the device.  Nothing re-runs the query elsewhere (the JAX package
+re-runs it on the CPU; the port has no such path on purpose).
+
+Refused (ExecutionError at execute): `distributed = true`, which needs
+the mesh executor of a later slice; EXPLAIN (TYPE DISTRIBUTED) is the
+planner's and stays.
 """
 from __future__ import annotations
 
@@ -87,6 +94,8 @@ from ..ops import sort as sort_ops
 from ..ops import window as window_ops
 from ..page import Column, Page
 from ..plan import nodes as P
+from ..runtime import supervisor as rt
+from ..runtime.supervisor import Breadcrumb, DeviceFaultError
 
 
 class DeviceScanCache:
@@ -209,7 +218,9 @@ def merge_pages_to_arrays(pages, symbols, types, dicts):
                 for p, d in zip(live, page_dicts):
                     col = p.by_name(sym)
                     codes = np.asarray(col.values)[: p.count]
-                    remap = np.empty(len(d), dtype=np.int32)
+                    # an all-NULL page's dictionary is empty: its codes
+                    # map to no entry (-1)
+                    remap = np.full(max(len(d), 1), -1, dtype=np.int32)
                     for i, s in enumerate(d):
                         s = str(s)
                         if s not in index:
@@ -235,6 +246,26 @@ def merge_pages_to_arrays(pages, symbols, types, dicts):
             ok = np.zeros(0, dtype=bool)
         merged[sym] = (vals, None if ok.all() else ok)
     return merged, total
+
+
+def _read_checks(ctx: "_TraceCtx"):
+    """The run's runtime checks as Python ints, read in one copy: (decimal
+    overflow flags fired, join duplicate/violation counts, grouping
+    collision counts, bigint sum overflow flags)."""
+    wides = ctx.lowering.overflow_flags
+    groups = ([sum(f.reshape(()).to(torch.int64) for f in wides)] if wides else [],
+              [d for _, d in ctx.dup_checks], list(ctx.collision_checks),
+              list(ctx.sum_overflow))
+    flat = [v for g in groups for v in g]
+    tensors = [v for v in flat if isinstance(v, torch.Tensor)]
+    read = iter(torch.stack([t.reshape(()).to(torch.int64) for t in tensors]).tolist()
+                if tensors else [])
+    vals = [next(read) if isinstance(v, torch.Tensor) else int(v) for v in flat]
+    out, i = [], 0
+    for g in groups:
+        out.append(vals[i:i + len(g)])
+        i += len(g)
+    return (out[0][0] if out[0] else 0), out[1], out[2], out[3]
 
 
 def _is_null_expr(e: ir.Expr) -> bool:
@@ -442,13 +473,53 @@ class LocalExecutor:
             from ..obs.bandwidth import BandwidthLedger
 
             self.bandwidth_ledger = BandwidthLedger()
+        # the supervised boundary: the session's supervisor when wired,
+        # the process default otherwise (bare executors in tests)
+        self.supervisor = (self.config.get("device_supervisor")
+                           or rt.default_supervisor())
 
     # ------------------------------------------------------------------
     def execute(self, plan: P.PlanNode) -> Page:
         assert isinstance(plan, P.Output)
+        if self.config.get("distributed"):
+            raise ExecutionError(
+                "distributed = true needs the mesh executor "
+                "(parallel/mesh_executor.py on torch.distributed, ROADMAP "
+                "A.5), which the port does not have yet; set distributed = "
+                "false to run on one device"
+            )
         if isinstance(plan.source, P.TableWriter):
             return self._execute_write(plan.source)
-        return self._execute_inner(plan)
+        sup = self.supervisor
+        sup.maybe_probe()
+        if not sup.healthy():
+            # the device is already out: refuse with the structured error
+            bc = self._crumb("pre-dispatch", "gate")
+            raise DeviceFaultError("device_" + sup.device_state().lower(), bc)
+        try:
+            with rt.supervising(sup, self.query_id,
+                                str(self.config.get("task_id") or ""),
+                                lambda: self.device_bytes):
+                return self._execute_inner(plan)
+        except DeviceFaultError as fault:
+            self.kernel_profile["last_breadcrumb"] = fault.breadcrumb.to_dict()
+            raise
+
+    def _crumb(self, kernel: str, mode: str, shapes=None) -> Breadcrumb:
+        bc = Breadcrumb(kernel, query_id=self.query_id,
+                        task_id=str(self.config.get("task_id") or ""),
+                        mode=mode, shapes=shapes,
+                        hbm_reserved_bytes=self.device_bytes)
+        # forensics ride the kernel profile (EXPLAIN ANALYZE, tests)
+        self.kernel_profile["last_breadcrumb"] = bc.to_dict()
+        return bc
+
+    def _device_get(self, fn, what: str, shapes=None):
+        """A supervised device->host sync (the reference's device_get):
+        `fn` reads or copies device tensors once the card has finished
+        the queued work, under the watchdog."""
+        return self.supervisor.device_get(
+            fn, self._crumb(what, "sync", shapes), device=self.device)
 
     def _execute_inner(self, plan: P.Output) -> Page:
         limit = self.config.get("memory_limit_bytes")
@@ -550,6 +621,8 @@ class LocalExecutor:
             if frags is None:
                 return None
             out = streaming.execute_streaming(self, plan, frags, int(limit))
+        except DeviceFaultError:
+            raise
         except Exception:  # noqa: BLE001 — the original error surfaces
             return None
         prof = self.kernel_profile
@@ -609,16 +682,12 @@ class LocalExecutor:
             if self.bandwidth_ledger is not None:
                 self._ledger_record(out_lanes, sel, "eager-%d" % attempt, plan,
                                     scans, t0)
-            wides = ctx.lowering.overflow_flags
-            fired = (
-                int(torch.stack([f.reshape(()) for f in wides]).sum())
-                if wides else 0
-            )
+            checks = self._device_get(lambda: _read_checks(ctx), "runtime checks")
             self._record_kernel(
                 "eager-%d" % attempt, time.perf_counter() - t0, False,
                 mode="eager",
             )
-            if not self._retry_needed(ctx, fired):
+            if not self._retry_needed(ctx, checks):
                 break
         else:
             raise ExecutionError("the executor's retry ladder did not settle")
@@ -629,17 +698,26 @@ class LocalExecutor:
             )
             for k in list(hints)[:-512]:
                 hints.pop(k, None)
-        idx = torch.nonzero(sel).flatten()
-        host_lanes = {
-            s: (D.to_numpy(out_lanes[s][0][idx]), D.to_numpy(out_lanes[s][1][idx]))
-            for s in plan.symbols
-        }
+
+        def copy_out():
+            idx = torch.nonzero(sel).flatten()
+            return {
+                s: (D.to_numpy(out_lanes[s][0][idx]),
+                    D.to_numpy(out_lanes[s][1][idx]))
+                for s in plan.symbols
+            }
+
+        host_lanes = self._device_get(
+            copy_out, "output copy",
+            rt.shape_summary({"sel": sel, **{s: out_lanes[s][0]
+                                             for s in plan.symbols}}))
         self._finalize_kernel_profile(scans, counts, host_lanes)
         return self._materialize_host(plan, host_lanes)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self._device_get(lambda: torch.cuda.synchronize(self.device),
+                             "synchronize")
 
     def _ledger_record(self, out_lanes, sel, digest, plan, scans, start):
         """Close one bandwidth-ledger observation: wait for the run's
@@ -733,12 +811,14 @@ class LocalExecutor:
             result = written
         return _rows_page(result)
 
-    def _retry_needed(self, ctx: "_TraceCtx", wide_fired: int) -> bool:
-        """Read the run's runtime checks; arm the next rung of the retry
-        ladder and return True when the run must be repeated."""
+    def _retry_needed(self, ctx: "_TraceCtx", checks) -> bool:
+        """Act on the run's runtime checks (_read_checks): arm the next
+        rung of the retry ladder and return True when the run must be
+        repeated."""
+        wide_fired, dups, collisions, overflows = checks
         fell_back = False
-        for join_node, dup in ctx.dup_checks:
-            if int(dup) > 0:
+        for (join_node, _), dup in zip(ctx.dup_checks, dups):
+            if dup > 0:
                 if (join_node.direct_domain is not None
                         and id(join_node) not in self.force_no_direct):
                     # direct-table domain/dup proof failed: retry on the
@@ -748,8 +828,8 @@ class LocalExecutor:
                     # duplicate build keys: the many-to-many expansion
                     self.force_expansion.add(id(join_node))
                 fell_back = True
-        for cv in ctx.collision_checks:
-            if int(cv) > 0:
+        for cv in collisions:
+            if cv > 0:
                 # locator hash collision in grouping: a fresh salt
                 self.group_salt += 1
                 fell_back = True
@@ -762,8 +842,8 @@ class LocalExecutor:
             return True
         # only a settled run may raise: a retried run piles unrelated
         # groups into one segment, making the shadow flag spurious
-        for sv in ctx.sum_overflow:
-            if int(sv) > 0:
+        for sv in overflows:
+            if sv > 0:
                 raise ExecutionError("sum overflows the bigint accumulator")
         return False
 
@@ -1057,12 +1137,32 @@ class _TraceCtx:
         self.lowering = LoweringContext(ex.dicts)
         self.lowering.force_wide_mul = ex.force_wide_mul
         self.lowering.memo = ex.config.get("projection_memo")
+        # the breadcrumbs of the operators being visited (innermost last)
+        self._crumbs: List[Breadcrumb] = []
 
     def visit(self, node: P.PlanNode) -> Batch:
         name = type(node).__name__
         m = getattr(self, f"_visit_{name.lower()}", None)
         if m is None:
             raise ExecutionError(f"{name} is not in this slice of the port")
+        ex = self.ex
+        # one supervised step per operator: its breadcrumb names the
+        # operator and gains its inputs' shapes as its children return
+        parent = self._crumbs[-1] if self._crumbs else None
+        bc = Breadcrumb(f"op:{name}", query_id=ex.query_id,
+                        task_id=str(ex.config.get("task_id") or ""),
+                        mode="operator", hbm_reserved_bytes=ex.device_bytes)
+        self._crumbs.append(bc)
+        try:
+            b = ex.supervisor.dispatch(lambda: self._visit_timed(node, m), bc)
+        finally:
+            self._crumbs.pop()
+        if parent is not None:
+            parent.shapes[f"{name}#{len(parent.shapes)}"] = (
+                f"rows({b.sel.shape[0]}) lanes({len(b.lanes)})")
+        return b
+
+    def _visit_timed(self, node: P.PlanNode, m) -> Batch:
         if not self.ex.config.get("collect_node_stats"):
             return m(node)
         # EXPLAIN ANALYZE instrumentation (OperatorContext timing): the
@@ -1610,7 +1710,9 @@ class _TraceCtx:
             )
         outer = node.kind == "left"
         probe_cap = left.sel.shape[0]
-        capacity = int((torch.clamp(counts, min=1) if outer else counts).sum())
+        capacity = self.ex._device_get(
+            lambda: int((torch.clamp(counts, min=1) if outer else counts).sum()),
+            "join capacity", rt.shape_summary({"counts": counts}))
         probe_row, build_row, matched, total, k = join_ops.expand_join_slots(
             src, counts, lo, capacity, outer=outer
         )
@@ -1748,7 +1850,8 @@ class _TraceCtx:
         build = join_ops.build_multi(bkey, filt.sel)
         counts, lo = join_ops.probe_counts(build, pkey, src.sel)
         n_src = src.sel.shape[0]
-        capacity = int(counts.sum())
+        capacity = self.ex._device_get(lambda: int(counts.sum()), "semi join capacity",
+                                       rt.shape_summary({"counts": counts}))
         probe_row, build_row, matched, _, _ = join_ops.expand_join_slots(
             build, counts, lo, capacity
         )

@@ -1,7 +1,8 @@
 """Output page partitioning for the exchange (shuffle-write).
 
-Counterpart of trino_tpu/exec/partitioner.py (hash_rows, take_rows and
-partition_page, copied; host-side numpy).  Reference parity:
+Counterpart of trino_tpu/exec/partitioner.py (hash_rows, take_rows,
+partition_page, concat_pages and the SkewedPartitionRebalancer of the
+hive connector's scaled writer, copied; host-side numpy).  Reference parity:
 operator/output/PagePartitioner.java:55 (partitionPage:134): rows of an
 output page are routed to one buffer per consumer by a hash of the
 partition keys.  Dictionary-coded varchar keys hash their string values,
@@ -91,3 +92,118 @@ def partition_page(page: Page, keys: Sequence[str], nparts: int) -> List[Page]:
         return [page]
     part = (hash_rows(page, keys) % np.uint64(nparts)).astype(np.int64)
     return [take_rows(page, np.nonzero(part == p)[0]) for p in range(nparts)]
+
+
+def concat_pages(pages: List[Page]) -> Page:
+    """Concatenate pages with identical schema (single-producer merge)."""
+    assert pages, "no pages"
+    if len(pages) == 1:
+        return pages[0]
+    first = pages[0]
+    cols = []
+    for i in range(first.num_columns):
+        vals = np.concatenate(
+            [np.asarray(p.columns[i].values)[: p.count] for p in pages]
+        )
+        oks = [
+            np.ones(p.count, bool)
+            if p.columns[i].validity is None
+            else np.asarray(p.columns[i].validity)[: p.count]
+            for p in pages
+        ]
+        ok = np.concatenate(oks)
+        cols.append(
+            Column(
+                first.columns[i].type,
+                vals,
+                None if ok.all() else ok,
+                first.columns[i].dictionary,
+            )
+        )
+    return Page(cols, sum(p.count for p in pages), first.names)
+
+
+class SkewedPartitionRebalancer:
+    """Skew-aware partition assignment for scaled writes.
+
+    Reference parity: operator/output/SkewedPartitionRebalancer.java:55 +
+    ScaleWriterPartitioningExchanger — when one partition receives a
+    disproportionate share of the rows, it is assigned EXTRA writers and
+    its rows round-robin across them.  Writer affinity is a clustering
+    preference for writes, not a correctness requirement, so splitting a
+    hot partition is safe (the reference applies the same relaxation).
+
+    Stateful across pages: observed per-partition row counts accumulate,
+    and every `rebalance_interval` rows the hottest partitions (above
+    `skew_factor` x the mean) get one more bucket each, drawn from the
+    least-loaded buckets.
+    """
+
+    def __init__(self, nparts: int, skew_factor: float = 2.0,
+                 rebalance_interval: int = 65536):
+        self.nparts = nparts
+        self.skew_factor = skew_factor
+        self.rebalance_interval = rebalance_interval
+        self.part_rows = np.zeros(nparts, dtype=np.int64)
+        self.bucket_rows = np.zeros(nparts, dtype=np.int64)
+        # partition -> list of buckets its rows cycle through
+        self.assignments: List[List[int]] = [[p] for p in range(nparts)]
+        self._since_rebalance = 0
+        self._rr = np.zeros(nparts, dtype=np.int64)
+
+    def scaled_partitions(self) -> List[int]:
+        return [p for p, a in enumerate(self.assignments) if len(a) > 1]
+
+    def _maybe_rebalance(self):
+        if self._since_rebalance < self.rebalance_interval:
+            return
+        self._since_rebalance = 0
+        total = self.part_rows.sum()
+        if total == 0:
+            return
+        mean = total / self.nparts
+        for p in np.argsort(-self.part_rows):
+            if self.part_rows[p] <= self.skew_factor * mean:
+                break
+            if len(self.assignments[p]) >= self.nparts:
+                continue
+            # grant the least-loaded bucket not already assigned
+            for b in np.argsort(self.bucket_rows):
+                if int(b) not in self.assignments[p]:
+                    self.assignments[p].append(int(b))
+                    break
+
+    def assign(self, page: Page, keys: Sequence[str]) -> np.ndarray:
+        """Per-row OUTPUT bucket; hot partitions cycle their buckets."""
+        part = (
+            hash_rows(page, keys) % np.uint64(self.nparts)
+        ).astype(np.int64)
+        np.add.at(self.part_rows, part, 1)
+        self._since_rebalance += page.count
+        self._maybe_rebalance()
+        bucket = part.copy()
+        for p in self.scaled_partitions():
+            rows = np.nonzero(part == p)[0]
+            if len(rows) == 0:
+                continue
+            buckets = np.array(self.assignments[p], dtype=np.int64)
+            offs = (self._rr[p] + np.arange(len(rows))) % len(buckets)
+            bucket[rows] = buckets[offs]
+            self._rr[p] += len(rows)
+        np.add.at(self.bucket_rows, bucket, 1)
+        return bucket
+
+    def partition_page(self, page: Page, keys: Sequence[str]) -> List[Page]:
+        """Feed the page through assign() in rebalance_interval-sized
+        chunks so hot partitions can escalate to MULTIPLE extra buckets
+        within one large write (a single assign call would rebalance at
+        most once)."""
+        buckets = np.empty(page.count, dtype=np.int64)
+        step = self.rebalance_interval
+        for start in range(0, page.count, step):
+            idx = np.arange(start, min(start + step, page.count))
+            buckets[idx] = self.assign(take_rows(page, idx), keys)
+        return [
+            take_rows(page, np.nonzero(buckets == b)[0])
+            for b in range(self.nparts)
+        ]

@@ -1,10 +1,11 @@
 """Per-worker memory arbitration: host pools + a device tier.
 
-Counterpart of trino_tpu/memory/pools.py.  Not ported: the metrics
-gauges and counters (utils/metrics.REGISTRY), the journal events the JAX
-package emits on revocation and kills, the seeded `oom` fault site and
-the heartbeat snapshots; the low-memory killer (which calls `kill`),
-admission and the cluster view wait for the server slice.
+Counterpart of trino_tpu/memory/pools.py, with its seeded `oom` fault
+site (an injected oom behaves like a permanently-short pool) and the
+journal events of revocation and kills.  Not ported: the metrics gauges
+and counters (utils/metrics.REGISTRY) and the heartbeat snapshots; the
+low-memory killer (which calls `kill`), admission and the cluster view
+wait for the server slice.
 
 Reference parity: memory/LocalMemoryManager.java (general + reserved
 pools carved from the node budget) and MemoryPool.java:44 blocked-future
@@ -62,9 +63,13 @@ class LocalMemoryManager:
         self,
         host_bytes: int,
         device_bytes: Optional[int] = None,
+        node_id: str = "local",
+        fault_injector=None,
     ):
         host_bytes = int(host_bytes)
         reserved_bytes = int(host_bytes * RESERVED_FRACTION)
+        self.node_id = node_id
+        self.fault_injector = fault_injector
         self.general = MemoryPool(host_bytes)
         self.reserved = MemoryPool(reserved_bytes)
         self.device = MemoryPool(
@@ -152,6 +157,14 @@ class LocalMemoryManager:
             # nothing next time); they leave via unregister/free_query
             with self._cond:
                 self._cond.notify_all()
+            from ..obs import journal
+
+            journal.emit(
+                journal.MEMORY_REVOKE, query_id=exclude or "",
+                node_id=self.node_id, severity=journal.WARN,
+                listeners=fired, revokedBytes=revoked,
+                neededBytes=int(needed),
+            )
         return revoked
 
     # -- reservation ---------------------------------------------------
@@ -171,18 +184,25 @@ class LocalMemoryManager:
         bytes_ = int(bytes_)
         if bytes_ <= 0:
             return
+        forced_oom = bool(
+            self.fault_injector is not None
+            and self.fault_injector.fires("oom", key=query_id)
+        )
         deadline = time.monotonic() + timeout
         revoked_once = False
         while True:
             with self._cond:
                 if query_id in self._killed:
                     raise QueryKilledError(self._killed[query_id])
-                if self._try_reserve_locked(query_id, bytes_, tier):
+                if not forced_oom and self._try_reserve_locked(
+                    query_id, bytes_, tier
+                ):
                     return
-            # revocation first (once), then block until the deadline
+            # revocation first (once), then block until the deadline; an
+            # injected oom behaves like a permanently-short pool
             if not revoked_once:
                 revoked_once = True
-                shortfall = bytes_ - self._tier_free(tier)
+                shortfall = bytes_ - (0 if forced_oom else self._tier_free(tier))
                 if self.request_revoke(max(shortfall, 1), exclude=query_id):
                     continue
             remaining = deadline - time.monotonic()
@@ -242,3 +262,10 @@ class LocalMemoryManager:
         with self._cond:
             self._killed[query_id] = reason
             self._cond.notify_all()
+        from ..obs import journal
+
+        journal.emit(
+            journal.MEMORY_KILL, query_id=query_id,
+            node_id=self.node_id, severity=journal.ERROR,
+            reason=str(reason)[:200],
+        )

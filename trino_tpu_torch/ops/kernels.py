@@ -11,7 +11,11 @@ in scripts/micro_probe.py.  Four kernels carry the TPC-H Q6/Q1/Q3 path:
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses
 the plain PyTorch version in this module only for CPU tensors.  Each
 wrapper adds one to ``LAUNCHES[<wrapper name>]`` where it launches its
-kernel, and nowhere else.
+kernel, and nowhere else.  Inside an executor's supervision scope every
+call crosses the device supervisor (runtime/supervisor.launch): a
+breadcrumb names the wrapper and its input shapes, and the seeded
+``device_loss`` / ``device_wedge`` fault sites are keyed by the
+wrapper's name.
 
 The kernels are built with nvcc for sm_90a into trino_tpu_torch/build/
 at first use, one nvcc per source, started together, and bound through
@@ -28,6 +32,8 @@ import subprocess
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..runtime import supervisor
 
 MAX_GROUPS = 32   # shared accumulator table bound (as the TPU kernels)
 # limits of csrc/fused_agg.cu's launch parameters (struct Params)
@@ -611,9 +617,24 @@ def _current_stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+# the sticky cudaErrors a launch can report (a fault of earlier work: the
+# process's CUDA context is lost), in the runtime's words, which the
+# device supervisor reads as a loss; any other code is a bad argument or
+# launch configuration and fails the query alone
+_STICKY_ERRORS = {
+    46: "CUDA-capable device(s) is/are busy or unavailable",
+    214: "uncorrectable ECC error encountered",
+    700: "an illegal memory access was encountered",
+    710: "device-side assert triggered",
+    719: "unspecified launch failure",
+}
+
+
 def _check_rc(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+        sticky = _STICKY_ERRORS.get(rc)
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}"
+                           + (f" ({sticky})" if sticky else ""))
 
 
 # -- wrappers -----------------------------------------------------------
@@ -651,10 +672,19 @@ def fused_agg_sums(
         if ok is not None and (ok.dtype != torch.bool or ok.shape != (n,)
                                or ok.device != live.device):
             raise ValueError("validity lanes must be bool [n] on live's device")
+    if live.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {live.device}")
+    shapes = {"live": live, "terms": len(prog.terms), "groups": groups}
+    shapes.update((f"col{k}", c) for k, c in enumerate(cols))
+    return supervisor.launch(
+        "fused_agg_sums",
+        lambda: _fused_agg_sums(cols, valids, live, prog, groups), shapes)
+
+
+def _fused_agg_sums(cols, valids, live, prog, groups):
     if live.device.type == "cpu":
         return fused_agg_sums_plain(cols, valids, live, prog, groups)
-    if live.device.type != "cuda":
-        raise ValueError(f"unsupported device {live.device}")
+    n = live.shape[0]
     enc = encode(prog)
     # a lane that starts off 16 bytes is copied (the copies live until the
     # launch is queued behind them)
@@ -688,12 +718,19 @@ def grouped_count(flags: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.Ten
         raise ValueError(f"cap {cap} outside [1, {MAX_GROUPS}]")
     if flags.device != gid.device:
         raise ValueError("flags and gid lie on different devices")
+    if flags.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {flags.device}")
+    if flags.device.type == "cuda" and (
+            flags.dtype not in (torch.bool, torch.uint8) or gid.dtype != torch.int64):
+        raise ValueError("grouped_count takes bool flags and int64 gid")
+    return supervisor.launch(
+        "grouped_count", lambda: _grouped_count(flags, gid, cap),
+        {"flags": flags, "gid": gid, "cap": cap})
+
+
+def _grouped_count(flags, gid, cap):
     if flags.device.type == "cpu":
         return grouped_count_plain(flags, gid, cap)
-    if flags.device.type != "cuda":
-        raise ValueError(f"unsupported device {flags.device}")
-    if flags.dtype not in (torch.bool, torch.uint8) or gid.dtype != torch.int64:
-        raise ValueError("grouped_count takes bool flags and int64 gid")
     flags = flags.contiguous()
     gid = gid.contiguous()
     # the kernel reads each id pair's two flags as one 2-byte word after
@@ -728,12 +765,19 @@ def grouped_sum_i64(values: torch.Tensor, gid: torch.Tensor, cap: int) -> torch.
         raise ValueError(f"cap {cap} outside [1, {MAX_GROUPS}]")
     if values.device != gid.device:
         raise ValueError("values and gid lie on different devices")
+    if values.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {values.device}")
+    if values.device.type == "cuda" and (
+            values.dtype != torch.int64 or gid.dtype != torch.int64):
+        raise ValueError("grouped_sum_i64 takes int64 values and int64 gid")
+    return supervisor.launch(
+        "grouped_sum_i64", lambda: _grouped_sum_i64(values, gid, cap),
+        {"values": values, "gid": gid, "cap": cap})
+
+
+def _grouped_sum_i64(values, gid, cap):
     if values.device.type == "cpu":
         return grouped_sum_i64_plain(values, gid, cap)
-    if values.device.type != "cuda":
-        raise ValueError(f"unsupported device {values.device}")
-    if values.dtype != torch.int64 or gid.dtype != torch.int64:
-        raise ValueError("grouped_sum_i64 takes int64 values and int64 gid")
     values = values.contiguous()
     gid = gid.contiguous()
     # the kernel reads both streams in 16-byte vectors after one common
@@ -787,9 +831,17 @@ def direct_probe(
             raise ValueError("table, key, ok and sel lie on different devices")
         if dev.type != "cpu":
             raise ValueError(f"unsupported device {dev}")
-        return direct_probe_plain(table, key, ok, sel, lo)
-    if table.get_device() != d or ok.get_device() != d or sel.get_device() != d:
+    elif table.get_device() != d or ok.get_device() != d or sel.get_device() != d:
         raise ValueError("table, key, ok and sel lie on different devices")
+    return supervisor.launch(
+        "direct_probe", lambda: _direct_probe(table, key, ok, sel, lo, d),
+        {"table": table, "key": key, "lo": lo})
+
+
+def _direct_probe(table, key, ok, sel, lo, d):
+    if d < 0:
+        return direct_probe_plain(table, key, ok, sel, lo)
+    n = key.shape[0]
     table = table.contiguous()
     key, ok, sel = aligned_lane(key), aligned_lane(ok), aligned_lane(sel)
     lib = _lib("direct_probe")

@@ -365,11 +365,16 @@ def _column_env(ex, scan: P.TableScan, types) -> Tuple[Dict[str, dict], object]:
             continue
         if cs.min_value is None or cs.max_value is None:
             continue
-        lo = int(math.floor(cs.min_value))
-        hi = int(math.ceil(cs.max_value))
+        lo, hi, scale = cs.min_value, cs.max_value, _scale(t)
+        if scale and not cs.decimal_lanes:
+            # value units (ANALYZE, parquet footers): the proofs read the
+            # lanes, value x 10^scale; floor/ceil keep the bounds outside
+            lo, hi = lo * 10 ** scale, hi * 10 ** scale
+        lo = int(math.floor(lo))
+        hi = int(math.ceil(hi))
         if lo < -I32_MAX or hi > I32_MAX:
             continue
-        env[sym] = {"lo": lo, "hi": hi, "scale": _scale(t)}
+        env[sym] = {"lo": lo, "hi": hi, "scale": scale}
     return env, stats
 
 

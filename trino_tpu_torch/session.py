@@ -18,10 +18,17 @@ parse -> analyze/plan -> optimize -> execute (exec/local.LocalExecutor)
   - a LocalMemoryManager sized by `query_max_memory_bytes` arbitrates
     each query's host and device reservations; the scan cache is
     registered with it as revocable, and queries over the limit stream
-    or spill.
-Not in this slice: access control, the device supervisor and fault
-injection, the query history, the doctor and journal, the compile
-cache and the distributed executors.
+    or spill;
+  - the fault path: a DeviceSupervisor (runtime/) guards the card, the
+    seeded FaultInjector of `fault_injection` (one per spec text) feeds
+    it, the memory manager and the result cache, failed queries go to
+    the incident journal (obs/journal.py, on disk under
+    `event_journal_dir`);
+  - the connectors: tpch, tpcds, memory, blackhole, hive (parquet, ORC,
+    CSV and JSON through pyarrow, where it is installed) and lakehouse
+    (snapshots and time travel on the object store of fs/).
+Not in this slice: access control, the query history, the doctor, the
+compile cache and the distributed executors.
 
 Sessions run on the CUDA card unless created with device="cpu"; without
 a card and without that request, creating one raises.
@@ -37,6 +44,8 @@ from . import types as T
 from .cache import CacheManager, FragmentResultCache, plan_signature
 from .catalog import CatalogManager, Metadata
 from .config import SessionProperties
+from .connectors.blackhole import BlackholeConnectorFactory
+from .connectors.lakehouse import LakehouseConnectorFactory
 from .connectors.memory import MemoryConnectorFactory
 from .connectors.tpcds import TpcdsConnectorFactory
 from .connectors.tpch import TpchConnectorFactory
@@ -45,7 +54,9 @@ from .expr.lower import ProjectionMemo
 from .memory import LocalMemoryManager
 from .page import Page, column_from_pylist, page_from_pydict
 from .plan import nodes as P
+from .obs import journal
 from .plan.optimizer import optimize
+from .runtime import DeviceSupervisor
 from .sql import ast
 from .sql.analyzer import Analyzer
 from .sql.parser import parse
@@ -85,6 +96,14 @@ class Session:
         self.catalogs.register_factory(TpchConnectorFactory())
         self.catalogs.register_factory(TpcdsConnectorFactory())
         self.catalogs.register_factory(MemoryConnectorFactory())
+        self.catalogs.register_factory(BlackholeConnectorFactory())
+        try:
+            from .connectors.hive import HiveConnectorFactory
+
+            self.catalogs.register_factory(HiveConnectorFactory())
+        except ImportError:  # pyarrow not installed: no hive catalogs
+            pass
+        self.catalogs.register_factory(LakehouseConnectorFactory())
         self.default_catalog = catalog
         self.properties = SessionProperties(config)
         self.metadata = Metadata(self.catalogs)
@@ -96,7 +115,22 @@ class Session:
         self.sql_functions: dict = {}
         # per-node memory arbitration: host pools and the device tier
         self.memory_manager = LocalMemoryManager(
-            self.properties.get("query_max_memory_bytes"))
+            self.properties.get("query_max_memory_bytes"), node_id="session")
+        # the supervised device boundary: one per node, like the memory
+        # manager (quarantine is node-local)
+        self.device_supervisor = DeviceSupervisor(node_id="session",
+                                                  device=self.device)
+        # FaultInjector instances per spec text: rules are stateful (nth
+        # counters), so the same spec must keep reusing one injector
+        self._fault_injectors: dict = {}
+        # the process-global incident journal: memory-only until a
+        # directory upgrades it to the crash-safe segment store
+        if self.properties.get("event_journal_dir"):
+            journal.configure(
+                self.properties.get("event_journal_dir"),
+                max_bytes=int(self.properties.get("event_journal_max_bytes")
+                              or (1 << 20)),
+            )
         # cross-query scan cache (device-resident scan lanes), revoked
         # first under memory pressure (_executor registers what it holds)
         self._scan_cache = DeviceScanCache(device=self.device)
@@ -137,8 +171,14 @@ class Session:
             "scan-cache", self._scan_cache.bytes, self._scan_cache.drop_all,
         )
         props = self.properties
+        inj = self._fault_injector()
+        self.memory_manager.fault_injector = inj
+        sup = self.device_supervisor.configure(props)
+        sup.fault_injector = inj
         config = {
             "device": self.device,
+            "device_supervisor": sup,
+            "distributed": bool(props.get("distributed")),
             "megakernels": props.get("megakernels"),
             "device_generation": props.get("device_generation"),
             "scan_cache": (
@@ -195,6 +235,8 @@ class Session:
         except Exception as e:
             self.events.query_completed(query_id, sql, "FAILED", created,
                                         error=str(e))
+            journal.emit(journal.QUERY_FAILED, query_id=query_id,
+                         severity=journal.ERROR, error=str(e)[:400])
             raise
 
     def _execute_statement(self, stmt, sql: str, query_id: str) -> Page:
@@ -514,7 +556,7 @@ class Session:
         rc = self.caches.result_cache
         # SET SESSION result_cache_max_bytes resizes the live budget
         rc.max_bytes = int(self.properties.get("result_cache_max_bytes"))
-        page = rc.get(key)
+        page = rc.get(key, injector=self._fault_injector())
         if page is None:
             return key, None
         self.last_scan_bytes = 0  # served from cache: nothing was scanned
@@ -522,6 +564,21 @@ class Session:
         # relabel with this plan's output names: the digest is alias-
         # invariant, so the cached page may carry another query's names
         return key, Page(list(page.columns), page.count, list(plan.names))
+
+    def _fault_injector(self):
+        """The session's FaultInjector of the fault_injection property,
+        one per spec text (rules hold nth-counters, so the same spec must
+        keep reusing one injector), or None when the property is empty."""
+        spec = self.properties.get("fault_injection")
+        if not spec:
+            return None
+        key = spec if isinstance(spec, str) else repr(spec)
+        inj = self._fault_injectors.get(key)
+        if inj is None:
+            from .utils.faults import FaultInjector
+
+            inj = self._fault_injectors[key] = FaultInjector.from_spec(spec)
+        return inj
 
     def store_result(self, key, page: Page) -> None:
         # the scanned tables ride in the key's version component

@@ -48,13 +48,19 @@ class ColumnStatistics:
     ``histogram`` is an optional equi-height histogram — a tuple of
     ``(low, high, fraction)`` buckets over the non-null rows (plain
     tuples: hashable and JSON-round-trippable for persistence) —
-    produced by ANALYZE from the device-sort quantiles."""
+    produced by ANALYZE from the device-sort quantiles.
+
+    A decimal column's ``min_value``/``max_value`` are in value units
+    (0.08), as ANALYZE and parquet footers give them, unless
+    ``decimal_lanes`` says they are in its scaled int64 lanes' units
+    (8 at scale 2), as the tpch connector gives them."""
 
     distinct_count: Optional[float] = None
     null_fraction: float = 0.0
     min_value: Optional[float] = None
     max_value: Optional[float] = None
     histogram: Optional[Tuple[Tuple[float, float, float], ...]] = None
+    decimal_lanes: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
