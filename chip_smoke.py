@@ -54,7 +54,7 @@ Phases (any failure exits non-zero and prints no result line):
      ... SELECT, DELETE, UPDATE, MERGE, each read back with the scan
      cache on), the JSON, URL, md5, crc32 and base64 functions over 1.5 M
      customers, and a MATCH_RECOGNIZE V shape over the orders of the
-     first 15,000 customers: cold once and warm twice, with launches,
+     first 15,000 customers: cold once and warm once, with launches,
      peak memory and exact numpy or Python checks (the five string
      families read the first 150,000 customers);
   7. each kernel timed with CUDA events at the main path's shapes beside
@@ -93,18 +93,36 @@ Phases (any failure exits non-zero and prints no result line):
  10. `lake`: a lakehouse table made by CTAS of lineitem's eight Q1/Q6/Q3
      columns at SF10 (60 M rows, 3.12 GB of .npz), an INSERT of one
      orderkey range and a DELETE of another, then ANALYZE of Q1's and
-     Q6's columns; Q1 and Q6 (megakernels auto, so ANALYZE's decimal
-     bounds reach the fused gate) FOR VERSION AS OF each snapshot and Q3
-     with lineitem from the lake, cold once and warm twice, against
+     Q6's columns; Q6 FOR VERSION AS OF each snapshot, Q1 at the last
+     (megakernels auto, so ANALYZE's decimal bounds reach the fused
+     gate) and Q3 with lineitem from the lake, cold once and warm twice, against
      numpy references; expire_snapshots and remove_orphan_files by
      counts; the same columns written as parquet (write_parquet_table)
      into a hive catalog, ANALYZE of its group keys and date (the
      decimals' bounds stay the footers'), Q1 and Q6 over it equal to the
      lake's pages and the references, and an orderkey range reading only
-     the row groups its footers allow.
+     the row groups its footers allow;
+ 11. `obs`: the observatories in a TPC-H SF10 session of its own
+     (generated on the card) with the query history, the incident journal
+     and the compile observatory on disk: Q6, Q1 (megakernels auto and
+     off) and Q3 cold once and warm twice against the numpy references,
+     every kernel launching and no warm run recording a compile; the
+     system tables completed_queries, compiles, shape_census (one row a
+     launch), diagnoses, events, nodes, caches, memory and metrics over
+     SQL; HEALTHY for a warm Q6; a seeded device_loss on fused_agg_sums
+     diagnosed as device_fault with cited events and the DEVICE_LOSS
+     error code, then the canary; a Q6 denied by file-based access
+     control that loads no scan and launches nothing; two subprocesses on
+     one fresh compile_cache_dir, the first running four nvcc builds
+     (first_compile), the second none (four persistent_load, its program
+     prewarmed from the index); a subprocess running Q1 at SF10 killed
+     with SIGKILL mid-query, whose RUNNING history record the doctor finds
+     and diagnoses from disk; and the observatories' cost on warm Q6, Q1
+     and Q3, on and off in turns.
 
-Every phase but `faults` ends with each of its sessions' supervisors
-ACTIVE and no fault, or fails.
+Every phase but `faults` and `obs` ends with each of its sessions'
+supervisors ACTIVE and no fault, or fails (`obs` ends ACTIVE after its
+one fault).
 
 --profile traces one warm run of every SF10 query, TPC-DS, the `ext`
 and the out-of-core statements included (busy and idle share of the
@@ -778,8 +796,8 @@ def _half_away(num: int, den: int) -> int:
 
 
 def check_reference(pages, cols, dicts):
-    """Hold the Q6/Q1 pages against exact numpy/python arithmetic over
-    the same lineitem columns (host arrays)."""
+    """Hold the Q6 page and, where given, the Q1 page against exact
+    numpy/python arithmetic over the same lineitem columns (host arrays)."""
     _, (q1_cut, q6_lo, q6_hi, _) = _queries()
     sd = cols["l_shipdate"].astype(np.int64)
     qty = cols["l_quantity"].astype(np.int64)
@@ -790,6 +808,8 @@ def check_reference(pages, cols, dicts):
     got = _raw(pages["Q6"].columns[0], 0)
     if got != rev:
         raise AssertionError(f"Q6 revenue {got} != reference {rev}")
+    if "Q1" not in pages:
+        return
     tax = cols["l_tax"].astype(np.int64)
     rf, ls = cols["l_returnflag"], cols["l_linestatus"]
     m1 = sd <= q1_cut
@@ -879,8 +899,8 @@ def _card_session(factory, sf, **props):
     s = factory(sf, query_max_memory_bytes=detect_device_bytes(), **props)
     run = s.execute
 
-    def execute(sql):
-        page = run(sql)
+    def execute(sql, **kw):
+        page = run(sql, **kw)
         prof = s.last_kernel_profile or {}
         if prof.get("forcedStreaming") or prof.get("outOfCore"):
             raise AssertionError(
@@ -1679,7 +1699,8 @@ def phase_sf10(dev, do_profile=False):
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of which "
          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above "
          f"the resident scans ({base / 2**30:.2f} GiB)")
-    MAIN.update(launches=launches, recorded=recorded, walls=walls, session=s)
+    MAIN.update(launches=launches, recorded=recorded, walls=walls, session=s,
+                pages=pages)
     if do_profile:
         for q, mode in runs:
             s.properties.set("megakernels", mode)
@@ -1787,9 +1808,9 @@ def phase_sf10_rel(dev, do_profile=False):
 MR_CUSTKEY_MAX = 15000
 # a cut of depth for the run's time: the five string families read the
 # first 10% of customers (150,000), so their Python checks parse 150,000
-# names, not 1.5 M; and the phase repeats its statements warm twice
+# names, not 1.5 M; and the phase repeats its statements warm once
 STR_CUSTKEY_MAX = 150000
-EXT_REPS = 2
+EXT_REPS = 1                 # warm runs (cut from 2 for the call's budget)
 JSON_DOC = "concat('{\"id\": \"', c_name, '\", \"tags\": [\"a\", \"b\"]}')"
 URL_HOST = "concat('https://', replace(c_name, '#', '-'), '.shop.example.com:8080/c?q=1')"
 URL_QUERY = "concat('https://shop.example.com/c?name=', replace(c_name, '#', '%23'), '&page=2')"
@@ -3470,8 +3491,8 @@ def phase_lake(dev):
     """Lakehouse and hive tables at TPC-H SF10: CTAS of lineitem's eight
     Q1/Q6/Q3 columns into lake.default.lineitem, an INSERT of one
     orderkey range and a DELETE of another (three snapshots with data);
-    Q1 and Q6 FOR VERSION AS OF each snapshot and Q3 with lineitem from
-    the lake, cold once and warm twice, against numpy references over
+    Q6 FOR VERSION AS OF each snapshot, Q1 at the last and Q3 with
+    lineitem from the lake, cold once and warm twice, against numpy references over
     the generated host arrays; expire_snapshots and remove_orphan_files
     checked by counts; the same columns written with
     write_parquet_table into hive, Q1 and Q6 over hive equal to the lake's
@@ -3554,9 +3575,12 @@ def phase_lake(dev):
             if snaps[v][5] != len(arrays["l_orderkey"]):
                 raise AssertionError(f"snapshot {v} holds {snaps[v][5]} rows, "
                                      f"reference {len(arrays['l_orderkey'])}")
+        # Q6 at every snapshot (time travel), Q1 at the last (its cold
+        # whole-file loads at the earlier ones were cut for the call's
+        # budget)
         lake_sql = {}
         for v in versions:
-            for q in ("Q6", "Q1"):
+            for q in ("Q6", "Q1") if v == 3 else ("Q6",):
                 lake_sql[(q, v)] = qs[q].replace(
                     "from lineitem", f"from lake.default.lineitem for version as of {v}")
         lake_sql[("Q3", 3)] = qs["Q3"].replace(
@@ -3584,7 +3608,8 @@ def phase_lake(dev):
         for u in undo:
             u()
     for v, arrays in versions.items():
-        check_reference({"Q6": pages[("Q6", v)], "Q1": pages[("Q1", v)]}, arrays, dicts)
+        check_reference({q: pages[(q, v)] for q in ("Q6", "Q1") if (q, v) in pages},
+                        arrays, dicts)
     orders, _ = _scan_host_columns(s, ["o_custkey"], "orders")
     cust, cdicts = _scan_host_columns(s, ["c_mktsegment"], "customer")
     check_q3(pages[("Q3", 3)], v3, orders, cust, cdicts)
@@ -3604,8 +3629,8 @@ def phase_lake(dev):
          f"{cold_secs.get('_device_lanes', 0):.3f}; all three passes np.load "
          f"{secs.get('_decode_data_file', 0):.3f}, upload "
          f"{secs.get('_device_lanes', 0):.3f}")
-    _log("[lake] Q1 and Q6 at every snapshot and Q3 agree exactly with the numpy "
-         "references")
+    _log("[lake] Q6 at every snapshot, Q1 at the last and Q3 agree exactly with the "
+         "numpy references")
     # maintenance
     conn.fs.write_file("lineitem/data/crashed-writer-leftover.npz", b"\0" * 4096)
     res = conn.expire_snapshots("lineitem", keep=1)
@@ -3654,9 +3679,9 @@ def phase_lake(dev):
         undo()
         undo_read()
     check_reference(hpages, host, dicts)
+    if hpages["Q6"].to_pylist() != pages[("Q6", 1)].to_pylist():
+        raise AssertionError("hive Q6 differs from the lake's version 1")
     for q in ("Q6", "Q1"):
-        if hpages[q].to_pylist() != pages[(q, 1)].to_pylist():
-            raise AssertionError(f"hive {q} differs from the lake's version 1")
         _log(f"[hive] {q} megakernels=auto (fused aggregates {hfused[q][0]}, last "
              f"fusion reject {hfused[q][1]!r}): cold {hwalls[q][0] * 1e3:.3f} ms, warm "
              f"{', '.join(f'{x * 1e3:.3f}' for x in hwalls[q][1:])} ms")
@@ -3690,6 +3715,467 @@ def phase_lake(dev):
     torch.cuda.empty_cache()
     import shutil
 
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the observatories (query history, doctor, compile observatory
+# and compile cache, system catalog, access control)
+
+
+OBS_SF = 10.0
+OBS_WARM = 2                 # warm runs after the cold one
+OBS_TURNS = 4                # (on, off, off, on) rounds of the overhead turns
+OBS_CHILD_SF = 0.01          # the cold-build subprocesses' scale
+
+# a subprocess on a fresh compile_cache_dir: its session's prewarm builds
+# (or loads) the four libraries, then Q6 runs; prints the observatory's
+# ledger as JSON.  With forbid_nvcc set, any nvcc run raises.
+_BUILD_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from trino_tpu_torch.obs import compile_observatory as co
+from trino_tpu_torch.ops import kernels as kn
+from trino_tpu_torch.session import tpch_session
+if sys.argv[4] == "1":
+    def _no_nvcc():
+        raise RuntimeError("nvcc run on a warm compile_cache_dir")
+    kn._nvcc = _no_nvcc
+s = tpch_session(float(sys.argv[3]), result_cache=False, compile_cache_dir=sys.argv[2],
+                 compile_prewarm=True)
+boot = len(co.get_observatory().tail())
+page = s.execute(sys.argv[5])
+kn.reset_counts()
+s.execute(sys.argv[5])
+print(json.dumps({"events": co.get_observatory().tail(), "boot": boot,
+                  "prewarm": s.last_prewarm, "rows": page.count,
+                  "warm_launches": dict(kn.LAUNCHES), "build_dir": kn.build_dir()},
+                 default=str))
+"""
+
+# a subprocess that runs Q1 at SF10 on the card (in memory, as the main
+# path) with the history, journal and observatory directories set; the
+# unfused path's first grouped sum announces itself and stalls, so the
+# parent's SIGKILL lands mid-query
+_KILL_CHILD = r"""
+import sys, time
+sys.path.insert(0, sys.argv[1])
+from trino_tpu_torch.memory import detect_device_bytes
+from trino_tpu_torch.ops import kernels as kn
+from trino_tpu_torch.session import tpch_session
+s = tpch_session(float(sys.argv[2]), result_cache=False, query_history_dir=sys.argv[3],
+                 event_journal_dir=sys.argv[4], compile_observatory_dir=sys.argv[5],
+                 query_max_memory_bytes=detect_device_bytes())
+s.execute("select count(*) from nation")  # a finished query before the crash
+real = kn.grouped_sum_i64
+def stalled(*args):
+    out = real(*args)
+    print("MID-QUERY", flush=True)
+    time.sleep(300)
+    return out
+kn.grouped_sum_i64 = stalled
+s.execute(sys.argv[6])
+"""
+
+
+@contextlib.contextmanager
+def _observatories(s, on, dirs):
+    """The session's observatories on (the history, journal and compile
+    observatory on disk, the doctor at finalize) or off (no history
+    record, no doctor, journal and observatory in memory) meanwhile."""
+    from trino_tpu_torch.obs import compile_observatory as co
+    from trino_tpu_torch.obs import journal
+
+    keep = s.history
+    if on:
+        journal.configure(dirs["journal"])
+        co.configure(dirs["compiles"])
+    else:
+        s.history = type("NoHistory", (), {"put": lambda self, entry: None})()
+        journal.configure(None)
+        co.configure(None)
+    s.properties.set("query_doctor", bool(on))
+    try:
+        yield
+    finally:
+        s.history = keep
+        s.properties.set("query_doctor", True)
+        journal.configure(dirs["journal"])
+        co.configure(dirs["compiles"])
+
+
+def _obs_sql_reads(s, launches, finished, encoded):
+    """system.* over SQL after the warm runs: every read must hold.
+    `encoded`: the cold Q6 encoded its program (a fresh process) rather
+    than finding it in the process's compile cache (an earlier phase's)."""
+    from trino_tpu_torch.obs import compile_observatory as co
+
+    def rows(sql):
+        return s.execute(sql).to_pylist()
+
+    done = rows("select query, state, error_code from system.runtime.completed_queries")
+    ran = [r for r in done if r[0] in finished]
+    if len(ran) < len(finished) * (1 + OBS_WARM) or any(r[1:] != ("FINISHED", "")
+                                                       for r in ran):
+        raise AssertionError(f"completed_queries: {ran}")
+    compiles = rows("select cause, kernel, mode from system.runtime.compiles")
+    if encoded != any(c == co.FIRST_COMPILE and k.startswith("fused_agg_sums:")
+                      and m == "encode" for c, k, m in compiles) \
+            or any(c not in co.CAUSES or c == co.SHAPE_MISS for c, _, _ in compiles):
+        raise AssertionError(f"compiles: {compiles}")
+    census = rows("select family, bucket, count, min_rows, max_rows "
+                  "from system.runtime.shape_census")
+    by_family = {}
+    for fam, _b, n, _lo, _hi in census:
+        by_family[fam] = by_family.get(fam, 0) + n
+    if any(by_family.get(k, 0) != launches[k] for k in KERNEL_FNS):
+        raise AssertionError(f"shape_census {by_family} against launches {launches}")
+    diags = rows("select verdict, root_cause from system.runtime.diagnoses")
+    if not diags or any(v != "HEALTHY" and rc != "fusion_reject" for v, rc in diags):
+        raise AssertionError(f"diagnoses: {diags}")
+    events = rows("select event_type, severity from system.runtime.events")
+    if any(sev == "error" for _t, sev in events):
+        raise AssertionError(f"error events on a healthy run: {events}")
+    nodes = rows("select node_id, state, device_state, device_strikes "
+                 "from system.runtime.nodes")
+    if nodes != [("local", "active", "ACTIVE", 0)]:
+        raise AssertionError(f"nodes: {nodes}")
+    caches = {r[0]: r[1:] for r in rows(
+        "select name, hits, misses, puts from system.runtime.caches")}
+    if caches["scan_cache"][0] <= 0 or caches["compile_cache"][0] <= 0 \
+            or caches["result_cache"][2] != 0:
+        raise AssertionError(f"caches: {caches}")
+    memory = rows("select pool, size_bytes from system.runtime.memory")
+    if sorted(p for p, _ in memory) != ["device", "general", "reserved"]:
+        raise AssertionError(f"memory: {memory}")
+    names = {r[0] for r in rows("select name from system.runtime.metrics")}
+    want = {"trino_tpu_doctor_diagnoses_total", "trino_tpu_journal_events_total",
+            "trino_tpu_cache_op_total", "trino_tpu_compile_events_total",
+            "trino_tpu_device_state", "trino_tpu_memory_pool_size_bytes"}
+    if not want <= names:
+        raise AssertionError(f"metrics lack {want - names}")
+    _log(f"[obs] SQL: {len(ran)} finished queries of this phase in completed_queries; "
+         f"compiles {compiles}; shape_census {len(census)} rows, launches by family "
+         f"{by_family}; {len(diags)} diagnoses "
+         f"{sorted(set(diags))}; {len(events)} events; nodes {nodes}; caches "
+         f"{caches}; memory {memory}; {len(names)} metric names")
+
+
+def _obs_host_costs(s, qs):
+    """The observatories' host work per query, each piece timed alone on
+    the card's host (host clock over many calls, in µs a call)."""
+    from trino_tpu_torch.obs import compile_observatory as co
+
+    plan = s.plan(qs["Q6"])
+    cc = s.caches.compile_cache
+    key = next(iter(cc._entries))
+    now = time.time()
+    entry = {"query_id": "q_cost", "sql": qs["Q1"], "state": "FINISHED",
+             "user": "user", "created": now, "finished": now, "rows": 4,
+             "wall_s": 0.35}
+
+    def per_call_us(fn, n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return round((time.perf_counter() - t0) / n * 1e6, 3)
+
+    costs = {
+        "history record on disk (two a query)": per_call_us(
+            lambda: s.history.put(entry), 500),
+        "doctor at finalize": per_call_us(
+            lambda: s._finalize_doctor("q_cost", time.time() - 0.01), 200),
+        "access walk of Q6's plan": per_call_us(
+            lambda: s._check_plan_access(plan, s.identity), 2000),
+        "compile-cache hit of Q6's program": per_call_us(
+            lambda: cc.program(*key), 5000),
+        "census observation of a launch": per_call_us(
+            lambda: co.get_observatory().observe_launch("fused_agg_sums", 1), 20000),
+        "the observatory's counts, read twice a query": per_call_us(
+            lambda: co.get_observatory().counts_by_cause(), 20000),
+    }
+    _log(f"[obs] host cost a call, µs (the card's host): {json.dumps(costs)}")
+
+
+def _obs_children():
+    """The two cold-build subprocesses on one fresh compile_cache_dir."""
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.obs import compile_observatory as co
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cdir = tempfile.mkdtemp(prefix="chip_smoke_cc_")
+    q6 = _queries()[0]["Q6"]
+    out = []
+    try:
+        for forbid in ("0", "1"):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-c", _BUILD_CHILD, here, cdir, str(OBS_CHILD_SF),
+                 forbid, q6], capture_output=True, text=True, timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"cold-build child failed:\n{r.stderr[-3000:]}")
+            doc = json.loads(r.stdout.strip().splitlines()[-1])
+            doc["wall"] = time.perf_counter() - t0
+            out.append(doc)
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+
+    def causes(doc, mode):
+        return [e["cause"] for e in doc["events"] if e["mode"] == mode]
+
+    first, second = out
+    if causes(first, "nvcc") != [co.FIRST_COMPILE] * 4 or \
+            causes(first, "encode") != [co.FIRST_COMPILE]:
+        raise AssertionError(f"first child's ledger: {first['events']}")
+    if causes(second, "nvcc") != [co.PERSISTENT_LOAD] * 4 or \
+            causes(second, "prewarm") != [co.PERSISTENT_LOAD] or \
+            causes(second, "encode") or second["prewarm"]["entries"] != 1:
+        raise AssertionError(f"second child's ledger: {second['events']}, prewarm "
+                             f"{second['prewarm']}")
+    for doc in out:
+        if doc["warm_launches"]["fused_agg_sums"] != 1 or doc["rows"] != 1:
+            raise AssertionError(f"a child's Q6 did not run on the card: {doc}")
+    walls = [e["compileWallS"] for e in first["events"] if e["mode"] == "nvcc"]
+    _log(f"[obs] cold-build children on one fresh compile_cache_dir: first "
+         f"{causes(first, 'nvcc')} (nvcc walls {[round(w, 3) for w in walls]} s) + "
+         f"{causes(first, 'encode')} encode, {first['wall']:.1f} s; second "
+         f"{causes(second, 'nvcc')} + {causes(second, 'prewarm')} prewarm, no nvcc, "
+         f"prewarm {second['prewarm']}, {second['wall']:.1f} s")
+
+
+def _obs_sigkill(q1):
+    """Q1 at SF10 in a subprocess killed mid-query: the history shows its
+    RUNNING record, and the doctor finds and diagnoses it from disk."""
+    import signal
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.obs import doctor, history, journal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_kill_")
+    hd, jd, cd = (os.path.join(root, k) for k in ("history", "journal", "compiles"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _KILL_CHILD, here, str(OBS_SF), hd, jd, cd, q1],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        if line.strip() != "MID-QUERY":
+            proc.kill()
+            raise AssertionError(f"the child never reached Q1's kernels:\n"
+                                 f"{proc.stderr.read()[-3000:]}")
+        os.kill(proc.pid, signal.SIGKILL)
+    finally:
+        proc.wait(timeout=60)
+    try:
+        records = history.read_history_dir(hd)
+        latest = {}
+        for r in records:
+            latest[r["queryId"]] = r
+        running = [r for r in latest.values() if r["state"] == "RUNNING"]
+        if len(running) != 1 or running[0]["sql"] != q1:
+            raise AssertionError(f"history after the kill: {latest}")
+        qid = running[0]["queryId"]
+        events = journal.read_journal_dir(jd)
+        if doctor.find_crashed_query(events, records) != qid:
+            raise AssertionError(f"find_crashed_query missed {qid}: {events}")
+        diag = doctor.diagnose_from_dir(jd, history_dir=hd)
+        if diag is None or diag["queryId"] != qid or not diag["eventIds"]:
+            raise AssertionError(f"diagnose_from_dir: {diag}")
+        _log(f"[obs] SIGKILL mid-query (child exit {proc.returncode}, "
+             f"{time.perf_counter() - t0:.1f} s): history RUNNING {qid}; "
+             f"find_crashed_query -> {qid}; diagnose_from_dir -> {diag['verdict']} "
+             f"{diag['rootCause']} [events {diag['eventIds']}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_obs(dev):
+    """The observatories on the card in a TPC-H SF10 session of its own
+    (generated on the card) with the history, journal and compile
+    observatory on disk: Q6, Q1 (megakernels auto and off) and Q3 cold
+    once and warm twice against the numpy references, every kernel
+    launching, the warm runs recording no compile event; the system
+    tables over SQL; HEALTHY for a warm Q6; a seeded device_loss on
+    fused_agg_sums diagnosed as device_fault with cited events and an
+    errorCode, then the canary; a denied Q6 that loads no scan and runs
+    no kernel; the two cold-build subprocesses; the SIGKILL post-mortem;
+    the observatories' cost on warm Q6, Q1 and Q3, in turns."""
+    import gc
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.obs import compile_observatory as co
+    from trino_tpu_torch.obs import doctor, history, journal
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.security import AccessDeniedError, FileBasedAccessControl
+    from trino_tpu_torch.session import tpch_session
+
+    qs, _ = _queries()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    dirs = {k: os.path.join(root, k) for k in ("history", "journal", "compiles")}
+    journal._reset_journal()
+    doctor._reset_diagnoses()
+    co._reset_observatory()
+    backoff = 0.05
+    s = _card_session(tpch_session, OBS_SF, query_history_dir=dirs["history"],
+                      event_journal_dir=dirs["journal"],
+                      compile_observatory_dir=dirs["compiles"],
+                      device_probe_backoff_s=backoff)
+    obs = co.get_observatory()
+    runs = [("Q6", "auto"), ("Q1", "auto"), ("Q1", "off"), ("Q3", "auto")]
+    kn.reset_counts()
+    cc = s.caches.compile_cache
+    pages, per_run = {}, {r: dict.fromkeys(KERNEL_FNS, 0) for r in runs}
+    for rep in range(1 + OBS_WARM):
+        for q, mode in runs:
+            s.properties.set("megakernels", mode)
+            n_events, before, hits = len(obs.tail()), dict(kn.LAUNCHES), cc.hits
+            t0 = time.perf_counter()
+            pages[(q, mode)] = s.execute(qs[q])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            new = obs.tail()[n_events:]
+            if rep:
+                for name in KERNEL_FNS:
+                    per_run[(q, mode)][name] += kn.LAUNCHES[name] - before[name]
+                if new:
+                    raise AssertionError(f"warm {q} megakernels={mode} recorded "
+                                         f"compiles {new}")
+            d = s.last_diagnosis
+            _log(f"[obs] {'warm' if rep else 'cold'} {q} megakernels={mode}: "
+                 f"{wall * 1e3:.3f} ms, {len(new)} compile events "
+                 f"{[(e['cause'], e['mode']) for e in new]}, doctor {d['verdict']}"
+                 f"{' ' + d['rootCause'] if d['rootCause'] else ''}")
+            if q == "Q6" and rep and d["verdict"] != doctor.HEALTHY:
+                raise AssertionError(f"warm Q6 diagnosed {d}")
+            if q == "Q6" and not rep:
+                # a fresh process encodes the program; after the main path
+                # this session finds it in the process's compile cache
+                encoded = [(e["cause"], e["mode"]) for e in new] == [
+                    (co.FIRST_COMPILE, "encode")]
+                if not encoded and (new or cc.hits != hits + 1):
+                    raise AssertionError(f"cold Q6: compiles {new}, cache hits "
+                                         f"{cc.hits - hits}")
+                _log(f"[obs] cold Q6 "
+                     + ("encoded its program" if encoded else
+                        "found its program in the process's compile cache"))
+    launches = dict(kn.LAUNCHES)
+    for path, want in MAIN_WANT.items():
+        for name, per in want.items():
+            if per_run[path][name] < per * OBS_WARM:
+                raise AssertionError(f"{path}: {name} launched {per_run[path][name]} "
+                                     f"times in {OBS_WARM} warm runs")
+    convert.assert_pages_identical(pages[("Q1", "auto")], pages[("Q1", "off")])
+    cols, dicts = _scan_host_columns(s, ["l_tax", "l_returnflag", "l_shipdate"])
+    if "pages" in MAIN:
+        # the main path's pages, which met the numpy references over the
+        # same generated data: Q6 against numpy again, Q1 and Q3 byte for
+        # byte against them (the references at SF10 take seconds)
+        check_reference({"Q6": pages[("Q6", "auto")]}, cols, dicts)
+        for key in runs:
+            convert.assert_pages_identical(pages[key], MAIN["pages"][key])
+        how = "Q6 the numpy reference, Q1 and Q3 the main path's pages"
+    else:
+        check_reference({"Q6": pages[("Q6", "auto")], "Q1": pages[("Q1", "auto")]},
+                        cols, dicts)
+        check_q3_page(s, pages[("Q3", "auto")])
+        how = "the numpy references"
+    _log(f"[obs] Q6/Q1/Q3 agree with {how}; launches over the "
+         f"phase's runs {launches}; warm, per query: "
+         f"{ {f'{q} {m}': {k: v for k, v in n.items() if v} for (q, m), n in per_run.items()} }")
+    # completed_queries keeps a statement's first 200 characters
+    _obs_sql_reads(s, launches, {qs[q][:200] for q, _ in runs}, encoded)
+    recs = history.read_history_dir(dirs["history"])
+    ondisk = co.read_observatory_dir(dirs["compiles"])
+    if [e["compileId"] for e in ondisk] != [e["compileId"] for e in obs.tail()]:
+        raise AssertionError("the observatory's segments lost events")
+    _log(f"[obs] on disk: {len(recs)} history records, {len(ondisk)} compile events, "
+         f"{len(journal.read_journal_dir(dirs['journal']))} journal events")
+
+    # the observatories' cost on warm Q6, Q1 and Q3, in turns
+    timed = [("Q6", "auto"), ("Q1", "auto"), ("Q3", "auto")]
+    walls = {(q, how): [] for q, _ in timed for how in ("on", "off")}
+    for how in ("on", "off", "off", "on") * OBS_TURNS:
+        with _observatories(s, how == "on", dirs):
+            for q, mode in timed:
+                s.properties.set("megakernels", mode)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.execute(qs[q])
+                torch.cuda.synchronize()
+                walls[(q, how)].append(time.perf_counter() - t0)
+    main_walls = MAIN.get("walls") or {}
+    for q, mode in timed:
+        on = statistics.median(walls[(q, "on")]) * 1e3
+        off = statistics.median(walls[(q, "off")]) * 1e3
+        main = main_walls.get((q, mode))
+        _log(f"[obs] overhead warm {q} megakernels={mode}: observatories on median "
+             f"{on:.3f} ms, off {off:.3f} ms ({len(walls[(q, 'on')])} runs each, in "
+             f"turns), difference {on - off:.3f} ms (on: "
+             f"{', '.join(f'{x * 1e3:.3f}' for x in walls[(q, 'on')])}; off: "
+             f"{', '.join(f'{x * 1e3:.3f}' for x in walls[(q, 'off')])}); main path "
+             + (f"{statistics.median(main) * 1e3:.3f} ms" if main else "not run"))
+    _obs_host_costs(s, qs)
+    _log(f"[obs] runs, SQL reads and turns in {time.perf_counter() - t_phase:.1f} s")
+
+    # a seeded device loss at the fused kernel, diagnosed; then the canary
+    s.properties.set("megakernels", "auto")
+    s.properties.set("fault_injection", json.dumps(
+        {"device_loss": {"match": "fused_agg_sums", "nth": 1}}))
+    _expect_fault(s, qs["Q6"], "device_loss", "fused_agg_sums")
+    d = s.last_diagnosis
+    ids = {e["eventId"]: e["eventType"] for e in journal.get_journal().tail()}
+    if (d["rootCause"] != "device_fault" or d["errorCode"] != "DEVICE_LOSS"
+            or not d["eventIds"] or not set(d["eventIds"]) <= set(ids)
+            or "CPU degraded" in d["summary"]):
+        raise AssertionError(f"device loss diagnosed {d}")
+    failed = [r for r in s.query_history if r["state"] == "FAILED"]
+    if failed[-1]["error_code"] != "DEVICE_LOSS":
+        raise AssertionError(f"history of the failed Q6: {failed[-1]}")
+    s.properties.set("fault_injection", "")
+    _recover(s, backoff)
+    page = s.execute(qs["Q6"])
+    check_reference({"Q6": page}, cols, dicts)
+    _log(f"[obs] device loss: {doctor.format_diagnosis(d)!r} (cited "
+         f"{[ids[i] for i in d['eventIds']]}); the canary restored the device; Q6 "
+         f"again {s.last_diagnosis['verdict']}")
+
+    # access control before the card: a denied Q6 loads and launches nothing
+    s.access_control.add(FileBasedAccessControl({"catalogs": [
+        {"user": "analyst", "catalog": "tpch", "allow": "read-only"}]}))
+    before, misses = dict(kn.LAUNCHES), s._scan_cache.misses
+    hits = s._scan_cache.hits
+    try:
+        s.execute(qs["Q6"])
+        raise AssertionError("Q6 ran for a user the rules deny")
+    except AccessDeniedError as e:
+        denied = str(e)
+    if dict(kn.LAUNCHES) != before or (s._scan_cache.misses, s._scan_cache.hits) != (
+            misses, hits):
+        raise AssertionError("the denied Q6 reached the card")
+    s.execute(qs["Q6"], user="analyst")
+    if kn.LAUNCHES["fused_agg_sums"] != before["fused_agg_sums"] + 1:
+        raise AssertionError("the allowed Q6 did not run on the card")
+    s.access_control.controls.clear()
+    _log(f"[obs] denied Q6: {denied}; no launch, no scan; as analyst: one fused launch")
+    if s.device_supervisor.device_state() != "ACTIVE":
+        raise AssertionError(f"the phase ends {s.device_supervisor.device_state()}")
+    _log(f"[obs] launches over the phase (cold, warm, turns, fault, canary, "
+         f"access): {dict(kn.LAUNCHES)}")
+    del s, cols, dicts, pages, page
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"[obs] the session's part in {time.perf_counter() - t_phase:.1f} s")
+    _obs_children()
+    _obs_sigkill(qs["Q1"])
+    journal._reset_journal()
+    co._reset_observatory()
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -3728,7 +4214,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "gen", "session", "main", "ext", "ooc",
-                             "ds", "faults", "lake"],
+                             "ds", "faults", "lake", "obs"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 on-device generator against the host "
                          "generator, only the build and the SF1 session "
@@ -3739,8 +4225,10 @@ def main(argv=None) -> int:
                          "only the build and the out-of-core phase (streaming and "
                          "spill under 8 GiB, 1 GiB and 256 MiB limits), only "
                          "the build and the TPC-DS path, only the build and the "
-                         "fault path (seeded faults, supervisor, canary, watchdog), or "
-                         "only the build and the lakehouse/hive path")
+                         "fault path (seeded faults, supervisor, canary, watchdog), "
+                         "only the build and the lakehouse/hive path, or only the build "
+                         "and the observatories (history, doctor, compile observatory and "
+                         "cache, system catalog, access control)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -3780,6 +4268,8 @@ def main(argv=None) -> int:
         phases.append(("faults", lambda: phase_faults(dev)))
     elif args.phase == "lake":
         phases.append(("lake", lambda: phase_lake(dev)))
+    elif args.phase == "obs":
+        phases.append(("obs", lambda: phase_obs(dev)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -3795,6 +4285,7 @@ def main(argv=None) -> int:
             ("ds", lambda: phase_ds(dev, args.profile)),
             ("faults", lambda: phase_faults(dev)),
             ("lake", lambda: phase_lake(dev)),
+            ("obs", lambda: phase_obs(dev)),
         ]
     _track_supervisors()
     failed = []
@@ -3803,7 +4294,7 @@ def main(argv=None) -> int:
         first = len(SUPERVISED)
         try:
             fn()
-            if name == "faults":  # the one phase that injects faults
+            if name in ("faults", "obs"):  # the phases that inject faults
                 del SUPERVISED[first:]
             else:
                 _check_supervisors(name)

@@ -217,7 +217,8 @@ def test_device_fault_scenario_journals_alike():
     """Q6 under a seeded device loss (the JAX package with its CPU re-run
     off, which the port does not have), then a failed query: both
     packages journal the same kinds, fields and values (device, strikes,
-    kind), apart from ids, times, kernel names and error texts."""
+    kind, the failures' errorCode), apart from ids, times, kernel names
+    and error texts."""
     spec = json.dumps({"device_loss": {"nth": 1}})
     js = jsession.Session(config={"result_cache": False, "fault_injection": spec,
                                   "device_probe_backoff_s": 30.0,
@@ -232,14 +233,12 @@ def test_device_fault_scenario_journals_alike():
             s.execute("select no_such_column from lineitem")
     jax = _shape(jax_journal.get_journal().tail())
     port = _shape(journal.get_journal().tail())
-    # the JAX package journals its doctor's QUERY_FAILED fields (errorCode)
-    # and warms up with compile-observatory events the port has no
-    # counterpart for
+    # the JAX package warms up with compile-observatory events the port
+    # has no counterpart for; QUERY_FAILED carries the doctor's errorCode
+    # in both
     jax = [e for e in jax if e[0] in {k for k, *_ in port}]
-    for e in jax:
-        if e[0] == journal.QUERY_FAILED:
-            e[4].remove("errorCode")
-            e[5].pop("errorCode", None)
+    assert [e[5].get("errorCode") for e in port if e[0] == journal.QUERY_FAILED] == [
+        "DEVICE_LOSS", "INTERNAL_ERROR"]
     assert [e[0] for e in port] == [
         journal.FAULT_INJECTED, journal.DEVICE_FAULT, journal.DEVICE_QUARANTINE,
         journal.QUERY_FAILED, journal.QUERY_FAILED]

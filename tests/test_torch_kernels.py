@@ -346,7 +346,7 @@ def test_code_words_decode_as_the_kernel_reads_them():
     the kernel's signed shifts and masks still give each field back."""
     enc = kn.encode(_slot_pressure_program(120))
     assert enc.n_slots > 128
-    words = list(kn._code_words(_slot_pressure_program(120)))
+    words = list(kn._words(kn.encode(_slot_pressure_program(120))))
     assert any(w < 0 for w in words[0::2])
     got = [(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, (x >> 24) & 0xFF, y)
            for x, y in zip(words[0::2], words[1::2])]

@@ -4,10 +4,9 @@ The 7 tests of tests/test_lakehouse.py on the port (snapshots, time
 travel, CAS conflicts between concurrent writers, a writer killed
 mid-commit, the result cache keyed by snapshot, expire_snapshots and
 remove_orphan_files), every scenario under the same seeded object-store
-faults.  `system.runtime.snapshots` waits for the system connector:
-these tests read `LakehouseConnector.snapshots_rows()`, the rows that
-table serves.  The query doctor's verdict over the conflict waits for
-obs/doctor.py (ROADMAP A.3); the journal events it reads are held here.
+faults.  Snapshots are read over SQL (`system.runtime.snapshots`), and
+the query doctor's verdict over a CAS conflict cites the conflict from
+the journal alone, as the JAX doctor's does.
 
 Besides: a table written by either package is read by the other with
 identical pages, its `.npz` data files hold equal arrays (name, dtype,
@@ -26,8 +25,9 @@ import numpy as np
 import pytest
 
 import trino_tpu.session as jsession
+from trino_tpu.obs import doctor as jax_doctor
 from trino_tpu_torch import convert
-from trino_tpu_torch.obs import journal
+from trino_tpu_torch.obs import doctor, journal
 from trino_tpu_torch.session import Session
 from trino_tpu_torch.utils.metrics import counter
 
@@ -61,9 +61,11 @@ def _lake(warehouse, faults: str = FAULTS, package=None) -> Session:
 
 def _snapshots(s, table):
     """(snapshot_id, parent_id, operation, data_files, rows, is_current,
-    committed_at_us) of one table: system.runtime.snapshots' rows."""
-    return sorted((r[1:] for r in s.catalogs.get("lake").snapshots_rows()
-                   if r[0] == table), key=lambda r: r[0])
+    committed_at_us) of one table, from system.runtime.snapshots."""
+    return s.execute(
+        "select snapshot_id, parent_id, operation, data_files, rows, is_current, "
+        f"committed_at_us from system.runtime.snapshots where catalog = 'lake' "
+        f"and table_name = '{table}' order by snapshot_id").to_pylist()
 
 
 def test_create_insert_delete_snapshot_history(tmp_path):
@@ -109,7 +111,7 @@ def test_time_travel_byte_identical_vs_oracle(tmp_path):
     ts1 = next(r[6] for r in _snapshots(s, "ledger") if r[0] == 1)
     assert s.execute(q.format(tt=f" for timestamp as of {ts1}")).to_pylist() == \
         pinned_before[0]
-    assert counter("trino_tpu_lake_time_travel_total").value() > 0
+    assert counter("trino_tpu_lake_time_travel_total").total() > 0
     with pytest.raises(Exception, match="99"):
         s.execute(q.format(tt=" for version as of 99"))
 
@@ -118,8 +120,8 @@ def test_concurrent_inserts_cas_conflict_doctor_citable(tmp_path):
     """Writer A loads table state, then stalls at the commit kill-point
     while writer B commits the same snapshot id: A's CAS loses, journals
     SNAPSHOT_CONFLICT, re-reads B's snapshot and retries — zero lost
-    updates.  (The doctor's verdict over these events waits for
-    obs/doctor.py.)"""
+    updates, and the doctor cites the conflict as the root cause from
+    the journal alone, as the JAX doctor does over the same events."""
     s_a, s_b = _lake(tmp_path), _lake(tmp_path)
     s_a.execute("create table lake.default.events (w bigint, x bigint)")
     conn_a = s_a.catalogs.get("lake")
@@ -131,7 +133,7 @@ def test_concurrent_inserts_cas_conflict_doctor_citable(tmp_path):
         assert release.wait(timeout=30), "conflict gate never released"
 
     conn_a.maybe_crash = stalling_maybe_crash
-    before = counter("trino_tpu_lake_conflicts_total").value()
+    before = counter("trino_tpu_lake_conflicts_total").total()
     t = threading.Thread(target=lambda: s_a.execute(
         "insert into lake.default.events values (1, 1), (1, 2)"), daemon=True)
     t.start()
@@ -144,7 +146,7 @@ def test_concurrent_inserts_cas_conflict_doctor_citable(tmp_path):
                        ).to_pylist() == [(1, 1), (1, 2), (2, 1)]
     assert [r[:3] for r in _snapshots(s_b, "events")] == [
         (0, -1, "create"), (1, 0, "append"), (2, 1, "append")]
-    assert counter("trino_tpu_lake_conflicts_total").value() >= before + 1
+    assert counter("trino_tpu_lake_conflicts_total").total() >= before + 1
     conflicts = [e for e in journal.get_journal().tail()
                  if e.get("eventType") == journal.SNAPSHOT_CONFLICT]
     assert conflicts, "CAS loss was not journaled"
@@ -152,6 +154,14 @@ def test_concurrent_inserts_cas_conflict_doctor_citable(tmp_path):
     assert conflicts[0]["detail"]["attempted"] == 1
     assert conflicts[0]["detail"]["winner"] == 1
     assert conflicts[0]["eventId"] > 0 and conflicts[0]["severity"] == journal.WARN
+    events = journal.get_journal().tail()
+    d = doctor.diagnose("q_conflict_probe", events)
+    assert d["rootCause"] == "snapshot_conflict"
+    assert d["eventIds"], "verdict must cite concrete journal events"
+    assert "re-read winner and retried" in d["summary"]
+    want = jax_doctor.diagnose("q_conflict_probe", events)
+    assert {k: v for k, v in d.items() if k != "ts"} == {
+        k: v for k, v in want.items() if k != "ts"}
 
 
 def test_result_cache_misses_at_next_snapshot(tmp_path):

@@ -12,9 +12,6 @@ compared otherwise, and named in CHANGES.md:
   - a query after `SET SESSION distributed = true`: the port refuses it
     (ExecutionError naming the mesh executor, a later slice) where the
     JAX package runs it on its device mesh;
-  - SHOW CATALOGS: the JAX package mounts its `system` catalog, which
-    the port does not have yet;
-  - statements over `system.*` tables wait for that connector;
   - EXPLAIN ANALYZE prints timings (tests/test_torch_opstats.py compares
     its operator rows).
 Beside the replays: SET/SHOW SESSION of a property both packages have,
@@ -52,9 +49,7 @@ def _check(a, b):
 
 
 def _differs_on_purpose(sql):
-    s = sql.strip().lower()
-    return (s.startswith(("explain analyze", "show catalogs"))
-            or "system." in s)
+    return sql.strip().lower().startswith("explain analyze")
 
 
 def _sessions(kind, arg):
@@ -102,17 +97,8 @@ def _refused_distributed(pair, sql):
 
 
 def _port_alone(pair, sql):
-    js, ts = pair
-    s = sql.strip().lower()
-    if "system." in s:
-        with pytest.raises(KeyError):
-            ts.execute(sql)
-        return
+    _js, ts = pair
     page = ts.execute(sql)
-    if s.startswith("show catalogs"):
-        assert page.to_pylist() == [r for r in js.execute(sql).to_pylist()
-                                    if r != ("system",)]
-        return
     text = "\n".join(r[0] for r in page.to_pylist())
     assert "rows=" in text and "wall=" in text and "output rows" in text
 

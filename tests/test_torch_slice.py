@@ -218,7 +218,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'trino_tpu_torch.runtime', 'trino_tpu_torch.runtime.supervisor',"
         " 'trino_tpu_torch.fs', 'trino_tpu_torch.fs.filesystem',"
         " 'trino_tpu_torch.fs.objectstore', 'trino_tpu_torch.connectors.blackhole',"
-        " 'trino_tpu_torch.connectors.hive', 'trino_tpu_torch.connectors.lakehouse'}\n"
+        " 'trino_tpu_torch.connectors.hive', 'trino_tpu_torch.connectors.lakehouse',"
+        " 'trino_tpu_torch.obs.history', 'trino_tpu_torch.obs.doctor',"
+        " 'trino_tpu_torch.obs.compile_observatory', 'trino_tpu_torch.cache.compile_cache',"
+        " 'trino_tpu_torch.security', 'trino_tpu_torch.connectors.system'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )

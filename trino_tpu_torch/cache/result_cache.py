@@ -99,6 +99,15 @@ class FragmentResultCache:
 
     # -- internals -------------------------------------------------------
     def _event(self, op: str, nbytes: int = 0) -> None:
+        from ..utils.metrics import REGISTRY
+
+        REGISTRY.counter(
+            "trino_tpu_cache_op_total", "Cache operations by tier and op"
+        ).inc(tier="result", op=op)
+        if nbytes:
+            REGISTRY.counter(
+                "trino_tpu_cache_result_bytes", "Bytes moved through the result cache by op"
+            ).inc(nbytes, op=op)
         if self._on_event is not None:
             self._on_event("result", op, nbytes)
 

@@ -1,18 +1,27 @@
-"""Canonical plan digests.
+"""Canonical plan digests and fragment fingerprints.
 
-Counterpart of trino_tpu/cache/signature.py (pure Python over the
-port's copies of the plan and expression IR), without the exact
-fragment fingerprint and shape buckets of the compiled-fragment cache
-(that tier waits for its slice).
+Counterpart of trino_tpu/cache/signature.py (pure Python over the port's
+copies of the plan and expression IR).  Two related but distinct
+encodings of a plan tree feed the two cache tiers:
 
-``plan_signature`` (result-cache key) is a *canonical* digest that is
-invariant under output aliasing and symbol renaming, with literals
-parameterized out into a separate ``params`` tuple (the canonical plan
-hashing of Presto's fragment result cache, Sethi et al. ICDE'19).  Join
-order, operator shapes, session-semantic plan attributes (distribution,
-expansion, direct domains) and the *shape* of constraints stay in the
-digest, so two plans share a digest only when they compute the same
-function of the same tables modulo literals.
+- ``plan_signature`` (result-cache key): a *canonical* digest that is
+  invariant under output aliasing and symbol renaming, with literals
+  parameterized out into a separate ``params`` tuple (the canonical plan
+  hashing of Presto's fragment result cache, Sethi et al. ICDE'19).
+  Join order, operator shapes, session-semantic plan attributes
+  (distribution, expansion, direct domains) and the *shape* of
+  constraints stay in the digest, so two plans share a digest only when
+  they compute the same function of the same tables modulo literals.
+
+- ``fragment_fingerprint`` (compile-cache key): an *exact* content hash
+  (symbols, literals and output names included) that is stable across
+  processes (unlike ``id(plan)`` or salted ``hash()``), so structurally
+  identical fragments from different sessions map to the same encoded
+  megakernel program (cache/compile_cache.py).
+
+The JAX package's ``shape_bucket`` (the padded-shape component of its
+jit keys) has no counterpart: the card runs every row count with one
+encoded program, so no key of the port holds a padded shape.
 
 Determinism analysis is a separate pass (`analyze_determinism`)
 consulting `expr.ir.NONDETERMINISTIC_FUNCTIONS` and
@@ -41,12 +50,14 @@ class PlanSignature:
 
 
 class _Emitter:
-    """Token-stream serializer over the plan tree (the canonical
-    encoding).  Symbols are canonicalized to $k by first appearance;
-    strings in protected positions (catalog/table/column/function/operator
-    names) are emitted raw so real schema differences never alias."""
+    """Token-stream serializer over the plan tree.  ``exact=False`` gives
+    the canonical (result-cache) encoding; ``exact=True`` the fingerprint
+    encoding.  Symbols are canonicalized to $k by first appearance; strings
+    in protected positions (catalog/table/column/function/operator names)
+    are emitted raw so real schema differences never alias."""
 
-    def __init__(self):
+    def __init__(self, exact: bool):
+        self.exact = exact
         self.tokens: List[str] = []
         self.params: List[str] = []
         self.tables: List[Tuple[str, str]] = []
@@ -59,6 +70,8 @@ class _Emitter:
     def sym(self, s) -> str:
         if s is None:
             return "~"
+        if self.exact:
+            return str(s)
         v = self._symmap.get(s)
         if v is None:
             v = f"${len(self._symmap)}"
@@ -66,7 +79,9 @@ class _Emitter:
         return v
 
     def lit(self, value) -> str:
-        """A literal value, parameterized out."""
+        """A literal value: inline when exact, parameterized otherwise."""
+        if self.exact:
+            return repr(value)
         self.params.append(repr(value))
         return "?"
 
@@ -253,8 +268,11 @@ class _Emitter:
             )
         elif isinstance(n, P.Output):
             # client-facing names are excluded from the canonical digest
-            # (alias invariance)
-            self.tok("output", self.keys(n.symbols))
+            # (alias invariance); the exact fingerprint keeps them
+            if self.exact:
+                self.tok("output", ",".join(n.names), self.keys(n.symbols))
+            else:
+                self.tok("output", self.keys(n.symbols))
         elif isinstance(n, P.Exchange):
             self.tok("exchange", n.partitioning, self.keys(n.keys))
         elif isinstance(n, P.RemoteSource):
@@ -308,7 +326,7 @@ def analyze_determinism(plan: P.PlanNode) -> Tuple[bool, Optional[str]]:
 
 
 def plan_signature(plan: P.PlanNode) -> PlanSignature:
-    em = _Emitter()
+    em = _Emitter(exact=False)
     em.node(plan)
     deterministic, reason = analyze_determinism(plan)
     digest = hashlib.sha256(_SEP.join(em.tokens).encode()).hexdigest()
@@ -320,3 +338,23 @@ def plan_signature(plan: P.PlanNode) -> PlanSignature:
         reason=reason,
     )
 
+
+# id(plan) -> (plan, fingerprint): entries pin the plan object so the id
+# stays valid while memoized; bounded by wholesale clear (plans are also
+# pinned by the compile-cache entries that use them).
+_FP_MEMO: dict = {}
+
+
+def fragment_fingerprint(plan: P.PlanNode) -> str:
+    """Exact, process-stable content hash of a plan/fragment tree — the
+    compile-cache key component replacing id(plan)."""
+    hit = _FP_MEMO.get(id(plan))
+    if hit is not None and hit[0] is plan:
+        return hit[1]
+    em = _Emitter(exact=True)
+    em.node(plan)
+    fp = hashlib.sha256(_SEP.join(em.tokens).encode()).hexdigest()
+    if len(_FP_MEMO) > 4096:
+        _FP_MEMO.clear()
+    _FP_MEMO[id(plan)] = (plan, fp)
+    return fp

@@ -5,14 +5,15 @@ QueryManagerConfig, FeaturesConfig...) and SystemSessionProperties.java
 (151 typed session properties) — reduced to the properties this port's
 optimizer, analyzer, executor and session actually read: the memory
 limit, spill and streaming ones, on-device generation, the result
-cache, operator stats, the bandwidth ledger, ANALYZE's histogram, and
-the fault path's (fault injection, the device supervisor, the incident
-journal and the flight recorder).  Any other name, including the JAX
-package's properties whose machinery the port does not have yet
-(retries, the compile cache, observatories) or never will (the padding
-ladder: an eager executor pads nothing), raises KeyError at SET time
-rather than being silently ignored; values are validated and typed at
-SET time.
+cache, operator stats, the bandwidth ledger, ANALYZE's histogram, the
+fault path's (fault injection, the device supervisor, the incident
+journal and the flight recorder) and the observatories' (the query
+history, the doctor, the compile cache and the compile observatory).
+Any other name, including the JAX package's properties whose machinery
+the port does not have yet (retries, the serving observatory) or never
+will (the padding ladder: an eager executor pads nothing), raises
+KeyError at SET time rather than being silently ignored; values are
+validated and typed at SET time.
 
 The JAX package's ``device_cpu_fallback`` is not here on purpose: a
 device fault raises DeviceFaultError, and SET refuses the property.
@@ -259,6 +260,59 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             "byte budget of the on-disk incident journal (the two "
             "segments rotate, oldest events drop first)",
             int, 1 << 20,
+        ),
+        PropertyMetadata(
+            "query_history_dir",
+            "directory for the crash-safe persisted query history store "
+            "(mmap'd JSONL segments); empty = process-memory only",
+            str, "",
+        ),
+        PropertyMetadata(
+            "query_history_max_bytes",
+            "byte budget of the persisted query history store (oldest "
+            "completed queries evicted first)",
+            int, 1 << 20,
+        ),
+        PropertyMetadata(
+            "query_doctor",
+            "run the query doctor at query finalize and attach its ranked "
+            "root-cause diagnosis to EXPLAIN ANALYZE and "
+            "system.runtime.diagnoses",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "compile_cache",
+            "share encoded megakernel programs across queries and sessions "
+            "(off: each executor encodes its own)",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "compile_cache_dir",
+            "persistent compile-cache directory shared across processes "
+            "(the nvcc-built kernel libraries + an index of the encoded "
+            "programs); empty = the package's build directory, programs "
+            "in memory only",
+            str, "",
+        ),
+        PropertyMetadata(
+            "compile_prewarm",
+            "with compile_cache_dir set, build the kernel libraries and "
+            "encode the indexed programs when a session starts, so the "
+            "first queries compile nothing",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "compile_observatory_dir",
+            "directory for the crash-safe engine-wide compile ledger "
+            "(mmap'd JSONL segments plus per-writer census snapshots); "
+            "empty keeps the observatory in-memory only",
+            str, "",
+        ),
+        PropertyMetadata(
+            "compile_census_max_families",
+            "bound on distinct kernel families the shape census tracks "
+            "(overflow folds into __other__, never dropped)",
+            int, 64,
         ),
         PropertyMetadata(
             "analyze_histogram_buckets",

@@ -4,9 +4,9 @@ Counterpart of trino_tpu/connectors/lakehouse.py, copied but for the
 sink, which builds each data file's arrays from the appended pages'
 lanes (connectors/memory.rebuild_column, equal to column_from_pylist
 over their Python values) instead of one Python object per value, so the
-files equal the JAX package's array for array.  The commit-latency
-histogram waits for the metrics the system connector reads; the
-counters are the port's utils/metrics counters, which carry no labels.
+files equal the JAX package's array for array.  Its counters and the
+commit-latency histogram carry the JAX package's names and labels, and
+``snapshots_rows`` feeds ``system.runtime.snapshots``.
 
 Reference parity: plugin/trino-iceberg reduced to its load-bearing core —
 a table is (1) immutable data files, (2) per-snapshot manifests listing
@@ -75,7 +75,7 @@ from ..spi import (
     TableSchema,
     TableStatistics,
 )
-from ..utils.metrics import counter
+from ..utils.metrics import counter, histogram
 
 # snapshot wire schema (system.runtime.snapshots detail + metadata JSON)
 SNAPSHOT_FIELDS = (
@@ -255,7 +255,7 @@ class LakehouseMetadata(ConnectorMetadata):
         """Resolve FOR VERSION|TIMESTAMP AS OF to a snapshot id; the
         analyzer turns ValueError into a SemanticError at the query."""
         state, _ = self._state(table)
-        counter("trino_tpu_lake_time_travel_total").inc()
+        counter("trino_tpu_lake_time_travel_total").inc(kind=kind)
         if kind == "version":
             snap = int(value)
             state.snapshot(snap)  # raises ValueError if unknown
@@ -458,6 +458,7 @@ class LakehousePageSink(PageSink):
         self.rows += page.count
 
     def finish(self) -> int:
+        t0 = time.perf_counter()
         fs = self.conn.fs
         state = _load_state(fs, self.table)
         schema = state.schema()
@@ -533,13 +534,15 @@ class LakehousePageSink(PageSink):
                 _ptr_key(self.table), state.ptr,
                 meta_name.encode(),
             ):
-                counter("trino_tpu_lake_commits_total").inc()
+                counter("trino_tpu_lake_commits_total").inc(op=op)
+                histogram("trino_tpu_lake_commit_seconds").observe(
+                    time.perf_counter() - t0)
                 return self.rows
 
             # lost the race: journal, re-read the winner, retry with the
             # SAME data file (it is immutable — only metadata re-derives)
             state = _load_state(fs, self.table)
-            counter("trino_tpu_lake_conflicts_total").inc()
+            counter("trino_tpu_lake_conflicts_total").inc(op=op)
             journal.emit(
                 journal.SNAPSHOT_CONFLICT,
                 severity=journal.WARN,
@@ -669,6 +672,7 @@ class LakehouseConnector(Connector):
             )
         keep = max(int(keep), 1)
         fs = self.fs
+        t0 = time.perf_counter()
         for attempt in range(MAX_COMMIT_RETRIES):
             state = _load_state(fs, name)
             snaps = list(state.meta["snapshots"])
@@ -721,8 +725,10 @@ class LakehouseConnector(Connector):
                         removed += 1
                     except ObjectStoreError:
                         pass
-                counter("trino_tpu_lake_commits_total").inc()
+                counter("trino_tpu_lake_commits_total").inc(op="expire_snapshots")
                 counter("trino_tpu_lake_expired_snapshots_total").inc(len(dropped))
+                histogram("trino_tpu_lake_commit_seconds").observe(
+                    time.perf_counter() - t0)
                 journal.emit(
                     journal.SNAPSHOT_EXPIRED,
                     severity=journal.INFO,
@@ -737,7 +743,7 @@ class LakehouseConnector(Connector):
                     "removedFiles": removed,
                     "currentSnapshotId": state.current,
                 }
-            counter("trino_tpu_lake_conflicts_total").inc()
+            counter("trino_tpu_lake_conflicts_total").inc(op="expire_snapshots")
             journal.emit(
                 journal.SNAPSHOT_CONFLICT,
                 severity=journal.WARN,

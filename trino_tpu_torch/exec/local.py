@@ -84,6 +84,7 @@ import torch
 
 from .. import device as D
 from .. import types as T
+from ..cache.compile_cache import fragment_family
 from ..catalog import CatalogManager, Metadata
 from ..expr import ir
 from ..expr.functions import memoized
@@ -92,6 +93,7 @@ from ..ops import aggregation as agg_ops
 from ..ops import join as join_ops
 from ..ops import sort as sort_ops
 from ..ops import window as window_ops
+from ..obs import compile_observatory
 from ..page import Column, Page
 from ..plan import nodes as P
 from ..runtime import supervisor as rt
@@ -105,7 +107,8 @@ class DeviceScanCache:
     uploaded device tensors.  Entries evict in insertion order once the
     byte budget is exceeded: by default a quarter of the card's memory on
     CUDA (the lanes stay resident there beside the queries' working
-    memory), 6 GiB of host arrays on the CPU."""
+    memory), 6 GiB of host arrays on the CPU.  Its hits, misses, puts
+    and evictions are system.runtime.caches' scan_cache row."""
 
     def __init__(self, max_bytes: Optional[int] = None,
                  device: Optional[torch.device] = None):
@@ -116,25 +119,54 @@ class DeviceScanCache:
         self.max_bytes = max_bytes
         self.entries: Dict[tuple, dict] = {}
         self.bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.puts = 0
+        self.evictions = 0
 
     def drop_all(self) -> int:
         """Evict everything; returns the bytes freed (the session's
         revocable listener: the scan cache goes first under pressure)."""
         freed = self.bytes
+        self.evictions += len(self.entries)
         self.entries.clear()
         self.bytes = 0
         return freed
 
-    def get(self, key: tuple):
-        return self.entries.get(key)
+    def get(self, key: tuple, record: bool = True):
+        """record=False for a second lookup of an entry already counted
+        (the device-lane bind re-reads what the scan load found)."""
+        entry = self.entries.get(key)
+        if record:
+            if entry is not None:
+                self.hits += 1
+            else:
+                self.misses += 1
+        return entry
 
     def put(self, key: tuple, entry: dict, nbytes: int):
         while self.bytes + nbytes > self.max_bytes and self.entries:
             oldest = next(iter(self.entries))
             self.bytes -= self.entries.pop(oldest).get("nbytes", 0)
+            self.evictions += 1
         entry["nbytes"] = nbytes
         self.entries[key] = entry
         self.bytes += nbytes
+        self.puts += 1
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "name": "scan_cache",
+            "hits": self.hits,
+            "misses": self.misses,
+            "puts": self.puts,
+            "evictions": self.evictions,
+            "entries": len(self.entries),
+            "bytes": self.bytes,
+            "max_bytes": self.max_bytes,
+            "heals": 0,
+            "invalidations": 0,
+        }
 
     def evict_table(self, catalog: str, table: str) -> None:
         """Drop every scan of one table (after a write: its entries are
@@ -477,6 +509,13 @@ class LocalExecutor:
         # the process default otherwise (bare executors in tests)
         self.supervisor = (self.config.get("device_supervisor")
                            or rt.default_supervisor())
+        # the encoded megakernel programs: the process's shared cache, or
+        # the executor's own (the session's compile_cache = false)
+        self.compile_cache = self.config.get("compile_cache")
+        if self.compile_cache is None:
+            from ..cache.compile_cache import shared_compile_cache
+
+            self.compile_cache = shared_compile_cache()
 
     # ------------------------------------------------------------------
     def execute(self, plan: P.PlanNode) -> Page:
@@ -496,14 +535,24 @@ class LocalExecutor:
             # the device is already out: refuse with the structured error
             bc = self._crumb("pre-dispatch", "gate")
             raise DeviceFaultError("device_" + sup.device_state().lower(), bc)
+        before = compile_observatory.get_observatory().counts_by_cause()
         try:
             with rt.supervising(sup, self.query_id,
                                 str(self.config.get("task_id") or ""),
                                 lambda: self.device_bytes):
-                return self._execute_inner(plan)
+                page = self._execute_inner(plan)
         except DeviceFaultError as fault:
             self.kernel_profile["last_breadcrumb"] = fault.breadcrumb.to_dict()
             raise
+        # the compiles this execution made (nvcc builds, program encodes,
+        # retry-ladder re-runs), by the observatory's cause
+        after = compile_observatory.get_observatory().counts_by_cause()
+        by_cause = {c: n - before.get(c, 0) for c, n in after.items()
+                    if n - before.get(c, 0)}
+        summary = self.kernel_profile.setdefault("summary", {})
+        summary["compilesByCause"] = by_cause
+        summary["compiles"] = sum(by_cause.values())
+        return page
 
     def _crumb(self, kernel: str, mode: str, shapes=None) -> Breadcrumb:
         bc = Breadcrumb(kernel, query_id=self.query_id,
@@ -627,6 +676,12 @@ class LocalExecutor:
             return None
         prof = self.kernel_profile
         prof["forcedStreaming"] = prof.get("forcedStreaming", 0) + 1
+        from ..obs import journal
+
+        # the doctor's memory_pressure evidence
+        journal.emit(journal.FORCED_STREAMING, query_id=self.query_id,
+                     severity=journal.WARN,
+                     fragments=len(frags) if hasattr(frags, "__len__") else 0)
         return out
 
     def _account_memory(self, scans, limit):
@@ -687,6 +742,17 @@ class LocalExecutor:
                 "eager-%d" % attempt, time.perf_counter() - t0, False,
                 mode="eager",
             )
+            if attempt:
+                # each re-run of the ladder is a compile of the plan's
+                # family with new parameters (the observatory's ladder_rung)
+                compile_observatory.record_compile(
+                    kernel="eager-%d" % attempt, family=fragment_family(plan),
+                    mode="eager", actual_rows=sum(int(c) for c in counts.values()),
+                    compile_wall_s=time.perf_counter() - t0,
+                    query_id=self.query_id,
+                    task_id=str(self.config.get("task_id") or ""),
+                    ladder_attempt=attempt, scan_rows=[],
+                )
             if not self._retry_needed(ctx, checks):
                 break
         else:
@@ -1024,7 +1090,7 @@ class LocalExecutor:
             self.config.get("scan_cache") or getattr(self, "_streaming_cache", None)
         )
         key = self._scan_keys.get(id(node))
-        entry = cache.get(key) if (cache is not None and key) else None
+        entry = cache.get(key, record=False) if (cache is not None and key) else None
         sym_to_col = dict(getattr(node, "assignments", ()))
         dev = self.device
         lanes = {}

@@ -88,18 +88,18 @@ class LocalObjectStore(TrinoFileSystem):
     def _run(self, op: str, path: str, fn):
         """Retry loop: transient faults (and transient OS-level races)
         back off and retry; exhaustion raises a structured error."""
-        counter("trino_tpu_objstore_ops_total").inc()
+        counter("trino_tpu_objstore_ops_total").inc(op=op)
         last: Optional[Exception] = None
         for attempt in range(self.max_attempts):
             if attempt:
-                counter("trino_tpu_objstore_retries_total").inc()
+                counter("trino_tpu_objstore_retries_total").inc(op=op)
                 time.sleep(BASE_BACKOFF_S * (1 << (attempt - 1)))
             try:
                 self._faults(op, path)
                 return fn()
             except TransientObjectStoreError as exc:
                 last = exc
-        counter("trino_tpu_objstore_errors_total").inc()
+        counter("trino_tpu_objstore_errors_total").inc(op=op)
         raise ObjectStoreError(
             f"{op} {path}: retries exhausted after "
             f"{self.max_attempts} attempts: {last}"

@@ -2,10 +2,10 @@
 
 Counterpart of trino_tpu/memory/pools.py, with its seeded `oom` fault
 site (an injected oom behaves like a permanently-short pool) and the
-journal events of revocation and kills.  Not ported: the metrics gauges
-and counters (utils/metrics.REGISTRY) and the heartbeat snapshots; the
-low-memory killer (which calls `kill`), admission and the cluster view
-wait for the server slice.
+journal events of revocation and kills, the pool gauges and counters
+(utils/metrics.REGISTRY) and the snapshot that system.runtime.memory
+reads.  The low-memory killer (which calls `kill`), admission and the
+cluster view wait for the server slice.
 
 Reference parity: memory/LocalMemoryManager.java (general + reserved
 pools carved from the node budget) and MemoryPool.java:44 blocked-future
@@ -29,6 +29,7 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..utils.memory import ExceededMemoryLimitError, MemoryPool
+from ..utils.metrics import REGISTRY
 
 GENERAL_POOL = "general"
 RESERVED_POOL = "reserved"
@@ -56,6 +57,18 @@ def detect_device_bytes(default: Optional[int] = None,
     return int(torch.cuda.mem_get_info(dev)[1])
 
 
+def _pool_gauges():
+    size = REGISTRY.gauge(
+        "trino_tpu_memory_pool_size_bytes",
+        "Configured capacity of each memory pool",
+    )
+    reserved = REGISTRY.gauge(
+        "trino_tpu_memory_pool_reserved_bytes",
+        "Bytes currently reserved in each memory pool",
+    )
+    return size, reserved
+
+
 class LocalMemoryManager:
     """Arbitrates one node's host + HBM byte budgets across queries."""
 
@@ -69,14 +82,17 @@ class LocalMemoryManager:
         host_bytes = int(host_bytes)
         reserved_bytes = int(host_bytes * RESERVED_FRACTION)
         self.node_id = node_id
-        self.fault_injector = fault_injector
         self.general = MemoryPool(host_bytes)
         self.reserved = MemoryPool(reserved_bytes)
         self.device = MemoryPool(
             int(device_bytes) if device_bytes is not None else host_bytes
         )
+        self.fault_injector = fault_injector
         self._cond = threading.Condition()
         self._reserved_owner: Optional[str] = None
+        # query_id -> wanted bytes, for the snapshot and the gauges
+        self._blocked: Dict[str, int] = {}
+        self._blocked_since: Dict[str, float] = {}
         self._killed: Dict[str, str] = {}
         # (query_id, revocable bytes, listener) — listener() spills and
         # returns the number of bytes it released
@@ -157,6 +173,10 @@ class LocalMemoryManager:
             # nothing next time); they leave via unregister/free_query
             with self._cond:
                 self._cond.notify_all()
+            REGISTRY.counter(
+                "trino_tpu_memory_revoke_total",
+                "Revocation (spill-before-kill) requests that freed bytes",
+            ).inc(fired)
             from ..obs import journal
 
             journal.emit(
@@ -193,21 +213,37 @@ class LocalMemoryManager:
         while True:
             with self._cond:
                 if query_id in self._killed:
-                    raise QueryKilledError(self._killed[query_id])
+                    reason = self._killed[query_id]
+                    self._blocked.pop(query_id, None)
+                    self._blocked_since.pop(query_id, None)
+                    self._update_gauges_locked()
+                    raise QueryKilledError(reason)
                 if not forced_oom and self._try_reserve_locked(
                     query_id, bytes_, tier
                 ):
+                    if query_id in self._blocked:
+                        del self._blocked[query_id]
+                        self._blocked_since.pop(query_id, None)
+                    self._update_gauges_locked()
                     return
-            # revocation first (once), then block until the deadline; an
-            # injected oom behaves like a permanently-short pool
+                self._blocked[query_id] = bytes_
+                self._blocked_since.setdefault(query_id, time.monotonic())
+                self._update_gauges_locked()
+            # an injected oom behaves like a permanently-short pool: the
+            # revoke path runs, then the reservation blocks/fails
             if not revoked_once:
                 revoked_once = True
-                shortfall = bytes_ - (0 if forced_oom else self._tier_free(tier))
+                shortfall = bytes_ - (
+                    0 if forced_oom else self._tier_free(tier)
+                )
                 if self.request_revoke(max(shortfall, 1), exclude=query_id):
                     continue
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 with self._cond:
+                    self._blocked.pop(query_id, None)
+                    self._blocked_since.pop(query_id, None)
+                    self._update_gauges_locked()
                     if query_id in self._killed:
                         raise QueryKilledError(self._killed[query_id])
                 limit = (
@@ -220,6 +256,10 @@ class LocalMemoryManager:
                     f"{limit} bytes: cannot reserve {bytes_} bytes "
                     f"(query {query_id})"
                 )
+            # forced_oom stays set: the injected fault only resolves via
+            # a kill (QueryKilledError above) or the timeout error — so
+            # the node reports blocked long enough for the coordinator's
+            # enforcement loop to actually observe it
             with self._cond:
                 self._cond.wait(min(remaining, 0.05))
 
@@ -241,6 +281,7 @@ class LocalMemoryManager:
                         self._reserved_owner = None
                 if bytes_ is None or bytes_ > 0:
                     self.general.free(query_id, bytes_)
+            self._update_gauges_locked()
             self._cond.notify_all()
 
     def free_query(self, query_id: str):
@@ -250,10 +291,13 @@ class LocalMemoryManager:
                 pool.free(query_id)
             if self._reserved_owner == query_id:
                 self._reserved_owner = None
+            self._blocked.pop(query_id, None)
+            self._blocked_since.pop(query_id, None)
             self._killed.pop(query_id, None)
             self._revocable = [
                 r for r in self._revocable if r[0] != query_id
             ]
+            self._update_gauges_locked()
             self._cond.notify_all()
 
     # -- killer hook ---------------------------------------------------
@@ -262,6 +306,10 @@ class LocalMemoryManager:
         with self._cond:
             self._killed[query_id] = reason
             self._cond.notify_all()
+        REGISTRY.counter(
+            "trino_tpu_memory_killed_total",
+            "Queries killed by the low-memory killer",
+        ).inc()
         from ..obs import journal
 
         journal.emit(
@@ -269,3 +317,34 @@ class LocalMemoryManager:
             node_id=self.node_id, severity=journal.ERROR,
             reason=str(reason)[:200],
         )
+
+    # -- snapshots -----------------------------------------------------
+    def snapshot(self) -> Dict[str, object]:
+        """The pools, reservations and blocked queries of this node
+        (system.runtime.memory's rows)."""
+        with self._cond:
+            blocked = dict(self._blocked)
+            since = dict(self._blocked_since)
+        now = time.monotonic()
+        return {
+            "nodeId": self.node_id,
+            "pools": {
+                name: pool.snapshot()
+                for name, pool in self._pools().items()
+            },
+            "blocked": blocked,
+            "blockedForS": {
+                qid: round(now - since.get(qid, now), 3)
+                for qid in blocked
+            },
+        }
+
+    def _update_gauges_locked(self):
+        size, reserved = _pool_gauges()
+        for name, pool in self._pools().items():
+            size.set(pool.size, pool=name, node=self.node_id)
+            reserved.set(pool.reserved, pool=name, node=self.node_id)
+        REGISTRY.gauge(
+            "trino_tpu_memory_blocked_queries_bytes",
+            "Bytes wanted by reservations currently blocked on memory",
+        ).set(sum(self._blocked.values()), node=self.node_id)

@@ -2,11 +2,9 @@
 
 Counterpart of trino_tpu/obs/journal.py, copied: the same event types,
 fields and JSONL encoding, so a journal directory either package wrote
-is read by the other's ``read_journal_dir``.  Only the event counter
-changed (the port's utils/metrics counters carry no labels).  The query
-doctor that joins these events into a verdict, and the
-``system.runtime.events`` table over the memory mirror, wait for their
-slices.
+is read by the other's ``read_journal_dir``.  The query doctor
+(obs/doctor.py) joins these events into a verdict, and
+``system.runtime.events`` reads the memory mirror.
 
 Every subsystem that meets an anomaly appends a typed event here —
 device faults and quarantine transitions, memory revokes
@@ -233,7 +231,7 @@ class EventJournal:
         self.append(event)
         from ..utils.metrics import counter
 
-        counter("trino_tpu_journal_events_total").inc()
+        counter("trino_tpu_journal_events_total").inc(type=event["eventType"])
         return event["eventId"]
 
     def append(self, event: Dict):

@@ -17,22 +17,29 @@ breadcrumb names the wrapper and its input shapes, and the seeded
 ``device_loss`` / ``device_wedge`` fault sites are keyed by the
 wrapper's name.
 
-The kernels are built with nvcc for sm_90a into trino_tpu_torch/build/
-at first use, one nvcc per source, started together, and bound through
-a plain C interface with ctypes.  Nothing is built at import time.
+The kernels are built with nvcc for sm_90a into the build directory at
+first use (trino_tpu_torch/build/, or the session's ``compile_cache_dir``:
+``set_build_dir``), one nvcc per source, started together, and bound
+through a plain C interface with ctypes.  Nothing is built at import
+time.  Each nvcc run is a ``first_compile`` of the compile observatory,
+each library found built by an earlier process a ``persistent_load``;
+each launch's row count goes to the observatory's shape census.  The
+fused kernel's encoded programs (``compile_program``) are held by the
+process's compile cache (cache/compile_cache.py).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import os
 import shutil
 import subprocess
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs import compile_observatory
 from ..runtime import supervisor
 
 MAX_GROUPS = 32   # shared accumulator table bound (as the TPU kernels)
@@ -98,10 +105,9 @@ def stack_depth(code: Code) -> int:
     return best
 
 
-@functools.lru_cache(maxsize=256)
-def check_program(prog: Program, n_cols: int, groups: int) -> None:
-    """Raise ValueError unless the kernel can run `prog` as given (a pass
-    is remembered: the wrapper checks every call)."""
+def check_program(prog: Program, n_cols: int, groups: int) -> "Encoded":
+    """Raise ValueError unless the kernel can run `prog` as given;
+    returns its encoding."""
     if not 1 <= groups <= MAX_GROUPS:
         raise ValueError(f"groups {groups} outside [1, {MAX_GROUPS}]")
     if not 1 <= len(prog.terms) <= MAX_TERMS:
@@ -133,6 +139,33 @@ def check_program(prog: Program, n_cols: int, groups: int) -> None:
     if need > SMEM_OPTIN:
         raise ValueError(f"{need} bytes of shared memory at 32 threads a block, "
                          f"the card has {SMEM_OPTIN}")
+    return enc
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Compiled(Program):
+    """A Program checked for the kernel (check_program) and encoded, for
+    `n_cols` columns and `groups` groups: what the compile cache holds and
+    what the fused wrapper launches.  It is the Program itself (equal
+    codes, equal hash), with its encoding beside it."""
+
+    n_cols: int = 0
+    groups: int = 0
+    encoded: Optional["Encoded"] = None
+    words: object = None  # ctypes int32 array of encoded.words()
+
+    @property
+    def program(self) -> Program:
+        return Program(self.pred, self.gid, self.terms)
+
+
+def compile_program(prog: Program, n_cols: int, groups: int) -> Compiled:
+    """Check and encode `prog` for `n_cols` columns and `groups` groups
+    (raises ValueError where the kernel cannot run it).  Uncached: the
+    callers go through cache/compile_cache.CompileCache.program."""
+    enc = check_program(prog, n_cols, groups)
+    return Compiled(prog.pred, prog.gid, prog.terms, n_cols, groups, enc,
+                    _words(enc))
 
 
 def fused_smem_bytes(threads: int, n_slots: int, lane_bytes: int, n_terms: int,
@@ -278,7 +311,6 @@ class _Values:
             out.append(v)
 
 
-@functools.lru_cache(maxsize=256)
 def encode(prog: Program) -> Encoded:
     """Compile a well-formed Program (check_program) for the kernel, its
     common subexpressions shared unless that keeps more than MAX_SLOTS
@@ -494,11 +526,33 @@ def direct_probe_plain(
 
 # -- build and binding --------------------------------------------------
 
+# loaded libraries by path (the build directory can change: set_build_dir)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {
     "fused_agg_sums": 0, "grouped_count": 0, "grouped_sum_i64": 0,
     "direct_probe": 0,
 }
+_BUILD_DIR = [BUILD]
+# library paths this process has built or adopted (each is one ledger
+# event of the compile observatory)
+_RECORDED: set = set()
+
+
+def _launched(name: str, n: int) -> None:
+    """Count one launch of a kernel and its rows (a Python int: nothing
+    reads the card) into the observatory's shape census."""
+    LAUNCHES[name] += 1
+    compile_observatory.get_observatory().observe_launch(name, n)
+
+
+def build_dir() -> str:
+    return _BUILD_DIR[0]
+
+
+def set_build_dir(path: Optional[str]) -> None:
+    """Build and load the libraries in `path` from now on (the session's
+    compile_cache_dir), or in the package's build directory when empty."""
+    _BUILD_DIR[0] = os.path.abspath(path) if path else BUILD
 
 
 def _nvcc() -> str:
@@ -512,20 +566,34 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    return os.path.join(BUILD, f"lib{name}.so")
+    return os.path.join(build_dir(), f"lib{name}.so")
+
+
+def _record_build(name: str, cause: str, wall_s: float) -> None:
+    compile_observatory.record_compile(
+        kernel=f"lib{name}.so", family=f"nvcc:{SOURCES[name]}", cause=cause,
+        mode="nvcc", shapes={"arch": "sm_90a", "source": SOURCES[name]},
+        compile_wall_s=wall_s, scan_rows=[],
+    )
 
 
 def build(verbose: bool = False) -> Dict[str, str]:
     """Compile every kernel source that is missing or older than its
-    library, one nvcc per source, all started together.  Returns
-    {name: ptxas report} for the sources compiled now."""
-    os.makedirs(BUILD, exist_ok=True)
+    library in the build directory, one nvcc per source, all started
+    together.  Returns {name: ptxas report} for the sources compiled now.
+    Each nvcc run is recorded as a first_compile, each library already
+    built by an earlier process as a persistent_load (once a process)."""
+    os.makedirs(build_dir(), exist_ok=True)
     nvcc = None
     procs = {}
+    t0 = time.perf_counter()
     for name, src in SOURCES.items():
         path = os.path.join(CSRC, src)
         out = _lib_path(name)
         if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(path):
+            if out not in _RECORDED:
+                _RECORDED.add(out)
+                _record_build(name, compile_observatory.PERSISTENT_LOAD, 0.0)
             continue
         nvcc = nvcc or _nvcc()
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -543,6 +611,9 @@ def build(verbose: bool = False) -> Dict[str, str]:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{text}")
         os.replace(tmp, out)
+        _RECORDED.add(out)
+        _record_build(name, compile_observatory.FIRST_COMPILE,
+                      time.perf_counter() - t0)
         reports[name] = text
         if verbose:
             print(text)
@@ -550,11 +621,12 @@ def build(verbose: bool = False) -> Dict[str, str]:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+    path = _lib_path(name)
+    lib = _LIBS.get(path)
     if lib is not None:
         return lib
     build()
-    lib = ctypes.CDLL(_lib_path(name))
+    lib = ctypes.CDLL(path)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "fused_agg":
         lib.fused_agg_sums_launch.argtypes = [P, I, L, P, I, I, I, I, I, I, I, P, P]
@@ -570,7 +642,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.direct_probe_launch.restype = I
         lib.direct_probe_grid.argtypes = [I, ctypes.POINTER(I)]
         lib.direct_probe_grid.restype = I
-    _LIBS[name] = lib
+    _LIBS[path] = lib
     return lib
 
 
@@ -640,15 +712,15 @@ def _check_rc(rc: int, what: str) -> None:
 # -- wrappers -----------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=256)
-def _code_words(prog: Program):
-    words = encode(prog).words()
+def _words(enc: Encoded):
+    """The launch parameter of an encoding: its int32 words."""
+    words = enc.words()
     return (ctypes.c_int * max(len(words), 1))(*words)
 
 
 def fused_agg_sums(
     cols: Sequence[torch.Tensor], valids: Sequence[Optional[torch.Tensor]],
-    live: torch.Tensor, prog: Program, groups: int,
+    live: torch.Tensor, prog, groups: int,
 ) -> torch.Tensor:
     """Fused scan->filter->aggregate: exact int64 per-(term, group) sums,
     [n_terms, groups], over the lanes as the scan holds them.  `cols` are
@@ -656,9 +728,20 @@ def fused_agg_sums(
     narrows (LOAD k reads cols[k]); `valids` holds each column's bool [n]
     validity lane or None; `live` is a bool [n] mask.  A row counts where
     live, every validity lane and the predicate hold and its group id
-    lies in [0, groups).  On the card the encoded program and the lane
-    pointers travel in the launch's parameters: no copy, no host sync."""
-    check_program(prog, len(cols), groups)
+    lies in [0, groups).  `prog` is a Program (checked and encoded
+    through the process's compile cache) or the Compiled a cache gave
+    for these columns and groups.  On the card the encoded program and
+    the lane pointers travel in the launch's parameters: no copy, no
+    host sync."""
+    if isinstance(prog, Compiled):
+        comp = prog
+        if comp.n_cols != len(cols) or comp.groups != groups:
+            raise ValueError("the compiled program was checked for "
+                             f"{comp.n_cols} columns and {comp.groups} groups")
+    else:
+        from ..cache.compile_cache import shared_compile_cache
+
+        comp = shared_compile_cache().program(prog, len(cols), groups)
     n = live.shape[0]
     if live.dtype != torch.bool or live.dim() != 1:
         raise ValueError("live must be a 1-D bool tensor")
@@ -674,18 +757,18 @@ def fused_agg_sums(
             raise ValueError("validity lanes must be bool [n] on live's device")
     if live.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {live.device}")
-    shapes = {"live": live, "terms": len(prog.terms), "groups": groups}
+    shapes = {"live": live, "terms": len(comp.terms), "groups": groups}
     shapes.update((f"col{k}", c) for k, c in enumerate(cols))
     return supervisor.launch(
         "fused_agg_sums",
-        lambda: _fused_agg_sums(cols, valids, live, prog, groups), shapes)
+        lambda: _fused_agg_sums(cols, valids, live, comp, groups), shapes)
 
 
-def _fused_agg_sums(cols, valids, live, prog, groups):
+def _fused_agg_sums(cols, valids, live, comp: Compiled, groups):
     if live.device.type == "cpu":
-        return fused_agg_sums_plain(cols, valids, live, prog, groups)
+        return fused_agg_sums_plain(cols, valids, live, comp, groups)
     n = live.shape[0]
-    enc = encode(prog)
+    enc = comp.encoded
     # a lane that starts off 16 bytes is copied (the copies live until the
     # launch is queued behind them)
     values = [(aligned_lane(cols[k]), s) for k, s in enc.col_slots]
@@ -697,15 +780,15 @@ def _fused_agg_sums(cols, valids, live, prog, groups):
         lanes += [ok.data_ptr(), 1, -1]
     dev = live.device
     lib = _lib("fused_agg")
-    out = torch.zeros((len(prog.terms), groups), dtype=torch.int64, device=dev)
+    out = torch.zeros((len(comp.terms), groups), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_agg_sums_launch(
         (ctypes.c_longlong * len(lanes))(*lanes), len(lanes) // 3, n,
-        _code_words(prog), len(enc.ins), enc.n_pre, enc.gid[0], enc.gid[1],
-        enc.n_slots, len(prog.terms), groups, out.data_ptr(), stream,
+        comp.words, len(enc.ins), enc.n_pre, enc.gid[0], enc.gid[1],
+        enc.n_slots, len(comp.terms), groups, out.data_ptr(), stream,
     )
     _check_rc(rc, "fused_agg_sums")
-    LAUNCHES["fused_agg_sums"] += 1
+    _launched("fused_agg_sums", n)
     return out
 
 
@@ -752,7 +835,7 @@ def _grouped_count(flags, gid, cap):
         flags.data_ptr(), gid.data_ptr(), n, cap, out.data_ptr(), stream,
     )
     _check_rc(rc, "grouped_count")
-    LAUNCHES["grouped_count"] += 1
+    _launched("grouped_count", n)
     return out
 
 
@@ -798,7 +881,7 @@ def _grouped_sum_i64(values, gid, cap):
         values.data_ptr(), gid.data_ptr(), n, cap, out.data_ptr(), stream,
     )
     _check_rc(rc, "grouped_sum_i64")
-    LAUNCHES["grouped_sum_i64"] += 1
+    _launched("grouped_sum_i64", n)
     return out
 
 
@@ -854,7 +937,7 @@ def _direct_probe(table, key, ok, sel, lo, d):
         matched.data_ptr(), blocks, _current_stream(d),
     )
     _check_rc(rc, "direct_probe")
-    LAUNCHES["direct_probe"] += 1
+    _launched("direct_probe", n)
     return row, matched
 
 

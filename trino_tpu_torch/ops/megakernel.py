@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..cache.compile_cache import fragment_family
 from ..expr import ir
 from ..plan import nodes as P
 from . import aggregation as agg_ops
@@ -425,6 +426,11 @@ def try_fused(ctx, node: P.Aggregate):
         prof = ex.kernel_profile
         prof["fusionRejects"] = prof.get("fusionRejects", 0) + 1
         prof["lastFusionReject"] = str(r)
+        from ..obs import journal
+
+        # the doctor's fusion_reject evidence
+        journal.emit(journal.FUSION_REJECT, query_id=ex.query_id or "",
+                     reason=str(r)[:200])
         return None
 
 
@@ -498,8 +504,12 @@ def _run(ctx, node: P.Aggregate):
         _resolve(gid_code, index),
         tuple(_resolve(code, index) for code, _sh in terms),
     )
+    # checked and encoded once a process (cache/compile_cache.py): a
+    # warm run finds the program and encodes nothing
     try:
-        pk.check_program(prog, len(names), cap)
+        comp = ex.compile_cache.program(
+            prog, len(names), cap, family=lambda: fragment_family(node),
+            query_id=ex.query_id)
     except ValueError as err:
         raise Reject(f"kernel limits: {err}")
 
@@ -519,7 +529,7 @@ def _run(ctx, node: P.Aggregate):
         valids.append(ok)
 
     n_terms = len(terms)
-    sums = pk.fused_agg_sums(cols, valids, b.sel, prog, cap)
+    sums = pk.fused_agg_sums(cols, valids, b.sel, comp, cap)
     cnt = sums[0]
 
     specs = [a.to_spec() for a in node.aggs]

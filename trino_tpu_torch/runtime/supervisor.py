@@ -59,12 +59,13 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..obs.flight_recorder import device_memory_watermark
-from ..utils.metrics import counter
+from ..utils.metrics import REGISTRY, counter
 
 # device health (per device)
 ACTIVE = "ACTIVE"
 QUARANTINED = "QUARANTINED"
 BLACKLISTED = "BLACKLISTED"
+_STATE_CODE = {ACTIVE: 0.0, QUARANTINED: 1.0, BLACKLISTED: 2.0}
 
 # faults inside this window count toward the blacklist strike total;
 # older strikes age out (a flaky hour should not doom a week-old process)
@@ -269,6 +270,7 @@ class DeviceSupervisor:
         self.flight_recorder = FlightRecorder(
             None, max_records=256, name=node_id
         )
+        self._publish_state()
 
     # -- configuration -------------------------------------------------
     def configure(self, props) -> "DeviceSupervisor":
@@ -401,7 +403,8 @@ class DeviceSupervisor:
             strikes = len(d.strikes)
             self._pending = None
             self._unsettled = []
-        counter("trino_tpu_device_faults_total").inc()
+        counter("trino_tpu_device_faults_total").inc(kind=kind, node=self.node_id)
+        self._publish_state()
         from ..obs import journal
 
         journal.emit(
@@ -424,6 +427,19 @@ class DeviceSupervisor:
         recent = rec.tail(16) if rec is not None else []
         return DeviceFaultError(kind, bc, cause, surfaced_at, recent)
 
+    def _publish_state(self):
+        """The device-state gauge (0 ACTIVE, 1 QUARANTINED, 2 BLACKLISTED)
+        of every device of this node."""
+        g = REGISTRY.gauge(
+            "trino_tpu_device_state",
+            "Device health per node (0=ACTIVE, 1=QUARANTINED, "
+            "2=BLACKLISTED)",
+        )
+        with self._lock:
+            for d in self._devices.values():
+                g.set(_STATE_CODE[d.state], node=self.node_id,
+                      device=str(d.device_id))
+
     def _backoff(self, failures: int) -> float:
         base = max(self.probe_backoff_s, 0.001)
         return min(base * (2 ** max(failures - 1, 0)), MAX_PROBE_BACKOFF_S)
@@ -442,7 +458,8 @@ class DeviceSupervisor:
             if time.time() < d.next_probe:
                 return False
         ok = self._probe(device_id)
-        counter("trino_tpu_device_probe_total").inc()
+        counter("trino_tpu_device_probe_total").inc(
+            node=self.node_id, outcome="ok" if ok else "fail")
         now = time.time()
         with self._lock:
             d = self._device(device_id)
@@ -462,6 +479,7 @@ class DeviceSupervisor:
                 journal.DEVICE_RECOVERED, node_id=self.node_id,
                 device=device_id,
             )
+        self._publish_state()
         return ok
 
     def _probe(self, device_id: int) -> bool:

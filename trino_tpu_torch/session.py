@@ -26,9 +26,20 @@ parse -> analyze/plan -> optimize -> execute (exec/local.LocalExecutor)
     `event_journal_dir`);
   - the connectors: tpch, tpcds, memory, blackhole, hive (parquet, ORC,
     CSV and JSON through pyarrow, where it is installed) and lakehouse
-    (snapshots and time travel on the object store of fs/).
-Not in this slice: access control, the query history, the doctor, the
-compile cache and the distributed executors.
+    (snapshots and time travel on the object store of fs/), and the
+    `system` catalog (connectors/system.py) over the session's state;
+  - the observatories: every query is written to the crash-safe query
+    history (obs/history.py, on disk under `query_history_dir`) when it
+    starts and when it ends, diagnosed by the query doctor at finalize
+    (obs/doctor.py, `query_doctor`), and its compiles are recorded by
+    the compile observatory (obs/compile_observatory.py, on disk under
+    `compile_observatory_dir`); the encoded megakernel programs are held
+    by the process's compile cache (cache/compile_cache.py, with the
+    kernel libraries and a program index under `compile_cache_dir`);
+  - access control (security.py): the statement's identity must be
+    allowed to run queries, and its plan's scans and writes are checked
+    before any scan loads or any kernel launches.
+Not in this slice: the distributed executors and the server.
 
 Sessions run on the CUDA card unless created with device="cpu"; without
 a card and without that request, creating one raises.
@@ -41,12 +52,19 @@ from typing import Optional
 
 from . import device as D
 from . import types as T
-from .cache import CacheManager, FragmentResultCache, plan_signature
+from .cache import (
+    CacheManager,
+    CompileCache,
+    FragmentResultCache,
+    plan_signature,
+    shared_compile_cache,
+)
 from .catalog import CatalogManager, Metadata
 from .config import SessionProperties
 from .connectors.blackhole import BlackholeConnectorFactory
 from .connectors.lakehouse import LakehouseConnectorFactory
 from .connectors.memory import MemoryConnectorFactory
+from .connectors.system import SystemConnectorFactory
 from .connectors.tpcds import TpcdsConnectorFactory
 from .connectors.tpch import TpchConnectorFactory
 from .exec.local import DeviceScanCache, LocalExecutor
@@ -54,9 +72,11 @@ from .expr.lower import ProjectionMemo
 from .memory import LocalMemoryManager
 from .page import Page, column_from_pylist, page_from_pydict
 from .plan import nodes as P
-from .obs import journal
+from .obs import compile_observatory, doctor, journal
+from .obs.history import get_store as _history_store
 from .plan.optimizer import optimize
 from .runtime import DeviceSupervisor
+from .security import AccessControlManager, Identity
 from .sql import ast
 from .sql.analyzer import Analyzer
 from .sql.parser import parse
@@ -90,6 +110,7 @@ class Session:
         catalog: Optional[str] = None,
         config: Optional[dict] = None,
         device=None,
+        user: str = "user",
     ):
         self.device = D.resolve(device)
         self.catalogs = CatalogManager()
@@ -113,6 +134,15 @@ class Session:
         # session) and the CREATE FUNCTION registry
         self.prepared: dict = {}
         self.sql_functions: dict = {}
+        self.identity = Identity(user)
+        self.access_control = AccessControlManager()
+        # system.runtime.queries / completed_queries: the crash-safe store
+        # shared by every session of the process (one per directory)
+        self.history = _history_store(
+            self.properties.get("query_history_dir") or None,
+            max_bytes=int(self.properties.get("query_history_max_bytes")
+                          or (1 << 20)),
+        )
         # per-node memory arbitration: host pools and the device tier
         self.memory_manager = LocalMemoryManager(
             self.properties.get("query_max_memory_bytes"), node_id="session")
@@ -131,6 +161,30 @@ class Session:
                 max_bytes=int(self.properties.get("event_journal_max_bytes")
                               or (1 << 20)),
             )
+        # the process-global compile observatory: a directory upgrades it
+        # to the crash-safe segment store
+        fams = int(self.properties.get("compile_census_max_families")
+                   or compile_observatory.DEFAULT_MAX_FAMILIES)
+        if self.properties.get("compile_observatory_dir"):
+            compile_observatory.configure(
+                self.properties.get("compile_observatory_dir"),
+                census_max_families=fams)
+        elif fams != compile_observatory.DEFAULT_MAX_FAMILIES:
+            # resize the census without re-pointing (or dropping) the
+            # directory an earlier session configured
+            compile_observatory.configure(
+                compile_observatory.get_observatory().directory,
+                census_max_families=fams)
+        # the ranked verdict of the last doctored query, and the stats of
+        # the last prewarm of the persistent compile cache
+        self.last_diagnosis: Optional[dict] = None
+        self.last_prewarm: Optional[dict] = None
+        # ANALYZE runs (system.runtime.table_stats): (catalog, table) ->
+        # the last run's columns, row count, data version and timings
+        self.analyzed_tables: dict = {}
+        # the built-in system catalog (system.runtime.* and friends)
+        self.catalogs.register_factory(SystemConnectorFactory())
+        self.catalogs.create_catalog("system", "system", {"session": self})
         # cross-query scan cache (device-resident scan lanes), revoked
         # first under memory pressure (_executor registers what it holds)
         self._scan_cache = DeviceScanCache(device=self.device)
@@ -139,8 +193,10 @@ class Session:
                 max_bytes=self.properties.get("result_cache_max_bytes"),
                 on_event=self.events.cache_event,
             ),
+            shared_compile_cache(),
             self._scan_cache,
         )
+        self._attach_compile_cache()
         self._plan_cache: dict = {}
         self._capacity_hints: dict = {}
         # streaming fragment DAGs keyed by id(plan)
@@ -148,6 +204,9 @@ class Session:
         # host dictionary projections reused across queries
         self._projection_memo = ProjectionMemo()
         self.last_kernel_profile: Optional[dict] = None
+        # the query whose run made last_kernel_profile (the doctor reads
+        # a profile only for its own query)
+        self._profile_query_id: Optional[str] = None
         # the scan working set of the last query (0 when served from the
         # result cache)
         self.last_scan_bytes = 0
@@ -160,6 +219,31 @@ class Session:
         if self.default_catalog is None:
             self.default_catalog = name
 
+    @property
+    def query_history(self) -> list:
+        """The history store as system.runtime.queries reads it: the
+        latest record of every query of every session sharing the store."""
+        return [{
+            "query_id": r.get("queryId"), "state": r.get("state"),
+            "sql": r.get("sql"), "user": r.get("user"),
+            "created": r.get("created"), "finished": r.get("finished"),
+            "rows": r.get("rows"), "error": r.get("error"),
+            "error_code": r.get("errorCode"),
+        } for r in self.history.entries()]
+
+    def _attach_compile_cache(self) -> None:
+        """compile_cache_dir: the kernel libraries and the program index
+        live there (the package's build directory when empty); with
+        compile_prewarm the libraries are built (on the card) and the
+        indexed programs encoded, once a directory and process."""
+        cc = self.caches.compile_cache
+        cache_dir = self.properties.get("compile_cache_dir")
+        cc.attach_persistent(cache_dir or None)
+        if cache_dir and self.properties.get("compile_prewarm"):
+            warm = cc.prewarm(cache_dir, build=self.device.type == "cuda")
+            if warm is not None:
+                self.last_prewarm = warm
+
     def _executor(self, **overrides) -> LocalExecutor:
         """The executor of one query under the session's properties
         (`overrides` replace config keys: EXPLAIN ANALYZE's instrumented
@@ -171,6 +255,7 @@ class Session:
             "scan-cache", self._scan_cache.bytes, self._scan_cache.drop_all,
         )
         props = self.properties
+        self._attach_compile_cache()
         inj = self._fault_injector()
         self.memory_manager.fault_injector = inj
         sup = self.device_supervisor.configure(props)
@@ -192,6 +277,10 @@ class Session:
             "memory_blocked_timeout_s": props.get("memory_blocked_timeout_s"),
             "double_buffer_depth": props.get("double_buffer_depth"),
             "fragment_cache": self._fragment_cache,
+            # compile_cache = false detaches the shared tier: the
+            # executor encodes into a cache of its own
+            "compile_cache": (self.caches.compile_cache
+                              if props.get("compile_cache") else CompileCache()),
             # operator_stats = true times every operator (synchronizing
             # the card after each one)
             "collect_node_stats": bool(props.get("operator_stats")),
@@ -221,29 +310,72 @@ class Session:
         return P.plan_to_string(self.plan(sql))
 
     # ------------------------------------------------------------------
-    def execute(self, sql: str) -> Page:
+    def execute(self, sql: str, user: Optional[str] = None) -> Page:
+        """Run one statement as `user` (the session's identity when None):
+        recorded in the query history when it starts and when it ends,
+        and diagnosed by the doctor at finalize."""
+        identity = Identity(user) if user else self.identity
         query_id = f"q_{uuid.uuid4().hex[:12]}"
         created = self.events.query_created(query_id, sql)
+        entry = {"query_id": query_id, "sql": sql, "state": "RUNNING",
+                 "user": identity.user, "created": created}
+        self.history.put(entry)
         try:
             with self.tracer.span("query", query_id=query_id):
                 with self.tracer.span("parse"):
                     stmt = parse(sql)
-                page = self._execute_statement(stmt, sql, query_id)
+                self.access_control.check_can_execute_query(identity)
+                page = self._execute_statement(stmt, sql, query_id, identity)
             self.events.query_completed(query_id, sql, "FINISHED", created,
                                         page.count)
+            entry.update(state="FINISHED", finished=time.time(),
+                         rows=page.count, wall_s=time.time() - created)
+            # only this query's timeline (last_timeline outlives queries
+            # for system.runtime.operator_stats)
+            tl = self.last_timeline
+            if tl and tl.get("queryId") == query_id:
+                entry["operators"] = tl.get("operators")
+            self.history.put(entry)
+            self._finalize_doctor(query_id, created)
             return page
         except Exception as e:
+            code = doctor.classify_error(e)
             self.events.query_completed(query_id, sql, "FAILED", created,
                                         error=str(e))
+            entry.update(state="FAILED", finished=time.time(), error=str(e),
+                         error_code=code, wall_s=time.time() - created)
+            self.history.put(entry)
             journal.emit(journal.QUERY_FAILED, query_id=query_id,
-                         severity=journal.ERROR, error=str(e)[:400])
+                         severity=journal.ERROR, error=str(e)[:400],
+                         errorCode=code)
+            self._finalize_doctor(query_id, created, error=e)
             raise
 
-    def _execute_statement(self, stmt, sql: str, query_id: str) -> Page:
+    def _finalize_doctor(self, query_id: str, created: float, error=None):
+        """The doctor's pass at query finalize (`query_doctor`): the
+        journal, the operator timeline and the kernel profile of this
+        query into a ranked verdict (system.runtime.diagnoses)."""
+        if not self.properties.get("query_doctor"):
+            return
+        now = time.time()
+        tl = self.last_timeline
+        diag = doctor.diagnose_query(
+            query_id, window=(created, now),
+            timeline=tl if (tl or {}).get("queryId") == query_id else None,
+            profile=(self.last_kernel_profile
+                     if self._profile_query_id == query_id else None),
+            error=error, wall_s=now - created,
+        )
+        doctor.record_diagnosis(diag)
+        self.last_diagnosis = diag
+
+    def _execute_statement(self, stmt, sql: str, query_id: str,
+                           identity: Optional[Identity] = None) -> Page:
+        identity = identity or self.identity
         if isinstance(stmt, _REPLANNING):
             self._plan_cache.clear()
             self._capacity_hints.clear()
-        utility = self._utility(stmt, sql, query_id)
+        utility = self._utility(stmt, sql, query_id, identity)
         if utility is not None:
             return utility
         if isinstance(stmt, ast.Query):
@@ -267,19 +399,24 @@ class Session:
             raise NotImplementedError(
                 f"{type(stmt).__name__} is not in this slice of the port"
             )
+        # before any scan loads or any kernel launches
+        self._check_plan_access(plan, identity)
         rkey = None
         if isinstance(stmt, ast.Query):
             rkey, page = self.cached_result(plan)
             if page is not None:
                 return page
         executor = self._executor()
-        executor.query_id = query_id
+        # the fragment executors of streamed and spilled runs copy the
+        # config: journal events and breadcrumbs carry the real query id
+        executor.query_id = executor.config["query_id"] = query_id
         with self.tracer.span("execute", query_id=query_id):
             t0 = time.time()
             page = executor.execute(plan)
             wall = time.time() - t0
         self.last_scan_bytes = executor.scan_bytes
         self.last_kernel_profile = executor.kernel_profile
+        self._profile_query_id = query_id
         if executor.node_stats:
             from .obs import opstats
 
@@ -295,10 +432,37 @@ class Session:
             self.caches.invalidate_table(plan.source.catalog, plan.source.table)
         return page
 
+    def _check_plan_access(self, plan: P.PlanNode, identity) -> None:
+        """Table-level authorization over a planned statement: SELECT on
+        every scanned table, INSERT/DELETE/CREATE on write targets (the
+        checks StatementAnalyzer and the planner make in the reference)."""
+        ac = self.access_control
+
+        def walk(n: P.PlanNode):
+            if isinstance(n, P.TableScan):
+                ac.check_can_select(identity, n.catalog, n.table,
+                                    [c for _, c in n.assignments])
+            if isinstance(n, P.TableWriter):
+                if n.create_schema is not None:
+                    ac.check_can_create_table(identity, n.catalog, n.table)
+                elif n.count_symbol is not None:  # UPDATE rewrites rows
+                    ac.check_can_insert(identity, n.catalog, n.table)
+                    ac.check_can_delete(identity, n.catalog, n.table)
+                elif n.report_deleted:
+                    ac.check_can_delete(identity, n.catalog, n.table)
+                else:
+                    ac.check_can_insert(identity, n.catalog, n.table)
+            for src in n.sources:
+                walk(src)
+
+        walk(plan)
+
     # -- utility statements --------------------------------------------
-    def _utility(self, stmt, sql: str, query_id: str) -> Optional[Page]:
+    def _utility(self, stmt, sql: str, query_id: str,
+                 identity: Identity) -> Optional[Page]:
         """The page of a statement that runs no query plan, or None."""
         if isinstance(stmt, ast.SetSession):
+            self.access_control.check_can_set_session(identity, stmt.name)
             if "." in stmt.name:
                 # per-catalog session property, validated against the
                 # connector's declared metadata
@@ -324,7 +488,7 @@ class Session:
             return page_from_pydict([(c, T.VARCHAR) for c in cols],
                                     {c: [r[i] for r in rows] for i, c in enumerate(cols)})
         if isinstance(stmt, (ast.CreateView, ast.DropView, ast.ShowCreateView)):
-            return self._view_statement(stmt)
+            return self._view_statement(stmt, identity)
         if isinstance(stmt, ast.ShowTables):
             conn = self.catalogs.get(self.default_catalog)
             tables = sorted(set(conn.metadata().list_tables())
@@ -356,7 +520,7 @@ class Session:
         if isinstance(stmt, ast.ShowStats):
             return self._show_stats(stmt)
         if isinstance(stmt, ast.Analyze):
-            return self.execute_analyze(stmt)
+            return self.execute_analyze(stmt, identity)
         if isinstance(stmt, ast.ShowCreateTable):
             catalog, schema = self.metadata.resolve_table(stmt.table, self.default_catalog)
             cols = ",\n   ".join(f"{c.name} {c.type}" for c in schema.columns)
@@ -370,16 +534,16 @@ class Session:
             return _varchar_page("catalog", sorted(self.catalogs.names()))
         if isinstance(stmt, (ast.Prepare, ast.Deallocate, ast.ExecutePrepared,
                              ast.Describe)):
-            return self._prepared_statement(stmt, sql, query_id)
+            return self._prepared_statement(stmt, sql, query_id, identity)
         if isinstance(stmt, ast.Explain):
             if stmt.analyze:
-                return self._explain_analyze(stmt.query, query_id)
+                return self._explain_analyze(stmt.query, query_id, identity)
             return self._explain(stmt)
         if isinstance(stmt, (ast.CreateTable, ast.DropTable)):
-            return self._ddl(stmt)
+            return self._ddl(stmt, identity)
         return None
 
-    def _view_statement(self, stmt) -> Page:
+    def _view_statement(self, stmt, identity: Identity) -> Page:
         from .catalog import ViewDefinition
 
         if isinstance(stmt, ast.ShowCreateView):
@@ -388,10 +552,14 @@ class Session:
                 raise KeyError(f"view not found: {'.'.join(stmt.name)}")
             return _varchar_page("create_view", [
                 f"CREATE VIEW {view.catalog}.{view.name} AS\n{view.original_sql}"])
+        catalog, name = self.metadata.resolve_new_table(stmt.name, self.default_catalog)
         if isinstance(stmt, ast.DropView):
+            self.access_control.check_can_drop_table(identity, catalog, name)
             self.metadata.drop_view(stmt.name, self.default_catalog, stmt.if_exists)
             return _ok_page()
-        catalog, name = self.metadata.resolve_new_table(stmt.name, self.default_catalog)
+        # views are named schema objects: the create-table rule governs
+        # them (the reference's checkCanCreateView has the same default)
+        self.access_control.check_can_create_table(identity, catalog, name)
         # plan the query now: validates it and captures the view's
         # declared column names and types
         plan = Analyzer(self.metadata, self.default_catalog,
@@ -440,7 +608,8 @@ class Session:
         )
         return _ok_page()
 
-    def _prepared_statement(self, stmt, sql: str, query_id: str) -> Page:
+    def _prepared_statement(self, stmt, sql: str, query_id: str,
+                            identity: Identity) -> Page:
         key = stmt.name.lower()
         if isinstance(stmt, ast.Prepare):
             self.prepared[key] = stmt.statement
@@ -459,7 +628,7 @@ class Session:
                     f"{nparams} parameter(s) left unbound; "
                     f"EXECUTE ... USING must supply all values"
                 )
-            return self._execute_statement(bound, sql, query_id)
+            return self._execute_statement(bound, sql, query_id, identity)
         n = ast.count_parameters(target)
         if stmt.kind == "input":
             return page_from_pydict([("position", T.BIGINT), ("type", T.VARCHAR)],
@@ -502,14 +671,18 @@ class Session:
         except Exception:  # noqa: BLE001 — estimates are optional
             return None
 
-    def _ddl(self, stmt) -> Page:
+    def _ddl(self, stmt, identity: Identity) -> Page:
         """CREATE TABLE [IF NOT EXISTS] / DROP TABLE [IF EXISTS] (the JAX
-        package's, without access control)."""
+        package's)."""
         from .spi import ColumnSchema, TableSchema
 
         catalog, table = self.metadata.resolve_new_table(
             stmt.table, self.default_catalog
         )
+        if isinstance(stmt, ast.DropTable):
+            self.access_control.check_can_drop_table(identity, catalog, table)
+        else:
+            self.access_control.check_can_create_table(identity, catalog, table)
         md = self.catalogs.get(catalog).metadata()
         if isinstance(stmt, ast.DropTable):
             if stmt.if_exists and table not in md.list_tables():
@@ -586,20 +759,23 @@ class Session:
         self.caches.result_cache.put(key, page, tables=tables)
 
     # -- EXPLAIN ANALYZE -------------------------------------------------
-    def _explain_analyze(self, query, query_id: str) -> Page:
+    def _explain_analyze(self, query, query_id: str, identity: Identity) -> Page:
         """Execute with per-node instrumentation and print the plan with
         rows and walls, the operator timeline, the kernel profile (each
-        CUDA kernel's launches) and the bandwidth ledger
-        (ExplainAnalyzeOperator + PlanPrinter; single node)."""
+        CUDA kernel's launches), the compiles by cause, the bandwidth
+        ledger and the doctor's verdict (ExplainAnalyzeOperator +
+        PlanPrinter; single node)."""
         from .obs import opstats
         from .ops import kernels as kn
 
         plan = self._plan_stmt(query)
+        self._check_plan_access(plan, identity)
+        t_created = time.time()  # the doctor's window
         # the session's run, instrumented; its point is per-operator
         # accounting, so always with the ledger
         executor = self._executor(collect_node_stats=True,
                                   bandwidth_ledger=True)
-        executor.query_id = query_id
+        executor.query_id = executor.config["query_id"] = query_id
         before = dict(kn.LAUNCHES)
         t0 = time.perf_counter()
         page = executor.execute(plan)
@@ -607,6 +783,7 @@ class Session:
         launches = {k: v - before.get(k, 0) for k, v in kn.LAUNCHES.items()}
         prof = executor.kernel_profile
         self.last_kernel_profile = prof
+        self._profile_query_id = query_id
         text = P.plan_to_string(plan, executor.node_stats)
         text += (f"\n\nQuery: {page.count} output rows in {wall * 1000:.2f}ms "
                  f"(single node)")
@@ -631,6 +808,17 @@ class Session:
         if prof.get("fusedAggregates"):
             text += (f"\n  fused aggregates: {prof['fusedAggregates']} "
                      f"({prof.get('fusedTerms', 0)} terms)")
+        # the compile observatory's causes: nvcc builds and program encodes
+        # (first_compile, persistent_load, shape_miss) and retry-ladder
+        # re-runs (ladder_rung); none on a warm run
+        by_cause = summary.get("compilesByCause") or {}
+        text += "\n\nCompiles:"
+        if any(by_cause.values()):
+            for cause in compile_observatory.CAUSES:
+                if by_cause.get(cause):
+                    text += f"\n  {cause}: {by_cause[cause]}"
+        else:
+            text += "\n  (no compiles this query)"
         bandwidth = prof.get("bandwidth") or []
         if bandwidth:
             text += (
@@ -645,6 +833,15 @@ class Session:
                     f"out {e['outputBytes']}B, inter {e['intermediateBytes']}B over "
                     f"{e['deviceWallS'] * 1000:.2f}ms device wall"
                 )
+        # the doctor's verdict over the same evidence (the interactive
+        # "why was this slow" surface)
+        if self.properties.get("query_doctor"):
+            diag = doctor.diagnose_query(
+                query_id, window=(t_created, time.time()),
+                timeline=self.last_timeline, profile=prof, wall_s=wall)
+            doctor.record_diagnosis(diag)
+            self.last_diagnosis = diag
+            text += "\n\n" + doctor.format_diagnosis(diag)
         return _varchar_page("Query Plan", text.split("\n"))
 
     # -- ANALYZE / SHOW STATS --------------------------------------------
@@ -674,14 +871,27 @@ class Session:
              "low_value": lows, "high_value": highs},
         )
 
-    def execute_analyze(self, stmt) -> Page:
-        """ANALYZE <table> [(cols)]: collect and store; cached plans were
-        costed without these statistics."""
+    def execute_analyze(self, stmt, identity: Optional[Identity] = None) -> Page:
+        """ANALYZE <table> [(cols)]: collect, store and register (the
+        system.runtime.table_stats row); cached plans were costed without
+        these statistics."""
         from .utils.metrics import counter
 
         catalog, schema = self.metadata.resolve_table(stmt.table, self.default_catalog)
+        self.access_control.check_can_select(
+            identity or self.identity, catalog, schema.name,
+            list(stmt.columns) or [c.name for c in schema.columns])
+        started = time.time()
         stats = self.collect_statistics(catalog, schema, stmt.columns)
-        self.metadata.store_table_statistics(catalog, schema.name, stats)
+        version = self.metadata.store_table_statistics(catalog, schema.name, stats)
+        self.analyzed_tables[(catalog, schema.name)] = {
+            "catalog": catalog, "table": schema.name,
+            "columns": tuple(stmt.columns or (c.name for c in schema.columns)),
+            "row_count": float(stats.row_count),
+            "data_version": int(version),
+            "analyzed_at": started,
+            "duration_s": max(0.0, time.time() - started),
+        }
         self._plan_cache.clear()
         self._capacity_hints.clear()
         counter("trino_tpu_stats_analyze_total").inc()

@@ -156,7 +156,7 @@ class FaultInjector:
                 self._fired[site] += 1
                 from .metrics import counter
 
-                counter("trino_tpu_fault_injected_total").inc()
+                counter("trino_tpu_fault_injected_total").inc(site=site)
                 # journaled BEFORE the fault takes effect: even a
                 # worker_death hard-exit leaves the firing on record
                 # (the mmap'd page survives os._exit)

@@ -50,6 +50,16 @@ class MemoryPool:
         with self._lock:
             return self.by_query.get(query_id, 0)
 
+    def snapshot(self) -> Dict[str, object]:
+        """Point-in-time view for system.runtime.memory."""
+        with self._lock:
+            return {
+                "size": int(self.size),
+                "reserved": int(self.reserved),
+                "free": max(0, int(self.size) - int(self.reserved)),
+                "byQuery": dict(self.by_query),
+            }
+
     def free(self, query_id: str, bytes_: Optional[int] = None):
         with self._lock:
             have = self.by_query.get(query_id, 0)
