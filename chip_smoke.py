@@ -69,7 +69,23 @@ Phases (any failure exits non-zero and prints no result line):
      against the JAX package's decisions, launches, peak memory beside
      the limit, pages identical to the in-memory runs and numpy checks
      (Q18 with its partitioned join is refused by both packages);
-  8. TPC-DS SF10 (28.8 M store_sales rows), the TPC-H session freed
+  7c. `mesh`: `distributed = true` over 8 logical shards on the card at
+     TPC-H SF10: Q6 (fused on every shard, the partials all_gathered),
+     Q1 with megakernels off (grouped_count and grouped_sum_i64 on every
+     shard, psums), Q3 over broadcast joins (direct_probe on every shard
+     against the one gathered build side) and over partitioned joins
+     (all_to_all), a grouped count(DISTINCT) (repartitioned on the group
+     keys), a global approx_distinct (gathered) and a grouped one (HLL
+     registers merged by pmax): each cold once and warm twice, pages
+     equal to the one-device pages byte for byte, every kernel's launches
+     counted over the warm runs, the collectives by kind, the warm wall's
+     host split (shard load, per-shard operators, exchanges, the final
+     sync), the peak device memory; then a seeded device_loss at the
+     first mesh step of Q6 shrinks the mesh to 7 shards (MESH_SHRINK
+     journaled, the doctor's mesh_shrink after device_fault, every
+     launch on the card, the same page) and the canary restores it;
+  8. TPC-DS SF3 (8.6 M store_sales rows; SF10 until the mesh phase
+     needed the call's time), the TPC-H session freed
      first: the 22 statements of tests/test_tpcds.py, its null-FK
      count, Q27 with ROLLUP (DS-Q27-ROLLUP), the aggregate families per
      store (DS-AGG) and the function library (DS-FN), cold once and warm
@@ -2899,11 +2915,232 @@ def phase_timing(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the TPC-DS path at SF10 (GROUPING SETS, the aggregate families,
+# phase 7c: the mesh (distributed = true) over 8 logical shards on the card
+
+
+MESH_SHARDS = 8
+MESH_WARM = 2                # warm runs of each statement after the cold one
+MESH_FLOAT_RTOL = 1e-12      # a float64 column merged across shards (none here)
+MESH_DISTINCT_SQL = ("select o_orderpriority, count(distinct o_custkey) from orders "
+                     "group by o_orderpriority order by o_orderpriority")
+MESH_APPROX_SQL = "select approx_distinct(o_custkey) from orders"
+MESH_HLL_SQL = ("select o_orderpriority, approx_distinct(o_custkey) from orders "
+                "group by o_orderpriority order by o_orderpriority")
+# statement -> (SQL key or text, session properties, kernels a run must
+# launch at least this often, collectives a run must make)
+MESH_STATEMENTS = {
+    "Q6": ("Q6", {"megakernels": "auto"}, {"fused_agg_sums": MESH_SHARDS},
+           ("all_gather",)),
+    "Q1": ("Q1", {"megakernels": "off"},
+           {"grouped_count": MESH_SHARDS, "grouped_sum_i64": MESH_SHARDS}, ("psum",)),
+    # the session names each Q3's join distribution: the cost-based
+    # planner's own choice moves with the scale, and a threshold of one
+    # row alone leaves its broadcast plan (the JAX package's too)
+    "Q3": ("Q3", {"megakernels": "auto", "join_distribution_type": "broadcast"},
+           {"direct_probe": 2 * MESH_SHARDS}, ("all_gather",)),
+    "Q3-PART": ("Q3", {"megakernels": "auto", "broadcast_join_threshold_rows": 1,
+                       "join_distribution_type": "partitioned"},
+                {"direct_probe": 2 * MESH_SHARDS}, ("all_to_all",)),
+    "DISTINCT": (MESH_DISTINCT_SQL, {}, {}, ("all_to_all",)),
+    "APPROX": (MESH_APPROX_SQL, {}, {}, ("all_gather",)),
+    "APPROX-HLL": (MESH_HLL_SQL, {}, {}, ("pmax",)),
+}
+MESH_DEFAULTS = {"megakernels": "auto", "broadcast_join_threshold_rows": 1 << 20,
+                 "join_distribution_type": "automatic"}
+
+
+def _set_session(s, props):
+    """SET SESSION of each property (a planner property must clear the
+    session's cached plans, which SET SESSION does)."""
+    for k, v in props.items():
+        s.execute(f"set session {k} = " + (f"'{v}'" if isinstance(v, str) else str(v)))
+
+
+def _mesh_reference_pages(qs):
+    """Each statement's page on one device at the same scale: the main
+    path's pages where that phase ran, the rest in its session (or in a
+    session of its own with --phase mesh)."""
+    from trino_tpu_torch.session import tpch_session
+
+    s = MAIN.get("session") or _card_session(tpch_session, MAIN_SF)
+    done = MAIN.get("pages", {})
+    pages = {}
+    for label, (sql, props, _k, _c) in MESH_STATEMENTS.items():
+        mode = props.get("megakernels", "auto")
+        base = "Q3" if label == "Q3-PART" else label
+        if (base, mode) in done:
+            pages[label] = done[(base, mode)]
+            continue
+        _set_session(s, {**MESH_DEFAULTS, **props})
+        pages[label] = s.execute(qs.get(sql, sql))
+    _set_session(s, MESH_DEFAULTS)
+    return pages
+
+
+def _mesh_fault(qs, want_page):
+    """A seeded device_loss at the first mesh step of Q6: the mesh shrinks
+    from 8 shards to 7, MESH_SHRINK is journaled, the doctor lists
+    mesh_shrink after device_fault, every launch is on the card (the
+    port has no CPU re-run), the page is the one-device page; then the
+    canary restores the shard and Q6 runs on all 8 again."""
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.obs import journal
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.parallel import collectives
+    from trino_tpu_torch.session import tpch_session
+
+    backoff = 0.5
+    spec = json.dumps({"device_loss": {"nth": 1, "match": "mesh:"}})
+    s = _card_session(tpch_session, MAIN_SF, distributed=True, num_devices=MESH_SHARDS,
+                      fault_injection=spec, device_probe_backoff_s=backoff,
+                      query_doctor=True)
+    sup = s.device_supervisor
+    kn.reset_counts()
+    collectives.reset_calls()
+    t0 = time.perf_counter()
+    page = s.execute(qs["Q6"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = s.last_kernel_profile
+    if prof.get("meshShrinks", 0) < 1 or prof["mesh"]["shards"] != MESH_SHARDS - 1:
+        raise AssertionError(f"the mesh did not shrink to {MESH_SHARDS - 1}: "
+                             f"{prof.get('meshShrinks')}, {prof.get('mesh')}")
+    if sup.device_state(device_id=0) != "QUARANTINED":
+        raise AssertionError(f"shard 0 is {sup.device_state(device_id=0)}")
+    if kn.LAUNCHES["fused_agg_sums"] != 2 * MESH_SHARDS - 1:
+        raise AssertionError(f"fused_agg_sums launched {kn.LAUNCHES['fused_agg_sums']} "
+                             f"times, want {MESH_SHARDS} + {MESH_SHARDS - 1} on the card")
+    evs = [e for e in journal.get_journal().tail(500)
+           if e.get("eventType") == journal.MESH_SHRINK]
+    detail = (evs[-1].get("detail") or {}) if evs else {}
+    if (detail.get("fromSize"), detail.get("toSize")) != (MESH_SHARDS, MESH_SHARDS - 1):
+        raise AssertionError(f"MESH_SHRINK {detail}")
+    codes = [f.get("code") for f in (s.last_diagnosis or {}).get("findings", ())]
+    if not ("device_fault" in codes and "mesh_shrink" in codes
+            and codes.index("device_fault") < codes.index("mesh_shrink")):
+        raise AssertionError(f"the doctor's findings {codes}")
+    convert.assert_pages_identical(want_page, page)
+    _log(f"[mesh] fault: device_loss at the first mesh step of Q6 -> shrank "
+         f"{MESH_SHARDS} -> {MESH_SHARDS - 1} shards in {wall:.3f} s (cold), shard 0 "
+         f"QUARANTINED, MESH_SHRINK {detail}, doctor {codes}, launches {_launched(kn)} "
+         f"(all on the card), page equal to the one-device page")
+    _recover(s, backoff)
+    page = s.execute(qs["Q6"])
+    torch.cuda.synchronize()
+    if sup.device_state(device_id=0) != "ACTIVE" or \
+            s.last_kernel_profile["mesh"]["shards"] != MESH_SHARDS:
+        raise AssertionError("the canary did not restore shard 0")
+    convert.assert_pages_identical(want_page, page)
+    _log(f"[mesh] fault: the canary restored shard 0; Q6 over {MESH_SHARDS} shards again, "
+         f"the same page")
+    SUPERVISED.remove(sup)  # it faulted on purpose
+
+
+def phase_mesh(dev, do_profile=False):
+    """The mesh at SF10: 8 logical shards on the card, each statement cold
+    once and warm MESH_WARM times, against the one-device pages."""
+    import gc
+
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.parallel import collectives
+    from trino_tpu_torch.session import tpch_session
+
+    qs = _tpch_sql()
+    sf = MAIN_SF
+    t_ref = time.perf_counter()
+    want = _mesh_reference_pages(qs)
+    _log(f"[mesh] one-device reference pages in {time.perf_counter() - t_ref:.1f} s")
+    s = _card_session(tpch_session, sf, distributed=True, num_devices=MESH_SHARDS)
+    # the grouped approx_distinct merges HLL registers, where one device
+    # counts exactly: its reference is the sketch over every row, a mesh
+    # of one shard (the register max of a union is the union's registers),
+    # and the exact count bounds it
+    exact = want["APPROX-HLL"].to_pylist()
+    _set_session(s, {"num_devices": 1})
+    want["APPROX-HLL"] = s.execute(MESH_HLL_SQL)
+    _set_session(s, {"num_devices": MESH_SHARDS})
+    for (k, est), (k2, n) in zip(want["APPROX-HLL"].to_pylist(), exact):
+        if k != k2 or abs(est - n) > max(0.2 * n, 4):
+            raise AssertionError(f"HLL estimate {k} {est} against the exact {k2} {n}")
+    cold, gen = {}, {}
+    for label, (sql, props, _k, _c) in MESH_STATEMENTS.items():
+        _set_session(s, {**MESH_DEFAULTS, **props})
+        t0 = time.perf_counter()
+        page = s.execute(qs.get(sql, sql))
+        torch.cuda.synchronize()
+        cold[label] = time.perf_counter() - t0
+        convert.assert_pages_match(want[label], page, rtol=MESH_FLOAT_RTOL)
+        prof = s.last_kernel_profile
+        gen[label] = (prof.get("deviceGeneratedScans", 0), prof.get("hostGeneratedScans", 0))
+    walls = {q: [] for q in MESH_STATEMENTS}
+    splits, peaks, calls = {}, {}, {}
+    per_run = {q: dict.fromkeys(KERNEL_FNS, 0) for q in MESH_STATEMENTS}
+    kn.reset_counts()  # the mesh path starts here
+    for label, (sql, props, want_k, want_c) in MESH_STATEMENTS.items():
+        _set_session(s, {**MESH_DEFAULTS, **props})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_calls()
+        for _ in range(MESH_WARM):
+            before = dict(kn.LAUNCHES)
+            t0 = time.perf_counter()
+            page = s.execute(qs.get(sql, sql))
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+            for name in KERNEL_FNS:
+                per_run[label][name] += kn.LAUNCHES[name] - before[name]
+            convert.assert_pages_match(want[label], page, rtol=MESH_FLOAT_RTOL)
+        peaks[label] = torch.cuda.max_memory_allocated()
+        splits[label] = dict(s.last_kernel_profile["mesh"])
+        calls[label] = {k: v for k, v in collectives.CALLS.items() if v}
+        for name, per in want_k.items():
+            if per_run[label][name] < per * MESH_WARM:
+                raise AssertionError(f"mesh {label}: {name} launched "
+                                     f"{per_run[label][name]} times in {MESH_WARM} runs, "
+                                     f"want >= {per} a run")
+        for kind in want_c:
+            if not calls[label].get(kind):
+                raise AssertionError(f"mesh {label}: no {kind} ({calls[label]})")
+        if label == "Q3" and calls[label].get("all_to_all"):
+            raise AssertionError(f"mesh Q3 repartitioned its broadcast joins: {calls[label]}")
+    launches = dict(kn.LAUNCHES)  # ... and ends here
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} never launched on the mesh path")
+    MAIN["mesh_launches"] = launches
+    _log(f"[mesh] mesh path launches over {MESH_WARM} warm runs of each statement: "
+         f"{launches}")
+    for label in MESH_STATEMENTS:
+        w = walls[label]
+        sp = splits[label]
+        _log(f"[mesh] {label}: cold {cold[label]:.3f} s, warm median "
+             f"{statistics.median(w) * 1e3:.3f} ms (all: "
+             f"{', '.join(f'{x * 1e3:.3f}' for x in w)}); last warm run's host split: "
+             f"shard load {sp['loadS'] * 1e3:.3f} ms, per-shard operators "
+             f"{sp['shardOpsS'] * 1e3:.3f} ms, exchanges and replicated operators "
+             f"{sp['exchangeS'] * 1e3:.3f} ms, checks and output copy "
+             f"{sp['syncS'] * 1e3:.3f} ms; peak device memory "
+             f"{peaks[label] / 2**30:.2f} GiB; launches {per_run[label]}; "
+             f"collectives {calls[label]}; page equal to the one-device page")
+    _log(f"[mesh] the cold runs' shard scans (generated on the card, on the host): {gen}")
+    if do_profile:
+        for label, (sql, props, _k, _c) in MESH_STATEMENTS.items():
+            _set_session(s, {**MESH_DEFAULTS, **props})
+            _profile(s, qs.get(sql, sql), f"mesh {label}")
+    _mesh_fault(qs, want["Q6"])
+    del s
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the TPC-DS path at SF3 (GROUPING SETS, the aggregate families,
 # the function library, the surrogate-key star joins)
 
 
-DS_SF = 10.0
+DS_SF = 3.0                   # cut from 10 for the call's budget (PERF.md section 4)
 
 
 def _ds_statements():
@@ -3202,7 +3439,7 @@ DS_CHECKS = {"NULL-FK": check_ds_null_fk, "Q96": check_ds_q96, "Q13": check_ds_q
 
 
 def phase_ds(dev, do_profile=False):
-    """The TPC-DS path at SF10 in a session of its own (the TPC-H SF10
+    """The TPC-DS path at DS_SF in a session of its own (the TPC-H SF10
     session freed first, so the peak memory is this path's): every
     statement cold once, then MAIN_REPS warm runs with the kernels'
     launches counted from zero; the numpy references of DS_CHECKS, and
@@ -4214,7 +4451,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "gen", "session", "main", "ext", "ooc",
-                             "ds", "faults", "lake", "obs"],
+                             "ds", "faults", "lake", "obs", "mesh"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 on-device generator against the host "
                          "generator, only the build and the SF1 session "
@@ -4228,7 +4465,8 @@ def main(argv=None) -> int:
                          "fault path (seeded faults, supervisor, canary, watchdog), "
                          "only the build and the lakehouse/hive path, or only the build "
                          "and the observatories (history, doctor, compile observatory and "
-                         "cache, system catalog, access control)")
+                         "cache, system catalog, access control), or only the build and the "
+                         "mesh (distributed = true over 8 shards on the card)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -4270,6 +4508,8 @@ def main(argv=None) -> int:
         phases.append(("lake", lambda: phase_lake(dev)))
     elif args.phase == "obs":
         phases.append(("obs", lambda: phase_obs(dev)))
+    elif args.phase == "mesh":
+        phases.append(("mesh", lambda: phase_mesh(dev, args.profile)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -4281,6 +4521,7 @@ def main(argv=None) -> int:
             ("rel", lambda: phase_sf10_rel(dev, args.profile)),
             ("ext", lambda: phase_ext(dev, args.profile)),
             ("timing", lambda: phase_timing(dev)),
+            ("mesh", lambda: phase_mesh(dev, args.profile)),
             ("ooc", lambda: phase_ooc(dev, args.profile)),
             ("ds", lambda: phase_ds(dev, args.profile)),
             ("faults", lambda: phase_faults(dev)),
@@ -4311,6 +4552,9 @@ def main(argv=None) -> int:
         return 1
     print(smi)
     if "kernels" in MAIN:
+        # the mesh path's launches of each kernel beside the main path's
+        for row in MAIN["kernels"]:
+            row["mesh_launches"] = MAIN.get("mesh_launches", {}).get(row["name"])
         print(json.dumps({"kernels": MAIN["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,10 @@
 against the JAX package's.
 
 The FaultInjector unit tests of tests/test_faults.py:91-133 on the port
-(and its seeded firings equal the JAX injector's); the refusals of
-`distributed = true` (at execute, naming the mesh executor) and of the
-padding-ladder properties (SET, like any property the port has no
-machinery for); the memory manager's seeded `oom` site and its journal
+(and its seeded firings equal the JAX injector's); a GROUP BY under
+`distributed = true` over 4 shards against the JAX package's mesh; the
+refusal of the padding-ladder properties (SET, like any property the
+port has no machinery for); the memory manager's seeded `oom` site and its journal
 events; the result cache's journaled heal (CACHE_HEAL); the same fault
 scenario journaled with the same kinds and fields by both packages; and
 journal / flight-recorder directories one package writes read by the
@@ -25,7 +25,6 @@ from trino_tpu.obs import journal as jax_journal
 from trino_tpu.utils.faults import FaultInjector as JaxFaultInjector
 from trino_tpu_torch import types as T
 from trino_tpu_torch.cache.result_cache import FragmentResultCache
-from trino_tpu_torch.exec.local import ExecutionError
 from trino_tpu_torch.memory import LocalMemoryManager
 from trino_tpu_torch.obs import flight_recorder as fr
 from trino_tpu_torch.obs import journal
@@ -106,19 +105,26 @@ def test_fault_firings_are_journaled():
 
 
 def test_distributed_true_is_refused():
-    """SET SESSION distributed = true, then a GROUP BY: the port has no
-    mesh executor yet, so execute refuses (no quiet one-device run);
-    EXPLAIN of the distributed plan is the planner's and still works."""
+    """SET SESSION distributed = true and num_devices = 4, then a GROUP
+    BY: the port runs it over a mesh of 4 shards, and the page is the
+    JAX package's mesh page (4 virtual devices); EXPLAIN of the
+    distributed plan is the planner's and still works.  (The name is
+    the refusal's this test once witnessed.)"""
     s = tpch_session(0.001, device="cpu", result_cache=False)
     s.execute("set session distributed = true")
     s.execute("set session num_devices = 4")
-    with pytest.raises(ExecutionError, match="mesh executor"):
-        s.execute(GROUP_BY)
+    js = jsession.tpch_session(0.001, result_cache=False)
+    js.execute("set session distributed = true")
+    js.execute("set session num_devices = 4")
+    rows = s.execute(GROUP_BY).to_pylist()
+    assert rows == js.execute(GROUP_BY).to_pylist()
+    assert s.last_kernel_profile["mesh"]["shards"] == 4
     text = "\n".join(r[0] for r in s.execute(
         "explain (type distributed) " + GROUP_BY).to_pylist())
     assert "Fragment" in text
     s.execute("set session distributed = false")
-    assert len(s.execute(GROUP_BY).to_pylist()) == 3
+    assert s.execute(GROUP_BY).to_pylist() == rows and len(rows) == 3
+    assert "mesh" not in s.last_kernel_profile
 
 
 @pytest.mark.parametrize("prop", ["padding_ladder", "padding_ladder_file"])

@@ -6,8 +6,8 @@ byte-identical (trino_tpu_torch/convert.py) besides the reference's own
 assertions.  The warehouse of the shared tests is written by the port's
 `write_parquet_table`; the JAX package's writer makes the same arrow
 tables (held here) and its files read identically through the port.
-`test_distributed_hive_scan` becomes a witness of the port's refusal of
-`distributed = true` (the mesh executor is a later slice).  The
+`test_distributed_hive_scan` runs under `distributed = true` on two
+shards in both packages (the reference uses two workers).  The
 optimizer's IN-list row-group pruning test
 (tests/test_optimizer.py::test_hive_in_list_row_group_pruning) runs
 through the port too.
@@ -27,7 +27,6 @@ from trino_tpu.connectors.hive import write_parquet_table as jax_write
 from trino_tpu_torch import convert
 from trino_tpu_torch import types as T
 from trino_tpu_torch.connectors.hive import HivePageSink, write_parquet_table
-from trino_tpu_torch.exec.local import ExecutionError
 from trino_tpu_torch.exec.partitioner import SkewedPartitionRebalancer
 from trino_tpu_torch.page import Page, column_from_pylist, page_from_pydict
 from trino_tpu_torch.plan import nodes as P
@@ -129,14 +128,21 @@ def test_date_filter_pruning_correctness(pair):
 
 
 def test_distributed_hive_scan(warehouse):
-    """The reference runs this scan on two workers; the port refuses
-    distributed = true at execute, naming the mesh executor, until that
-    slice exists (no quiet one-device run)."""
-    ts = tsession.Session(device="cpu", config={"distributed": True})
-    ts.create_catalog("hive", "hive", {"hive.warehouse-dir": warehouse})
-    with pytest.raises(ExecutionError, match="mesh executor"):
-        ts.execute("select category, count(*) c from events "
-                   "where category is not null group by category order by category")
+    """The reference runs this scan on two workers; here both packages
+    run it under `distributed = true` over two shards (the port's mesh,
+    the JAX package's 2-device mesh), the row groups spread over them."""
+    sql = ("select category, count(*) c from events "
+           "where category is not null group by category order by category")
+    pages = []
+    for s in (jsession.Session(config={"distributed": True, "num_devices": 2}),
+              tsession.Session(device="cpu", config={"distributed": True,
+                                                     "num_devices": 2})):
+        s.create_catalog("hive", "hive", {"hive.warehouse-dir": warehouse})
+        pages.append(s.execute(sql))
+    jpage_, tpage = pages
+    assert tpage.to_pylist() == jpage_.to_pylist() == [
+        ("alpha", 1000), ("beta", 1000), ("gamma", 1000)]
+    convert.assert_pages_identical(jpage_, tpage)
 
 
 def test_fractional_literal_constraint_is_conservative(pair):

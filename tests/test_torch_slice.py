@@ -221,7 +221,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'trino_tpu_torch.connectors.hive', 'trino_tpu_torch.connectors.lakehouse',"
         " 'trino_tpu_torch.obs.history', 'trino_tpu_torch.obs.doctor',"
         " 'trino_tpu_torch.obs.compile_observatory', 'trino_tpu_torch.cache.compile_cache',"
-        " 'trino_tpu_torch.security', 'trino_tpu_torch.connectors.system'}\n"
+        " 'trino_tpu_torch.security', 'trino_tpu_torch.connectors.system',"
+        " 'trino_tpu_torch.parallel', 'trino_tpu_torch.parallel.collectives',"
+        " 'trino_tpu_torch.parallel.shuffle', 'trino_tpu_torch.parallel.mesh_executor'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )

@@ -154,10 +154,11 @@ def test_session_properties_rows_match_jax(pair):
     assert set(port) <= {r[0] for r in js.execute(sql).to_pylist()}
     # each session has a history directory of its own
     assert port.pop("query_history_dir")[1] == jax.pop("query_history_dir")[1] == ""
-    assert len(port) == 40 and port == jax
+    assert len(port) == 41 and port == jax
     for name in ("query_history_max_bytes", "query_doctor",
                  "compile_cache", "compile_cache_dir", "compile_prewarm",
-                 "compile_observatory_dir", "compile_census_max_families"):
+                 "compile_observatory_dir", "compile_census_max_families",
+                 "straggler_dispersion_factor"):
         assert name in port
 
 

@@ -17,8 +17,9 @@ validated and typed at SET time.
 
 The JAX package's ``device_cpu_fallback`` is not here on purpose: a
 device fault raises DeviceFaultError, and SET refuses the property.
-`distributed` and `num_devices` are read by the planner's costing; the
-executor refuses ``distributed = true`` until the mesh executor exists.
+``distributed = true`` runs a query over ``num_devices`` logical shards
+(parallel/mesh_executor.py; 0 = one shard a visible card, one on the
+CPU), and the planner's costing reads both.
 """
 from __future__ import annotations
 
@@ -197,6 +198,12 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             "in-memory byte budget for the fragment result cache "
             "(cold entries spill to disk as checksummed frames)",
             int, 256 << 20,
+        ),
+        PropertyMetadata(
+            "straggler_dispersion_factor",
+            "flag/hedge a task when its wall sits this many robust "
+            "deviations (MAD units) above the sibling median",
+            float, 2.0,
         ),
         PropertyMetadata(
             "operator_stats",

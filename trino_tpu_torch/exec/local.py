@@ -69,9 +69,8 @@ card raises DeviceFaultError naming the culprit kernel and quarantines
 the device.  Nothing re-runs the query elsewhere (the JAX package
 re-runs it on the CPU; the port has no such path on purpose).
 
-Refused (ExecutionError at execute): `distributed = true`, which needs
-the mesh executor of a later slice; EXPLAIN (TYPE DISTRIBUTED) is the
-planner's and stays.
+`distributed = true` runs the plan over a mesh of shards instead
+(parallel/mesh_executor.py, whose shards run these visitors).
 """
 from __future__ import annotations
 
@@ -285,12 +284,13 @@ def _read_checks(ctx: "_TraceCtx"):
     overflow flags fired, join duplicate/violation counts, grouping
     collision counts, bigint sum overflow flags)."""
     wides = ctx.lowering.overflow_flags
-    groups = ([sum(f.reshape(()).to(torch.int64) for f in wides)] if wides else [],
+    dev = ctx.ex.device  # a mesh's checks come from every shard's device
+    groups = ([sum(f.reshape(()).to(dev, torch.int64) for f in wides)] if wides else [],
               [d for _, d in ctx.dup_checks], list(ctx.collision_checks),
               list(ctx.sum_overflow))
     flat = [v for g in groups for v in g]
     tensors = [v for v in flat if isinstance(v, torch.Tensor)]
-    read = iter(torch.stack([t.reshape(()).to(torch.int64) for t in tensors]).tolist()
+    read = iter(torch.stack([t.reshape(()).to(dev, torch.int64) for t in tensors]).tolist()
                 if tensors else [])
     vals = [next(read) if isinstance(v, torch.Tensor) else int(v) for v in flat]
     out, i = [], 0
@@ -520,13 +520,6 @@ class LocalExecutor:
     # ------------------------------------------------------------------
     def execute(self, plan: P.PlanNode) -> Page:
         assert isinstance(plan, P.Output)
-        if self.config.get("distributed"):
-            raise ExecutionError(
-                "distributed = true needs the mesh executor "
-                "(parallel/mesh_executor.py on torch.distributed, ROADMAP "
-                "A.5), which the port does not have yet; set distributed = "
-                "false to run on one device"
-            )
         if isinstance(plan.source, P.TableWriter):
             return self._execute_write(plan.source)
         sup = self.supervisor
@@ -535,6 +528,12 @@ class LocalExecutor:
             # the device is already out: refuse with the structured error
             bc = self._crumb("pre-dispatch", "gate")
             raise DeviceFaultError("device_" + sup.device_state().lower(), bc)
+        return self._execute_supervised(plan)
+
+    def _execute_supervised(self, plan: P.Output) -> Page:
+        """One run of the plan inside the supervisor's scope, with the
+        compiles it made counted by cause."""
+        sup = self.supervisor
         before = compile_observatory.get_observatory().counts_by_cause()
         try:
             with rt.supervising(sup, self.query_id,
@@ -732,7 +731,7 @@ class LocalExecutor:
                 self._sync()  # the ledger times this run's device work only
                 self._devgen_temp_bytes = 0
             t0 = time.perf_counter()
-            ctx = _TraceCtx(self, scans, counts)
+            ctx = self._new_ctx(scans, counts)
             out_lanes, sel = self._run(plan, ctx)
             if self.bandwidth_ledger is not None:
                 self._ledger_record(out_lanes, sel, "eager-%d" % attempt, plan,
@@ -1165,6 +1164,9 @@ class LocalExecutor:
         return rec
 
     # ------------------------------------------------------------------
+    def _new_ctx(self, scans, counts) -> "_TraceCtx":
+        return _TraceCtx(self, scans, counts)
+
     def _run(self, plan: P.Output, ctx: "_TraceCtx"):
         batch = ctx.visit(plan.source)
         out = {s: batch.lanes[s] for s in plan.symbols}
@@ -1186,8 +1188,42 @@ class LocalExecutor:
         return Page(cols, n, list(plan.names))
 
 
+def timed_visit(ex: LocalExecutor, node: P.PlanNode, run, batches_of):
+    """EXPLAIN ANALYZE instrumentation (OperatorContext timing) of one
+    operator visit: `run()` makes its output, whose batches (one, or one
+    a mesh shard) `batches_of` lists.  The wall is inclusive of the
+    children (obs/opstats subtracts); the enqueue-to-sync split
+    approximates host vs device wall."""
+    t0 = time.perf_counter()
+    out = run()
+    t1 = time.perf_counter()
+    ex._sync()
+    t2 = time.perf_counter()
+    st = ex.node_stats.setdefault(
+        id(node), {"rows": 0, "bytes": 0, "wall_s": 0.0,
+                   "device_wall_s": 0.0, "calls": 0})
+    batches = batches_of(out)
+    rows = sum(int(b.sel.sum()) for b in batches)
+    cap = sum(int(b.sel.shape[0]) for b in batches)
+    lane_bytes = sum(_tensor_bytes(v) + _tensor_bytes(ok)
+                     for b in batches for v, ok in b.lanes.values())
+    st["rows"] = rows
+    # logical bytes: the lanes' footprint scaled by the live fraction
+    st["bytes"] = int(lane_bytes * rows / cap) if cap else lane_bytes
+    st["wall_s"] += t2 - t0
+    st["device_wall_s"] += t2 - t1
+    st["calls"] += 1
+    return out
+
+
 class _TraceCtx:
     """One run of the plan's operators (the JAX package's trace)."""
+
+    # a mesh shard's context runs these visitors over its shard: the
+    # mesh fuses an aggregate across shards before they run, and a
+    # broadcast build side is built once for the shards of a device
+    # (_build_once)
+    allow_fusion = True
 
     def __init__(self, ex: LocalExecutor, scans, counts):
         self.ex = ex
@@ -1231,28 +1267,7 @@ class _TraceCtx:
     def _visit_timed(self, node: P.PlanNode, m) -> Batch:
         if not self.ex.config.get("collect_node_stats"):
             return m(node)
-        # EXPLAIN ANALYZE instrumentation (OperatorContext timing): the
-        # wall is inclusive of the children (obs/opstats subtracts); the
-        # enqueue-to-sync split approximates host vs device wall
-        t0 = time.perf_counter()
-        b = m(node)
-        t1 = time.perf_counter()
-        self.ex._sync()
-        t2 = time.perf_counter()
-        st = self.ex.node_stats.setdefault(
-            id(node), {"rows": 0, "bytes": 0, "wall_s": 0.0,
-                       "device_wall_s": 0.0, "calls": 0})
-        rows = int(b.sel.sum())
-        cap = int(b.sel.shape[0])
-        lane_bytes = sum(_tensor_bytes(v) + _tensor_bytes(ok)
-                         for v, ok in b.lanes.values())
-        st["rows"] = rows
-        # logical bytes: the lanes' footprint scaled by the live fraction
-        st["bytes"] = int(lane_bytes * rows / cap) if cap else lane_bytes
-        st["wall_s"] += t2 - t0
-        st["device_wall_s"] += t2 - t1
-        st["calls"] += 1
-        return b
+        return timed_visit(self.ex, node, lambda: m(node), lambda b: [b])
 
     # -- leaves ---------------------------------------------------------
     def _visit_tablescan(self, node: P.TableScan) -> Batch:
@@ -1498,7 +1513,7 @@ class _TraceCtx:
         """All three steps (AggregationNode.java:346): SINGLE and PARTIAL
         accumulate raw rows (PARTIAL emits the accumulator columns);
         FINAL and INTERMEDIATE merge shipped accumulator columns."""
-        if node.step in ("single", "partial"):
+        if node.step in ("single", "partial") and self.allow_fusion:
             from ..ops import megakernel
 
             fused = megakernel.try_fused(self, node)
@@ -1582,6 +1597,17 @@ class _TraceCtx:
             host_src = (sorted_lanes, gid, sel_sorted)
         out = host_lanes(out_lanes(accs), *host_src, cap)
         return self._finish_aggregate(node, keys_out, out, present, cap)
+
+    def _fused_partials(self, scan: P.TableScan, run):
+        """The fused megakernel's (term, group) sums over the scan's batch
+        (`run` launches it) and the batch; the mesh merges the shards'."""
+        b = self.visit(scan)
+        return run(b), b
+
+    def _build_once(self, node, kind: str, build):
+        """A join's lookup source; a mesh shard shares a replicated build
+        side's with the other shards of its device."""
+        return build()
 
     def _finish_aggregate(self, node, keys_out, out, present, cap):
         """Shared aggregate tail (unfused and megakernel paths): merge
@@ -1720,11 +1746,13 @@ class _TraceCtx:
             # gather (the direct_probe kernel) probes; a violation or
             # duplicate count retries on the sorted unique kernel
             lo, hi = node.direct_domain
-            dsrc = join_ops.build_direct(bkey, right.sel, lo, hi - lo + 1)
+            dsrc = self._build_once(node, "direct", lambda: join_ops.build_direct(
+                bkey, right.sel, lo, hi - lo + 1))
             self.dup_checks.append((node, dsrc.violations))
             row, matched = join_ops.probe_direct(dsrc, pkey, left.sel)
         else:
-            src = join_ops.build_unique(bkey, right.sel)
+            src = self._build_once(node, "unique",
+                                   lambda: join_ops.build_unique(bkey, right.sel))
             self.dup_checks.append((node, src.dup_count))
             row, matched = join_ops.probe(src, pkey, left.sel)
         if need_verify:
@@ -1767,7 +1795,8 @@ class _TraceCtx:
         ) or join_ops.needs_verification(lkeys)
         bkey = join_ops.composite_key(rkeys, right.sel, need_verify)
         pkey = join_ops.composite_key(lkeys, left.sel, need_verify)
-        src = join_ops.build_multi(bkey, right.sel)
+        src = self._build_once(node, "multi",
+                               lambda: join_ops.build_multi(bkey, right.sel))
         counts, lo = join_ops.probe_counts(src, pkey, left.sel)
         if node.kind not in ("inner", "left"):
             raise ExecutionError(
@@ -1872,7 +1901,8 @@ class _TraceCtx:
             or join_ops.needs_verification(fkeys)
         ):
             return self._semi_hit_expanded(node, src, filt)
-        build = join_ops.build_multi(fkeys[0], filt.sel)
+        build = self._build_once(node, "multi",
+                                 lambda: join_ops.build_multi(fkeys[0], filt.sel))
         counts, _ = join_ops.probe_counts(build, skeys[0], src.sel)
         return counts > 0
 
@@ -1913,7 +1943,8 @@ class _TraceCtx:
         ) or join_ops.needs_verification(skeys)
         bkey = join_ops.composite_key(fkeys, filt.sel, need_verify)
         pkey = join_ops.composite_key(skeys, src.sel, need_verify)
-        build = join_ops.build_multi(bkey, filt.sel)
+        build = self._build_once(node, "multi-expanded",
+                                 lambda: join_ops.build_multi(bkey, filt.sel))
         counts, lo = join_ops.probe_counts(build, pkey, src.sel)
         n_src = src.sel.shape[0]
         capacity = self.ex._device_get(lambda: int(counts.sum()), "semi join capacity",

@@ -65,6 +65,7 @@ BINARY_MOMENT_KINDS = (
     "covar_pop", "covar_samp", "corr", "regr_slope", "regr_intercept",
 )
 BITWISE_KINDS = ("bitwise_and_agg", "bitwise_or_agg", "bitwise_xor_agg")
+SKETCHED_KINDS = ("approx_distinct", "approx_percentile")
 NON_DECOMPOSABLE = ("array_agg", "map_agg", "listagg")
 HOST_STAGED_KINDS = ("array_agg", "map_agg", "listagg")
 TWO_ARG_KINDS = ("min_by", "max_by") + BINARY_MOMENT_KINDS
@@ -173,6 +174,32 @@ class AggSpec:
         if self.kind in ("count", "count_star", "count_if"):
             return [f"{o}$count"]
         raise _not_in_slice(f"aggregate {self.kind}")
+
+    def psum_kind(self, name: str) -> Optional[str]:
+        """How the mesh merges this accumulator across shards with one
+        collective: 'sum' | 'min' | 'max', or None when no collective can
+        (the mesh then gathers the partial states and merges them)."""
+        if self.kind in ("min", "max") and name.endswith("$val"):
+            from . import wide_decimal as wd
+
+            if wd.is_wide_type(self.output_type):
+                # per-limb min/max is not the 128-bit min/max
+                return None
+            return self.kind
+        if self.kind == "bool_and" and name.endswith("$val"):
+            return "min"
+        if self.kind == "bool_or" and name.endswith("$val"):
+            return "max"
+        if self.kind in ("arbitrary", "min_by", "max_by") or (
+            self.kind in BITWISE_KINDS
+        ):
+            if not (name.endswith("$valid") or name.endswith("$has")
+                    or name.endswith("$count")):
+                return None
+        if self.kind in SKETCHED_KINDS:
+            # packed registers and sample slots merge by unpacking
+            return None
+        return "sum"
 
 
 def direct_group_ids(

@@ -1,15 +1,39 @@
-"""Row gathers over column lanes.
+"""Filter + project over column lanes, and row gathers.
 
-Counterpart of trino_tpu/ops/filter_project.py; filters and projections
-themselves run in exec/local.py's visitors (masks stay with the batch).
+Counterpart of trino_tpu/ops/filter_project.py.  The executor's visitors
+(exec/local.py) filter and project node by node; compile_filter_project
+is the fused form over one batch: the filter narrows the selection mask
+(no compaction: the mask stays with the batch) and the projections are
+lowered expressions.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..expr.lower import Lane
+from ..expr import ir
+from ..expr.lower import Lane, LoweringContext, compile_expr
+
+Batch = Tuple[Dict[str, Lane], torch.Tensor]  # (columns, selection mask)
+
+
+def compile_filter_project(
+    filter_expr: Optional[ir.Expr],
+    projections: List[Tuple[str, ir.Expr]],
+    ctx: Optional[LoweringContext] = None,
+) -> Callable[[Dict[str, Lane], torch.Tensor], Batch]:
+    """Compile to a function (cols, sel) -> (out_cols, sel')."""
+    fil = compile_expr(filter_expr, ctx) if filter_expr is not None else None
+    projs = [(name, compile_expr(e, ctx)) for name, e in projections]
+
+    def apply(cols: Dict[str, Lane], sel: torch.Tensor) -> Batch:
+        if fil is not None:
+            v, ok = fil(cols)
+            sel = sel & v & ok
+        return {name: p(cols) for name, p in projs}, sel
+
+    return apply
 
 
 def permute_lanes(

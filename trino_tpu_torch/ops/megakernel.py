@@ -517,19 +517,21 @@ def _run(ctx, node: P.Aggregate):
     # the kernel reads the int64/int32 lanes, their validity lanes and
     # the selection as the scan holds them (narrowing and the validity
     # AND happen in the kernel, as the reference's runner does them)
-    b = ctx.visit(scan)
-    cols, valids = [], []
-    for nm in names:
-        v, ok = b.lanes[nm]
-        if v.dim() != 1 or v.is_floating_point() or v.dtype == torch.bool:
-            raise Reject(f"column {nm} lane is not a narrow integer")
-        if v.dtype not in (torch.int32, torch.int64):
-            v = v.to(torch.int32)  # 8/16-bit lanes widen exactly
-        cols.append(v)
-        valids.append(ok)
+    def launch(b):
+        cols, valids = [], []
+        for nm in names:
+            v, ok = b.lanes[nm]
+            if v.dim() != 1 or v.is_floating_point() or v.dtype == torch.bool:
+                raise Reject(f"column {nm} lane is not a narrow integer")
+            if v.dtype not in (torch.int32, torch.int64):
+                v = v.to(torch.int32)  # 8/16-bit lanes widen exactly
+            cols.append(v)
+            valids.append(ok)
+        return pk.fused_agg_sums(cols, valids, b.sel, comp, cap)
 
+    # a mesh launches it on every shard's split and sums their partials
+    sums, b = ctx._fused_partials(scan, launch)
     n_terms = len(terms)
-    sums = pk.fused_agg_sums(cols, valids, b.sel, comp, cap)
     cnt = sums[0]
 
     specs = [a.to_spec() for a in node.aggs]

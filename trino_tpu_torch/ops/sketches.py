@@ -110,6 +110,18 @@ def _unpack(lanes, n: int) -> torch.Tensor:
     return ((words[:, :, None] >> shifts) & 0xFF).reshape(n, HLL_M)
 
 
+def hll_pmax_merge(shard_lanes, cap: int, device) -> Dict[int, torch.Tensor]:
+    """The mesh's HLL union across shards: each shard's packed lanes
+    unpacked to [cap, HLL_M] registers, the register-wise max taken
+    across shards (a pmax collective), repacked on `device`.  A max of
+    the packed words would compare each word's 8 registers
+    lexicographically, not register by register."""
+    from ..parallel import collectives
+
+    _guard_cap(cap, HLL_M)
+    return _pack(collectives.pmax([_unpack(l, cap) for l in shard_lanes], device))
+
+
 def hll_merge(
     lanes, sel: torch.Tensor, gid: torch.Tensor, cap: int
 ) -> Dict[int, torch.Tensor]:

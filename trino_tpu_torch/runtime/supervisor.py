@@ -689,6 +689,9 @@ class _Scope:
         self.query_id = query_id
         self.task_id = task_id
         self.reserved = reserved
+        # the supervisor's id of the device the launches go to (a mesh
+        # sets it to each shard's id in turn)
+        self.device_id = 0
 
     def crumb(self, kernel: str, mode: str, shapes: dict) -> Breadcrumb:
         return Breadcrumb(kernel, query_id=self.query_id, task_id=self.task_id,
@@ -738,7 +741,8 @@ def launch(kernel: str, thunk: Callable, shapes: dict):
     if scope is None:
         return thunk()
     return scope.sup.dispatch(
-        thunk, scope.crumb(kernel, "launch", shape_summary(shapes)))
+        thunk, scope.crumb(kernel, "launch", shape_summary(shapes)),
+        device_id=scope.device_id)
 
 
 # default supervisor for bare executors (no session wiring)

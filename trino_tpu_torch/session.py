@@ -39,7 +39,9 @@ parse -> analyze/plan -> optimize -> execute (exec/local.LocalExecutor)
   - access control (security.py): the statement's identity must be
     allowed to run queries, and its plan's scans and writes are checked
     before any scan loads or any kernel launches.
-Not in this slice: the distributed executors and the server.
+With `distributed = true` a query runs over a mesh of logical shards
+(parallel/mesh_executor.py).  Not in this slice: the server and its
+cross-host executors.
 
 Sessions run on the CUDA card unless created with device="cpu"; without
 a card and without that request, creating one raises.
@@ -264,6 +266,7 @@ class Session:
             "device": self.device,
             "device_supervisor": sup,
             "distributed": bool(props.get("distributed")),
+            "broadcast_join_threshold_rows": props.get("broadcast_join_threshold_rows"),
             "megakernels": props.get("megakernels"),
             "device_generation": props.get("device_generation"),
             "scan_cache": (
@@ -287,6 +290,13 @@ class Session:
             "bandwidth_ledger": bool(props.get("bandwidth_ledger")),
         }
         config.update(overrides)
+        if config["distributed"]:
+            # one shard on each of num_devices logical devices (0: one a
+            # visible card; one on the CPU)
+            from .parallel.mesh_executor import MeshExecutor, default_mesh
+
+            mesh = default_mesh(props.get("num_devices") or None, self.device)
+            return MeshExecutor(self.catalogs, mesh, config)
         return LocalExecutor(self.catalogs, config)
 
     # ------------------------------------------------------------------
@@ -426,6 +436,16 @@ class Session:
                     plan, executor.node_stats,
                     blocked_memory_s=executor.blocked_memory_s),
             }
+            if getattr(executor, "mesh_tasks", None):
+                # a mesh run: one task a shard in the stage timeline, and
+                # the straggler detector scores the shards as it scores
+                # worker tasks
+                det = opstats.StragglerDetector(
+                    factor=float(self.properties.get("straggler_dispersion_factor")))
+                tl = opstats.timeline_from_tasks(executor.mesh_tasks, detector=det)
+                self.last_timeline["stages"] = tl["stages"]
+                if det.flags:
+                    self.last_timeline["stragglers"] = det.flags
         if rkey is not None:
             self.store_result(rkey, page)
         if isinstance(plan.source, P.TableWriter):
