@@ -84,6 +84,24 @@ Phases (any failure exits non-zero and prints no result line):
      first mesh step of Q6 shrinks the mesh to 7 shards (MESH_SHRINK
      journaled, the doctor's mesh_shrink after device_fault, every
      launch on the card, the same page) and the canary restores it;
+  7d. `server`: a coordinator and two in-process workers on the card
+     (each worker's device pool half the card), TPC-H SF10 through the
+     StatementClient: Q6 (fused_agg_sums on every worker's partial
+     fragment), Q1 with megakernels off, Q3 over broadcast and over
+     partitioned joins (the hash exchange over HTTP), a grouped
+     count(DISTINCT) and a selection of 250,000 rows paged under
+     client_page_rows, each cold once and warm twice: every page held
+     to the one-device page byte for byte and the client's JSON rows to
+     its protocol rows, the host split (planning, dispatch, the
+     workers' fragment_execute, blocked_exchange_s, partition and
+     serialize, deserialize), the exchange bytes, the launches summed
+     from the tasks' profiles, the peak device memory; then a
+     worker_main subprocess worker joins on the card (Q6 over three
+     workers, its own launches from its tasks), an in-process worker
+     stops and discovery drops it (Q6 over the rest), a seeded device
+     loss on the workers fails Q6 with DeviceFaultError in the client's
+     error (the workers QUARANTINED, then restored by the canary), and
+     no worker rebuilt the kernel libraries;
   8. TPC-DS SF3 (8.6 M store_sales rows; SF10 until the mesh phase
      needed the call's time), the TPC-H session freed
      first: the 22 statements of tests/test_tpcds.py, its null-FK
@@ -3136,6 +3154,346 @@ def phase_mesh(dev, do_profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 7d: the server path: a coordinator and workers on the card, TPC-H
+# SF10 through the statement protocol's client
+
+
+SERVER_WORKERS = 2           # in-process workers (each gets half the card's pool)
+SERVER_WARM = 2              # warm runs of each statement after the cold one
+SERVER_SELECT_SQL = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, "
+                     "o_orderdate from orders where o_orderkey < 1000000 "
+                     "order by o_orderkey")
+SERVER_SELECT_MIN_ROWS = 200_000
+# statement -> (SQL key or text, session properties, kernels its tasks must
+# launch at least this often a run, summed over the workers' tasks)
+SERVER_STATEMENTS = {
+    "Q6": ("Q6", {"megakernels": "auto"}, {"fused_agg_sums": SERVER_WORKERS}),
+    "Q1": ("Q1", {"megakernels": "off"},
+           {"grouped_count": SERVER_WORKERS, "grouped_sum_i64": SERVER_WORKERS}),
+    "Q3": ("Q3", {"megakernels": "auto", "join_distribution_type": "broadcast"},
+           {"direct_probe": SERVER_WORKERS}),
+    "Q3-PART": ("Q3", {"megakernels": "auto", "join_distribution_type": "partitioned"},
+                {"direct_probe": SERVER_WORKERS}),
+    "DISTINCT": (MESH_DISTINCT_SQL, {}, {}),
+    "SELECT": (SERVER_SELECT_SQL, {}, {}),
+}
+SERVER_DEFAULTS = {"megakernels": "auto", "join_distribution_type": "automatic"}
+
+
+def _server_reference_pages(qs):
+    """Each statement's page on one device: the main path's pages where
+    that phase ran, the rest in its session (or in a session of its own
+    with --phase server)."""
+    from trino_tpu_torch.session import tpch_session
+
+    s = MAIN.get("session") or _card_session(tpch_session, MAIN_SF)
+    done = MAIN.get("pages", {})
+    pages = {}
+    for label, (sql, props, _k) in SERVER_STATEMENTS.items():
+        mode = props.get("megakernels", "auto")
+        base = "Q3" if label == "Q3-PART" else label
+        if (base, mode) in done:
+            pages[label] = done[(base, mode)]
+            continue
+        _set_session(s, {**SERVER_DEFAULTS, **props})
+        pages[label] = s.execute(qs.get(sql, sql))
+    _set_session(s, SERVER_DEFAULTS)
+    return pages
+
+
+def _last_query(co):
+    return max(co.queries.values(), key=lambda q: q.created)
+
+
+def _server_run(runner, sql, want_page):
+    """One statement through the client: its wall on the client's clock,
+    the coordinator's query (its page held exactly to the one-device page,
+    the client's JSON rows to that page's protocol rows) and the host
+    split and launches of its tasks."""
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.server import protocol
+
+    co = runner.coordinator.coordinator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _cols, rows = runner.execute(sql)
+    wall = time.perf_counter() - t0
+    q = _last_query(co)
+    if q.state != "FINISHED" or q.sql != sql:
+        raise AssertionError(f"server: {q.state} {q.error} for {sql[:60]}")
+    convert.assert_pages_identical(want_page, q.page)
+    if rows != json.loads(json.dumps(protocol.data_json(want_page))):
+        raise AssertionError(f"server: the client's rows differ from the one-device "
+                             f"page's protocol rows: {sql[:60]}")
+    tasks = q.task_stats
+    launches = dict.fromkeys(KERNEL_FNS, 0)
+    for t in tasks:
+        for k, n in (t.get("kernelLaunches") or {}).items():
+            launches[k] += n
+        prof = t.get("kernelProfile") or {}
+        if prof.get("outOfCore") or prof.get("forcedStreaming"):
+            raise AssertionError(f"server: task {t['taskId']} left the in-memory "
+                                 f"path ({prof.get('outOfCore')})")
+    tm = q.sched_timings
+    split = {
+        "planS": q.plan_s,
+        "scheduleS": tm.get("scheduleS", 0.0),
+        "fragmentExecuteS": sum(t.get("wallMillis", 0) for t in tasks) / 1e3,
+        "blockedExchangeS": sum(t.get("blockedExchangeS", 0.0) for t in tasks),
+        "serializeS": sum(t.get("serializeS", 0.0) + t.get("partitionS", 0.0)
+                          for t in tasks),
+        "deserializeS": sum(t.get("deserializeS", 0.0) for t in tasks)
+        + tm.get("rootDeserializeS", 0.0),
+        "rootFetchS": tm.get("rootFetchS", 0.0),
+        "exchangeBytes": sum(t.get("exchangeBytes", 0) for t in tasks)
+        + tm.get("rootBytes", 0),
+    }
+    return wall, rows, tasks, launches, split
+
+
+def _fmt_split(sp):
+    return (f"plan {sp['planS'] * 1e3:.1f} ms, schedule {sp['scheduleS'] * 1e3:.1f} ms, "
+            f"fragment_execute {sp['fragmentExecuteS'] * 1e3:.1f} ms (summed over "
+            f"tasks), blocked_exchange_s {sp['blockedExchangeS'] * 1e3:.1f} ms, "
+            f"partition+serialize {sp['serializeS'] * 1e3:.1f} ms, deserialize "
+            f"{sp['deserializeS'] * 1e3:.1f} ms, root fetch {sp['rootFetchS'] * 1e3:.1f} "
+            f"ms; exchange bytes {sp['exchangeBytes']}")
+
+
+def phase_server(dev):
+    """The server path at SF10: a coordinator and SERVER_WORKERS in-process
+    workers on the card, every statement through the StatementClient cold
+    once and warm SERVER_WARM times, each page held to the one-device
+    page; then a worker_main subprocess worker joins (Q6 over three
+    workers), and an in-process worker stops and discovery drops it (Q6
+    over the rest)."""
+    import gc
+
+    from trino_tpu_torch.memory import detect_device_bytes
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    qs = _tpch_sql()
+    t_ref = time.perf_counter()
+    want = _server_reference_pages(qs)
+    _log(f"[server] one-device reference pages in {time.perf_counter() - t_ref:.1f} s")
+    _serialize_device_page(want["SELECT"], dev)
+    libs = {f: os.path.getmtime(os.path.join(kn.build_dir(), f))
+            for f in os.listdir(kn.build_dir()) if f.endswith(".so")}
+    card = detect_device_bytes(device=dev)
+    t0 = time.perf_counter()
+    runner = DistributedQueryRunner(
+        workers=SERVER_WORKERS,
+        catalogs=(("tpch", "tpch", {"tpch.scale-factor": MAIN_SF}),),
+        # every task stays in memory within its worker's share of the card;
+        # repeats must run, not come from the result cache
+        properties={"result_cache": False,
+                    "query_max_memory_bytes": card // SERVER_WORKERS},
+        startup_timeout=60.0, device=dev,
+    )
+    _log(f"[server] coordinator and {SERVER_WORKERS} workers up in "
+         f"{time.perf_counter() - t0:.2f} s; each worker's device pool "
+         f"{runner.worker_device_bytes} bytes of the card's {card}")
+    try:
+        select_rows = None
+        kn.reset_counts()  # the server path starts here
+        per_task_launches = dict.fromkeys(KERNEL_FNS, 0)
+        for label, (sql, props, want_k) in SERVER_STATEMENTS.items():
+            for k, v in {**SERVER_DEFAULTS, **props}.items():
+                runner.execute(f"set session {k} = '{v}'")
+            text = qs.get(sql, sql)
+            cold, _rows, _tasks, cold_launch, cold_split = _server_run(
+                runner, text, want[label])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls, per_run = [], dict.fromkeys(KERNEL_FNS, 0)
+            for _ in range(SERVER_WARM):
+                wall, rows, tasks, launches, split = _server_run(
+                    runner, text, want[label])
+                walls.append(wall)
+                for k, n in launches.items():
+                    per_run[k] += n
+            peak = torch.cuda.max_memory_allocated()
+            for k, n in cold_launch.items():
+                per_task_launches[k] += n
+            for k, n in per_run.items():
+                per_task_launches[k] += n
+            for name, per in want_k.items():
+                if per_run[name] < per * SERVER_WARM:
+                    raise AssertionError(f"server {label}: {name} launched "
+                                         f"{per_run[name]} times in {SERVER_WARM} runs' "
+                                         f"tasks, want >= {per} a run")
+            if label == "SELECT":
+                select_rows = len(rows)
+                if select_rows < SERVER_SELECT_MIN_ROWS:
+                    raise AssertionError(f"the selection returned {select_rows} rows")
+            _log(f"[server] {label}: cold {cold:.3f} s ({_fmt_split(cold_split)}); "
+                 f"warm median {statistics.median(walls) * 1e3:.3f} ms (all: "
+                 f"{', '.join(f'{x * 1e3:.3f}' for x in walls)}) on the client's clock; "
+                 f"last warm run: {len(tasks)} tasks, {_fmt_split(split)}; launches "
+                 f"over {SERVER_WARM} warm runs' tasks {per_run}; peak device memory "
+                 f"{peak / 2**30:.2f} GiB; {len(rows)} rows, page equal to the "
+                 f"one-device page, client rows equal to its protocol rows")
+        launches = dict(kn.LAUNCHES)  # ... and ends here (in-process workers)
+        for name in KERNEL_FNS:
+            if launches[name] == 0 or per_task_launches[name] == 0:
+                raise AssertionError(f"{name} never launched on the server path "
+                                     f"({launches}, tasks {per_task_launches})")
+        MAIN["server_launches"] = launches
+        _log(f"[server] server path launches in this process: {launches}; summed "
+             f"over the tasks' profiles: {per_task_launches}; the selection paged "
+             f"{select_rows} rows under client_page_rows 10000")
+        _server_changes(runner, qs, want["Q6"], card)
+        for w in runner.workers:
+            if w.supervisor.device_state() != "ACTIVE" or w.supervisor.faults():
+                raise AssertionError(f"worker {w.node_id}: {w.supervisor.snapshot()}")
+        _server_fault(runner, qs, want["Q6"])
+    finally:
+        runner.stop()
+    now = {f: os.path.getmtime(os.path.join(kn.build_dir(), f)) for f in libs}
+    if now != libs:
+        raise AssertionError(f"a worker rebuilt the kernel libraries: {libs} -> {now}")
+    _log(f"[server] the subprocess worker loaded the {len(libs)} built libraries "
+         f"(none rebuilt)")
+    del runner
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _serialize_device_page(host, dev):
+    """A page whose lanes lie on the card serializes to the host page's
+    frame with one device-to-host copy (every lane packed first)."""
+    from trino_tpu_torch.page import Column, Page
+    from trino_tpu_torch.serde import serialize_page
+
+    def lane(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    page = Page([Column(c.type, lane(c.values), lane(c.validity), c.dictionary)
+                 for c in host.columns], host.count, host.names)
+    copies = []
+    real = torch.Tensor.cpu
+
+    def counted(self, *a, **k):
+        copies.append(self.numel() * self.element_size())
+        return real(self, *a, **k)
+
+    torch.cuda.synchronize()
+    torch.Tensor.cpu = counted
+    try:
+        t0 = time.perf_counter()
+        frame = serialize_page(page)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.Tensor.cpu = real
+    if frame != serialize_page(host) or len(copies) != 1:
+        raise AssertionError(f"serialize_page of a device page: {len(copies)} copies, "
+                             f"frame equal {frame == serialize_page(host)}")
+    _log(f"[server] serialize_page of a {host.count}-row device page: one "
+         f"device-to-host copy of {copies[0]} bytes, {len(frame)}-byte frame equal to "
+         f"the host page's, {wall * 1e3:.1f} ms")
+
+
+def _worker_info(uri):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{uri}/v1/info", timeout=5.0) as r:
+        return json.loads(r.read())
+
+
+def _server_fault(runner, qs, want_q6):
+    """A seeded device_loss at each worker's first fused launch: Q6 fails
+    with DeviceFaultError in the client's error (no worker re-runs it on
+    the CPU) and the faulted workers announce QUARANTINED; the spec spent,
+    each worker's announce loop runs the canary, every worker returns to
+    ACTIVE in discovery's view and Q6 answers the one-device page again."""
+    from trino_tpu_torch.client.client import ClientError
+
+    nm = runner.coordinator.coordinator.node_manager
+    uris = [w.uri for w in runner.workers] + [e[2] for e in runner.subprocess_workers]
+    spec = json.dumps({"device_loss": {"nth": 1, "match": "fused_agg_sums"}})
+    runner.execute("set session device_probe_backoff_s = 0.5")
+    runner.execute(f"set session fault_injection = '{spec}'")
+    t0 = time.perf_counter()
+    try:
+        runner.execute(qs["Q6"])
+    except ClientError as e:
+        err = str(e)
+    else:
+        raise AssertionError("Q6 under a seeded device loss on the workers answered")
+    failed = time.perf_counter() - t0
+    if "DeviceFaultError" not in err:
+        raise AssertionError(f"Q6's error names no DeviceFaultError: {err[:300]}")
+    states = {u: _worker_info(u)["state"] for u in uris}
+    out = [u for u, st in states.items() if st == "QUARANTINED"]
+    if not out:
+        raise AssertionError(f"no worker quarantined after the loss: {states}")
+    runner.execute("set session fault_injection = ''")
+    t1 = time.perf_counter()
+    deadline = time.time() + 30.0
+    while time.time() < deadline and not (
+            all(_worker_info(u)["state"] == "ACTIVE" for u in uris)
+            and all((nm.device_states().get(n) or {}).get("state", "ACTIVE") == "ACTIVE"
+                    for n, _u in nm.alive())):
+        time.sleep(0.1)
+    back = {u: _worker_info(u)["state"] for u in uris}
+    if any(st != "ACTIVE" for st in back.values()):
+        raise AssertionError(f"the canary did not restore the workers: {back}")
+    recovered = time.perf_counter() - t1
+    wall, _rows, tasks, launches, _split = _server_run(runner, qs["Q6"], want_q6)
+    _log(f"[server] fault: device_loss at each worker's first fused launch -> Q6 failed "
+         f"in {failed:.3f} s with DeviceFaultError in the client's error; "
+         f"{len(out)} of {len(uris)} workers QUARANTINED; the canary restored them in "
+         f"{recovered:.2f} s; Q6 over {len({t['uri'] for t in tasks})} workers "
+         f"{wall * 1e3:.3f} ms, launches {launches}, page equal to the one-device page")
+    runner.execute("set session device_probe_backoff_s = 1.0")
+
+
+def _server_changes(runner, qs, want_q6, card):
+    """A worker_main subprocess worker joins on the card (Q6 over three
+    workers, its tasks' launches counted from their profiles); then an
+    in-process worker stops, discovery drops it, and Q6 runs over the
+    rest."""
+    co = runner.coordinator.coordinator
+    nm = co.node_manager
+    t0 = time.perf_counter()
+    _proc, node_id, uri = runner.add_subprocess_worker(
+        startup_timeout=120.0, device_memory_bytes=card // (SERVER_WORKERS + 1))
+    _log(f"[server] subprocess worker {node_id} announced in "
+         f"{time.perf_counter() - t0:.1f} s")
+    runner.execute("set session megakernels = 'auto'")
+    for run in ("cold", "warm"):
+        wall, _rows, tasks, launches, split = _server_run(runner, qs["Q6"], want_q6)
+        on = {}
+        for t in tasks:
+            on.setdefault(t["uri"], {})
+            for k, n in (t.get("kernelLaunches") or {}).items():
+                on[t["uri"]][k] = on[t["uri"]].get(k, 0) + n
+        if len(on) != SERVER_WORKERS + 1 or not on[uri].get("fused_agg_sums"):
+            raise AssertionError(f"Q6 over three workers: launches by worker {on}")
+        _log(f"[server] Q6 over {len(on)} workers ({run}): {wall * 1e3:.3f} ms; the "
+             f"subprocess worker's tasks launched {on[uri]}; {_fmt_split(split)}; "
+             f"page equal to the one-device page")
+    gone = runner.workers[0]
+    t0 = time.perf_counter()
+    runner.kill_worker(0)
+    deadline = time.time() + 60.0
+    while time.time() < deadline and any(n == gone.node_id for n, _ in nm.alive()):
+        time.sleep(0.05)
+    if any(n == gone.node_id for n, _ in nm.alive()):
+        raise AssertionError("discovery never dropped the stopped worker")
+    dropped = time.perf_counter() - t0
+    wall, _rows, tasks, launches, split = _server_run(runner, qs["Q6"], want_q6)
+    uris = {t["uri"] for t in tasks}
+    if gone.uri in uris or len(uris) != SERVER_WORKERS:
+        raise AssertionError(f"Q6 after the drop ran on {uris}")
+    _log(f"[server] worker {gone.node_id} stopped; discovery dropped it after "
+         f"{dropped:.2f} s; Q6 over the other {len(uris)} workers: {wall * 1e3:.3f} ms, "
+         f"launches {launches}, page equal to the one-device page")
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the TPC-DS path at SF3 (GROUPING SETS, the aggregate families,
 # the function library, the surrogate-key star joins)
 
@@ -4451,7 +4809,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "gen", "session", "main", "ext", "ooc",
-                             "ds", "faults", "lake", "obs", "mesh"],
+                             "ds", "faults", "lake", "obs", "mesh", "server"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 on-device generator against the host "
                          "generator, only the build and the SF1 session "
@@ -4465,8 +4823,10 @@ def main(argv=None) -> int:
                          "fault path (seeded faults, supervisor, canary, watchdog), "
                          "only the build and the lakehouse/hive path, or only the build "
                          "and the observatories (history, doctor, compile observatory and "
-                         "cache, system catalog, access control), or only the build and the "
-                         "mesh (distributed = true over 8 shards on the card)")
+                         "cache, system catalog, access control), only the build and the "
+                         "mesh (distributed = true over 8 shards on the card), or only the "
+                         "build and the server path (a coordinator and workers on the card, "
+                         "through the statement client)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
@@ -4510,6 +4870,8 @@ def main(argv=None) -> int:
         phases.append(("obs", lambda: phase_obs(dev)))
     elif args.phase == "mesh":
         phases.append(("mesh", lambda: phase_mesh(dev, args.profile)))
+    elif args.phase == "server":
+        phases.append(("server", lambda: phase_server(dev)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -4522,6 +4884,7 @@ def main(argv=None) -> int:
             ("ext", lambda: phase_ext(dev, args.profile)),
             ("timing", lambda: phase_timing(dev)),
             ("mesh", lambda: phase_mesh(dev, args.profile)),
+            ("server", lambda: phase_server(dev)),
             ("ooc", lambda: phase_ooc(dev, args.profile)),
             ("ds", lambda: phase_ds(dev, args.profile)),
             ("faults", lambda: phase_faults(dev)),
@@ -4552,9 +4915,10 @@ def main(argv=None) -> int:
         return 1
     print(smi)
     if "kernels" in MAIN:
-        # the mesh path's launches of each kernel beside the main path's
+        # the mesh and server paths' launches of each kernel beside the main path's
         for row in MAIN["kernels"]:
             row["mesh_launches"] = MAIN.get("mesh_launches", {}).get(row["name"])
+            row["server_launches"] = MAIN.get("server_launches", {}).get(row["name"])
         print(json.dumps({"kernels": MAIN["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

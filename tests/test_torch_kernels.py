@@ -11,6 +11,8 @@ the closure is built by interpreting the same program over jnp tiles.
 The straight-line encoding that the CUDA kernel runs is held against the
 postfix programs by a test-only evaluator of its own.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -617,3 +619,77 @@ def test_kernels_match_plain_on_the_card():
                 got = kn.direct_probe(*args)
                 want = kn.direct_probe_plain(*args)
                 assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_concurrent_first_use_builds_and_loads_once(monkeypatch, tmp_path):
+    """Eight threads of one process (a worker's tasks, two in-process
+    workers on one card) ask for the same kernel's library together: one
+    build runs and the library is loaded once; every thread gets that
+    handle."""
+    import ctypes
+    import threading
+    import time
+
+    builds, loads = [], []
+
+    def build(verbose=False):
+        builds.append(threading.get_ident())
+        time.sleep(0.05)  # a build takes a while: the others arrive meanwhile
+        return {}
+
+    class Lib:
+        def __init__(self, path):
+            loads.append(path)
+            for fn in ("grouped_count_launch",):
+                setattr(self, fn, type("Fn", (), {})())
+
+    monkeypatch.setattr(kn, "build", build)
+    monkeypatch.setattr(ctypes, "CDLL", Lib)
+    monkeypatch.setattr(kn, "_LIBS", {})
+    kn.set_build_dir(str(tmp_path))
+    try:
+        start = threading.Barrier(8)
+        got = []
+
+        def ask():
+            start.wait()
+            got.append(kn._lib("grouped_count"))
+
+        threads = [threading.Thread(target=ask) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        kn.set_build_dir(None)
+    assert len(builds) == 1 and len(loads) == 1
+    assert len(got) == 8 and all(g is got[0] for g in got)
+
+
+def test_build_names_its_temporary_library_per_thread(monkeypatch, tmp_path):
+    """Two threads of one process building at once would write the same
+    `lib*.so.<pid>.tmp`: the name carries the thread too."""
+    import subprocess
+    import threading
+
+    seen = []
+
+    class Proc:
+        returncode = 1
+
+        def __init__(self, cmd, **kw):
+            seen.append(cmd[cmd.index("-o") + 1])
+
+        def communicate(self):
+            return "stop here", None
+
+    monkeypatch.setattr(subprocess, "Popen", Proc)
+    monkeypatch.setattr(kn, "_nvcc", lambda: "nvcc")
+    kn.set_build_dir(str(tmp_path))
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            kn.build()
+    finally:
+        kn.set_build_dir(None)
+    assert seen and all(
+        p.endswith(f".{os.getpid()}.{threading.get_ident()}.tmp") for p in seen)

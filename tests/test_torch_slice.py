@@ -223,7 +223,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'trino_tpu_torch.obs.compile_observatory', 'trino_tpu_torch.cache.compile_cache',"
         " 'trino_tpu_torch.security', 'trino_tpu_torch.connectors.system',"
         " 'trino_tpu_torch.parallel', 'trino_tpu_torch.parallel.collectives',"
-        " 'trino_tpu_torch.parallel.shuffle', 'trino_tpu_torch.parallel.mesh_executor'}\n"
+        " 'trino_tpu_torch.parallel.shuffle', 'trino_tpu_torch.parallel.mesh_executor',"
+        " 'trino_tpu_torch.server', 'trino_tpu_torch.server.coordinator',"
+        " 'trino_tpu_torch.server.worker', 'trino_tpu_torch.server.scheduler',"
+        " 'trino_tpu_torch.server.discovery', 'trino_tpu_torch.server.protocol',"
+        " 'trino_tpu_torch.server.resource_groups', 'trino_tpu_torch.server.webui',"
+        " 'trino_tpu_torch.server.coordinator_main', 'trino_tpu_torch.server.worker_main',"
+        " 'trino_tpu_torch.client', 'trino_tpu_torch.client.client',"
+        " 'trino_tpu_torch.client.dbapi', 'trino_tpu_torch.distributed',"
+        " 'trino_tpu_torch.distributed.topology', 'trino_tpu_torch.testing',"
+        " 'trino_tpu_torch.testing.runner', 'trino_tpu_torch.cli',"
+        " 'trino_tpu_torch.exec.exchange_client', 'trino_tpu_torch.memory.admission',"
+        " 'trino_tpu_torch.memory.cluster', 'trino_tpu_torch.memory.killer'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )

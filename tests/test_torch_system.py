@@ -154,11 +154,15 @@ def test_session_properties_rows_match_jax(pair):
     assert set(port) <= {r[0] for r in js.execute(sql).to_pylist()}
     # each session has a history directory of its own
     assert port.pop("query_history_dir")[1] == jax.pop("query_history_dir")[1] == ""
-    assert len(port) == 41 and port == jax
+    assert len(port) == 50 and port == jax
     for name in ("query_history_max_bytes", "query_doctor",
                  "compile_cache", "compile_cache_dir", "compile_prewarm",
                  "compile_observatory_dir", "compile_census_max_families",
-                 "straggler_dispersion_factor"):
+                 "straggler_dispersion_factor", "client_page_rows",
+                 "resource_group_queue_deadline_s", "memory_admission_timeout_s",
+                 "low_memory_killer_policy", "query_max_total_memory_bytes",
+                 "exchange_retry_attempts", "exchange_retry_budget_s",
+                 "dynamic_filtering", "node_gone_grace_s"):
         assert name in port
 
 

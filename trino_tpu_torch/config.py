@@ -157,6 +157,32 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             int, 8 << 30,
         ),
         PropertyMetadata(
+            "query_max_total_memory_bytes",
+            "per-query reservation limit summed across every node and "
+            "pool (query.max-total-memory analog; 0 = unlimited)",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "low_memory_killer_policy",
+            "victim selection when a node is blocked on memory: none | "
+            "total-reservation | total-reservation-on-blocked-nodes",
+            str, "total-reservation-on-blocked-nodes",
+        ),
+        PropertyMetadata(
+            "memory_admission_timeout_s",
+            "seconds a query may wait in the memory admission queue "
+            "before failing with an exceeded-memory error",
+            float, 60.0,
+        ),
+        PropertyMetadata(
+            "resource_group_queue_deadline_s",
+            "default per-group queue deadline: queries queued longer "
+            "are shed with a retryable ADMISSION_TIMEOUT instead of "
+            "waiting forever (0 = queue forever); groups may override "
+            "via queueDeadlineS",
+            float, 0.0,
+        ),
+        PropertyMetadata(
             "memory_blocked_timeout_s",
             "seconds a blocked memory reservation waits for frees, "
             "revocation, or a killer verdict before raising",
@@ -168,11 +194,40 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             _bool, True,
         ),
         PropertyMetadata(
+            "dynamic_filtering",
+            "prune probe-side scans with build-side join domains",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "node_gone_grace_s",
+            "continuous heartbeat silence before a SUSPECT/DRAINING node "
+            "is declared GONE and its tasks reassigned "
+            "(failure-detector GC-pause tolerance, seconds)",
+            float, 10.0,
+        ),
+        PropertyMetadata(
+            "exchange_retry_attempts",
+            "transient exchange-fetch tries per failure streak before "
+            "the upstream worker is declared dead",
+            int, 3,
+        ),
+        PropertyMetadata(
+            "exchange_retry_budget_s",
+            "wall-clock budget for one exchange-fetch failure streak "
+            "(exchange.max-error-duration analog, seconds)",
+            float, 5.0,
+        ),
+        PropertyMetadata(
             "double_buffer_depth",
             "streaming tiles staged (host-decoded + H2D-uploaded) ahead "
             "of the executing tile; each staged tile holds its scan "
             "working set in device memory",
             int, 1,
+        ),
+        PropertyMetadata(
+            "client_page_rows",
+            "rows per protocol result page (client paging chunk)",
+            int, 10000,
         ),
         PropertyMetadata(
             "megakernels",

@@ -836,29 +836,34 @@ class TpchConnector(Connector):
         return TpchPageSourceProvider(self.sf)
 
     def device_generation(self, table: str, cols, splits) -> Optional[dict]:
-        """On-device generation spec for a contiguous split range, or None
-        when any requested column needs host formatting or the splits are
-        not contiguous (connectors/tpch_device.py, the in-process row
-        generation of TpchPageSourceProvider made on the device).  Its
-        dictionaries are the host path's vocabularies."""
+        """On-device generation spec for a set of splits, or None when any
+        requested column needs host formatting (connectors/tpch_device.py,
+        the in-process row generation of TpchPageSourceProvider made on
+        the device).  Splits that are not contiguous (a worker's
+        round-robin share) generate one range per contiguous run, in
+        split order: ``ranges`` is [(lo, hi, count)].  Its dictionaries
+        are the host path's vocabularies."""
         from . import tpch_device
 
         if not splits or not tpch_device.supports(table, cols):
             return None
         tot = splits[0].total
-        ords = sorted(s.ordinal for s in splits)
         if any(s.total != tot for s in splits):
             return None
-        if ords != list(range(ords[0], ords[-1] + 1)):
-            return None
+        ords = sorted(s.ordinal for s in splits)
+        runs = []
+        for o in ords:
+            if runs and runs[-1][1] == o:
+                runs[-1][1] = o + 1
+            else:
+                runs.append([o, o + 1])
         base = "orders" if table == "lineitem" else table
         nb = _counts(self.sf)[base]
-        lo = (nb * ords[0]) // tot
-        hi = (nb * (ords[-1] + 1)) // tot
-        if table == "lineitem":
-            count = tpch_device.lineitem_count(lo, hi)
-        else:
-            count = hi - lo
+        ranges = []
+        for a, b in runs:
+            lo, hi = (nb * a) // tot, (nb * b) // tot
+            n = tpch_device.lineitem_count(lo, hi) if table == "lineitem" else hi - lo
+            ranges.append((lo, hi, n))
         types = dict(SCHEMAS[table])
         dicts = {
             c: _VOCABS[c]
@@ -868,8 +873,9 @@ class TpchConnector(Connector):
         widths = {c: 4 if types[c].is_dictionary or types[c].name == "date"
                   else 8 for c in cols}
         return {
-            "table": table, "lo": lo, "hi": hi, "sf": self.sf,
-            "count": count, "dicts": dicts, "widths": widths,
+            "table": table, "ranges": ranges, "sf": self.sf,
+            "count": sum(n for _lo, _hi, n in ranges),
+            "dicts": dicts, "widths": widths,
         }
 
 

@@ -1062,10 +1062,21 @@ class LocalExecutor:
 
         cols = [sym_to_col.get(s, s) for s in syms]
         self._devgen_temp_bytes += int(spec["count"]) * 8 * DEVGEN_TEMP_LANES
-        lanes = tpch_device.device_lanes(
-            spec["table"], cols, int(spec["lo"]), int(spec["hi"]),
-            float(spec["sf"]), int(spec["count"]), self.device,
-        )
+        parts = [
+            tpch_device.device_lanes(
+                spec["table"], cols, int(lo), int(hi), float(spec["sf"]),
+                int(n), self.device,
+            )
+            for lo, hi, n in spec["ranges"]
+        ]
+        if len(parts) == 1:
+            lanes = parts[0]
+        else:  # the splits' contiguous runs, in split order
+            lanes = {
+                c: (torch.cat([p[c][0] for p in parts]),
+                    torch.cat([p[c][1] for p in parts]))
+                for c in cols
+            }
         return {s: lanes[c] for s, c in zip(syms, cols)}
 
     def _device_lanes(self, node: P.TableScan, arrays, count):

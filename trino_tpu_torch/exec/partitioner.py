@@ -1,8 +1,9 @@
 """Output page partitioning for the exchange (shuffle-write).
 
 Counterpart of trino_tpu/exec/partitioner.py (hash_rows, take_rows,
-partition_page, concat_pages and the SkewedPartitionRebalancer of the
-hive connector's scaled writer, copied; host-side numpy).  Reference parity:
+partition_page, partition_page_round_robin, chunk_page, concat_pages and
+the SkewedPartitionRebalancer of the hive connector's scaled writer,
+copied; host-side numpy).  Reference parity:
 operator/output/PagePartitioner.java:55 (partitionPage:134): rows of an
 output page are routed to one buffer per consumer by a hash of the
 partition keys.  Dictionary-coded varchar keys hash their string values,
@@ -92,6 +93,26 @@ def partition_page(page: Page, keys: Sequence[str], nparts: int) -> List[Page]:
         return [page]
     part = (hash_rows(page, keys) % np.uint64(nparts)).astype(np.int64)
     return [take_rows(page, np.nonzero(part == p)[0]) for p in range(nparts)]
+
+
+def partition_page_round_robin(page: Page, nparts: int) -> List[Page]:
+    """Split a page into nparts pages row-round-robin (RandomExchanger /
+    FIXED_ARBITRARY_DISTRIBUTION): balances load with no key affinity."""
+    if nparts == 1:
+        return [page]
+    idx = np.arange(page.count)
+    return [take_rows(page, idx[p::nparts]) for p in range(nparts)]
+
+
+def chunk_page(page: Page, rows_per_chunk: int = 65536) -> List[Page]:
+    """Split a page into bounded-size wire chunks (output buffer frames)."""
+    if page.count <= rows_per_chunk:
+        return [page]
+    out = []
+    for start in range(0, page.count, rows_per_chunk):
+        idx = np.arange(start, min(start + rows_per_chunk, page.count))
+        out.append(take_rows(page, idx))
+    return out
 
 
 def concat_pages(pages: List[Page]) -> Page:

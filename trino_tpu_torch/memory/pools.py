@@ -4,8 +4,9 @@ Counterpart of trino_tpu/memory/pools.py, with its seeded `oom` fault
 site (an injected oom behaves like a permanently-short pool) and the
 journal events of revocation and kills, the pool gauges and counters
 (utils/metrics.REGISTRY) and the snapshot that system.runtime.memory
-reads.  The low-memory killer (which calls `kill`), admission and the
-cluster view wait for the server slice.
+reads.  Its snapshot is also the heartbeat payload a worker announces to the
+coordinator's ClusterMemoryManager (memory/cluster.py), whose low-memory
+killer calls `kill`.
 
 Reference parity: memory/LocalMemoryManager.java (general + reserved
 pools carved from the node budget) and MemoryPool.java:44 blocked-future
@@ -319,9 +320,14 @@ class LocalMemoryManager:
         )
 
     # -- snapshots -----------------------------------------------------
+    def blocked_queries(self) -> Dict[str, int]:
+        with self._cond:
+            return dict(self._blocked)
+
     def snapshot(self) -> Dict[str, object]:
         """The pools, reservations and blocked queries of this node
-        (system.runtime.memory's rows)."""
+        (system.runtime.memory's rows; the heartbeat payload consumed by
+        the ClusterMemoryManager)."""
         with self._cond:
             blocked = dict(self._blocked)
             since = dict(self._blocked_since)

@@ -9,8 +9,9 @@ or EXPLAIN ANALYZE) become frames in EXPLAIN's print order, surfaced in
 EXPLAIN ANALYZE's "Operator timeline" and `Session.last_timeline`.  Task
 rollups merge into stage timelines (timeline_from_tasks: the mesh's one
 task a shard), and the straggler detector scores the tasks' wall
-dispersion.  The server's callers (the FTE hedge, node-death fan-out
-through mark_node_tasks_terminal) come with the server.
+dispersion.  The coordinator retires a dead node's tasks through
+mark_node_tasks_terminal; the FTE hedge, the detector's other server
+caller, comes with fault-tolerant execution.
 """
 from __future__ import annotations
 
@@ -227,6 +228,26 @@ def timeline_from_tasks(tasks: List[dict], detector=None) -> dict:
             dict(f, planNodeId=f"{stage_id}.{f.get('planNodeId')}") for f in frames
         ])
     return {"stages": out_stages, "operators": merge_frames(all_frames)}
+
+
+def mark_node_tasks_terminal(
+    stage_map: Dict, node_id: str
+) -> List[str]:
+    """Node-death fan-out for the live timeline: every rollup entry the
+    dead node reported is marked terminal so stage merges and the live
+    straggler detector stop treating its tasks as in-flight siblings —
+    a ghost task would otherwise hold the stage's wall dispersion open
+    forever.  Returns the retired task ids (caller holds the ingest
+    lock)."""
+    retired: List[str] = []
+    for entries in (stage_map or {}).values():
+        for entry in entries or ():
+            if entry.get("nodeId") != node_id or entry.get("terminal"):
+                continue
+            entry["terminal"] = True
+            entry["terminalReason"] = "NODE_GONE"
+            retired.append(str(entry.get("taskId") or ""))
+    return retired
 
 
 def format_timeline(

@@ -34,6 +34,7 @@ import dataclasses
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -528,6 +529,12 @@ def direct_probe_plain(
 
 # loaded libraries by path (the build directory can change: set_build_dir)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build and one load of a library a process: the threads of one
+# process (a worker's tasks, two in-process workers on one card) that
+# first touch a kernel together wait here for the first to finish
+_BUILD_LOCK = threading.RLock()
+# per-thread launch counts of the calling task (counting_launches)
+_TASK_COUNTS = threading.local()
 LAUNCHES: Dict[str, int] = {
     "fused_agg_sums": 0, "grouped_count": 0, "grouped_sum_i64": 0,
     "direct_probe": 0,
@@ -542,7 +549,26 @@ def _launched(name: str, n: int) -> None:
     """Count one launch of a kernel and its rows (a Python int: nothing
     reads the card) into the observatory's shape census."""
     LAUNCHES[name] += 1
+    counts = getattr(_TASK_COUNTS, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
     compile_observatory.get_observatory().observe_launch(name, n)
+
+
+class counting_launches:
+    """Count the launches the calling thread makes while open, apart
+    from the process-wide LAUNCHES (a worker's task: other tasks of the
+    process launch on their own threads at the same time).  ``counts``
+    is {wrapper name: launches}."""
+
+    def __enter__(self) -> Dict[str, int]:
+        self._prev = getattr(_TASK_COUNTS, "counts", None)
+        self.counts: Dict[str, int] = {}
+        _TASK_COUNTS.counts = self.counts
+        return self.counts
+
+    def __exit__(self, *exc) -> None:
+        _TASK_COUNTS.counts = self._prev
 
 
 def build_dir() -> str:
@@ -582,7 +608,13 @@ def build(verbose: bool = False) -> Dict[str, str]:
     library in the build directory, one nvcc per source, all started
     together.  Returns {name: ptxas report} for the sources compiled now.
     Each nvcc run is recorded as a first_compile, each library already
-    built by an earlier process as a persistent_load (once a process)."""
+    built by an earlier process as a persistent_load (once a process).
+    One thread of a process builds at a time."""
+    with _BUILD_LOCK:
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> Dict[str, str]:
     os.makedirs(build_dir(), exist_ok=True)
     nvcc = None
     procs = {}
@@ -596,7 +628,7 @@ def build(verbose: bool = False) -> Dict[str, str]:
                 _record_build(name, compile_observatory.PERSISTENT_LOAD, 0.0)
             continue
         nvcc = nvcc or _nvcc()
-        tmp = f"{out}.{os.getpid()}.tmp"
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -625,8 +657,16 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(path)
     if lib is not None:
         return lib
-    build()
-    lib = ctypes.CDLL(path)
+    with _BUILD_LOCK:
+        lib = _LIBS.get(path)
+        if lib is None:
+            build()
+            lib = _LIBS[path] = _bind(name, ctypes.CDLL(path))
+    return lib
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a library's launchers."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "fused_agg":
         lib.fused_agg_sums_launch.argtypes = [P, I, L, P, I, I, I, I, I, I, I, P, P]
@@ -642,7 +682,6 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.direct_probe_launch.restype = I
         lib.direct_probe_grid.argtypes = [I, ctypes.POINTER(I)]
         lib.direct_probe_grid.restype = I
-    _LIBS[path] = lib
     return lib
 
 

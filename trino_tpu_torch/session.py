@@ -360,6 +360,10 @@ class Session:
                          errorCode=code)
             self._finalize_doctor(query_id, created, error=e)
             raise
+        finally:
+            # export the completed spans on every completion path (a no-op
+            # without an attached OTLP exporter)
+            self.tracer.flush()
 
     def _finalize_doctor(self, query_id: str, created: float, error=None):
         """The doctor's pass at query finalize (`query_doctor`): the
@@ -891,10 +895,13 @@ class Session:
              "low_value": lows, "high_value": highs},
         )
 
-    def execute_analyze(self, stmt, identity: Optional[Identity] = None) -> Page:
+    def execute_analyze(self, stmt, identity: Optional[Identity] = None,
+                        execute_plan=None) -> Page:
         """ANALYZE <table> [(cols)]: collect, store and register (the
         system.runtime.table_stats row); cached plans were costed without
-        these statistics."""
+        these statistics.  The coordinator passes `execute_plan` to run
+        the synthesized aggregations through the distributed fragment
+        scheduler instead of the in-process executor."""
         from .utils.metrics import counter
 
         catalog, schema = self.metadata.resolve_table(stmt.table, self.default_catalog)
@@ -902,7 +909,8 @@ class Session:
             identity or self.identity, catalog, schema.name,
             list(stmt.columns) or [c.name for c in schema.columns])
         started = time.time()
-        stats = self.collect_statistics(catalog, schema, stmt.columns)
+        stats = self.collect_statistics(catalog, schema, stmt.columns,
+                                        execute_plan=execute_plan)
         version = self.metadata.store_table_statistics(catalog, schema.name, stats)
         self.analyzed_tables[(catalog, schema.name)] = {
             "catalog": catalog, "table": schema.name,
@@ -917,19 +925,22 @@ class Session:
         counter("trino_tpu_stats_analyze_total").inc()
         return _rows_page(int(stats.row_count))
 
-    def collect_statistics(self, catalog: str, schema, columns=()):
+    def collect_statistics(self, catalog: str, schema, columns=(),
+                           execute_plan=None):
         """Run the synthesized ANALYZE aggregations (ordinary SQL through
-        the planner and executor) and assemble a TableStatistics."""
+        the planner and executor, or `execute_plan`) and assemble a
+        TableStatistics."""
         from .stats import analyze_queries, assemble, column_tasks
 
         buckets = max(1, int(self.properties.get("analyze_histogram_buckets")))
         tasks = column_tasks(schema, columns)
         qualified = f"{catalog}.default.{schema.name}"
-        executor = self._executor()
+        if execute_plan is None:
+            execute_plan = self._executor().execute
         chunk_results = []
         with self.tracer.span("analyze_collect", table=qualified):
             for csql, chunk in analyze_queries(qualified, tasks, buckets):
-                page = executor.execute(self._plan_stmt(parse(csql)))
+                page = execute_plan(self._plan_stmt(parse(csql)))
                 row = [c.to_python(page.count)[0] if page.count else None
                        for c in page.columns]
                 chunk_results.append((chunk, row))

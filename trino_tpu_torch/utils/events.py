@@ -1,12 +1,13 @@
 """Query event listener SPI.
 
-Counterpart of trino_tpu/utils/events.py, the in-process part (the HTTP
-listener waits for the server).  Reference parity: spi/eventlistener/
-(EventListener, QueryCreatedEvent, QueryCompletedEvent) dispatched by
-eventlistener/EventListenerManager + event/QueryMonitor.  Listeners are
-plugged into the session; payloads carry the reference's core fields
-(query id, sql, state, timing, row counts, error), and cache operations
-arrive as CacheEvents.
+Counterpart of trino_tpu/utils/events.py.  Reference parity:
+spi/eventlistener/ (EventListener, QueryCreatedEvent, QueryCompletedEvent)
+dispatched by eventlistener/EventListenerManager + event/QueryMonitor.
+Listeners are plugged into the session and the coordinator; payloads
+carry the reference's core fields (query id, sql, state, timing, row
+counts, error), and cache operations arrive as CacheEvents.
+HttpEventListener posts query events to a remote collector
+(plugin/trino-http-event-listener analog).
 """
 from __future__ import annotations
 
@@ -31,6 +32,10 @@ class QueryCompletedEvent:
     end_time: float
     output_rows: int = 0
     error: Optional[str] = None
+
+    @property
+    def wall_ms(self) -> float:
+        return (self.end_time - self.create_time) * 1000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +91,99 @@ class EventListenerManager:
         ev = CacheEvent(tier, op, int(nbytes), time.time())
         for l in self.listeners:
             l.cache_event(ev)
+
+
+class HttpEventListener(EventListener):
+    """POSTs query events as JSON to a remote collector
+    (plugin/trino-http-event-listener analog).  Failures are swallowed:
+    eventing must never fail queries.
+
+    Posts flow through one background queue + worker thread, so a slow or
+    dead collector backs up into a bounded queue (events then drop) instead
+    of spawning an unbounded thread per event."""
+
+    QUEUE_MAX = 1024
+
+    def __init__(self, uri: str, timeout: float = 2.0):
+        import queue
+
+        self.uri = uri.rstrip("/")
+        self.timeout = timeout
+        self._queue: "queue.Queue[dict]" = queue.Queue(maxsize=self.QUEUE_MAX)
+        self._worker = None
+        self._worker_lock = __import__("threading").Lock()
+
+    def _ensure_worker(self):
+        import threading
+
+        with self._worker_lock:
+            if self._worker is None or not self._worker.is_alive():
+                self._worker = threading.Thread(
+                    target=self._drain, name="http-event-listener", daemon=True
+                )
+                self._worker.start()
+
+    def _drain(self):
+        while True:
+            doc = self._queue.get()
+            try:
+                self._send(doc)
+            finally:
+                self._queue.task_done()
+
+    def _send(self, doc: dict):
+        import json as _json
+        import urllib.request
+
+        from .metrics import REGISTRY
+
+        try:
+            req = urllib.request.Request(
+                self.uri,
+                data=_json.dumps(doc).encode(),
+                headers={"Content-Type": "application/json"},
+                method="POST",
+            )
+            with urllib.request.urlopen(req, timeout=self.timeout) as r:
+                r.read()
+            REGISTRY.counter(
+                "trino_tpu_event_posted_total", "Query events delivered to HTTP collectors"
+            ).inc()
+        except Exception:
+            REGISTRY.counter(
+                "trino_tpu_event_post_failed_total", "Query event deliveries that errored"
+            ).inc()
+
+    def _post(self, doc: dict):
+        import queue
+
+        from .metrics import REGISTRY
+
+        # fire-and-forget: eventing must not add latency to the query path
+        self._ensure_worker()
+        try:
+            self._queue.put_nowait(doc)
+        except queue.Full:
+            REGISTRY.counter(
+                "trino_tpu_event_dropped_total",
+                "Query events dropped because the listener queue was full",
+            ).inc()
+
+    def query_created(self, event: QueryCreatedEvent):
+        self._post({
+            "event": "QueryCreated",
+            "queryId": event.query_id,
+            "sql": event.sql,
+            "createTime": event.create_time,
+        })
+
+    def query_completed(self, event: QueryCompletedEvent):
+        self._post({
+            "event": "QueryCompleted",
+            "queryId": event.query_id,
+            "sql": event.sql,
+            "state": event.state,
+            "wallMillis": event.wall_ms,
+            "outputRows": event.output_rows,
+            "error": event.error,
+        })

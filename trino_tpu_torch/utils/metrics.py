@@ -14,8 +14,8 @@ family (e.g. ``trino_tpu_cache_op_total``) fans out into per-label
 series (``{tier="result",op="hit"}``).  The module-level ``REGISTRY`` is
 process-global.  Metric names must match ``trino_tpu_<subsystem>_<name>``
 and end in ``_total``, ``_bytes``, ``_seconds`` or ``_state``, enforced
-at registration.  The Prometheus text rendering (the HTTP ``/metrics``
-endpoint) waits for the server.
+at registration.  ``render_prometheus`` gives the Prometheus text
+exposition that the HTTP ``/metrics`` endpoints serve.
 """
 from __future__ import annotations
 
@@ -56,6 +56,10 @@ METRIC_NAME_RE = re.compile(
     % "|".join(METRIC_SUBSYSTEMS)
 )
 
+# Byte-volume buckets (64 KiB .. 16 GiB, x4 steps) for ``_bytes``
+# histograms such as the bandwidth ledger's per-dispatch byte volume.
+BYTES_BUCKETS = tuple(float(1 << s) for s in range(16, 35, 2))
+
 # Latency buckets in seconds; tuned for sub-millisecond kernels up to
 # multi-second distributed queries.
 DEFAULT_BUCKETS = (
@@ -90,6 +94,12 @@ def _format_labels(key: LabelKey, extra: str = "") -> str:
     return "{%s}" % ",".join(parts)
 
 
+def _fmt_value(v: float) -> str:
+    if isinstance(v, float) and v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
 class Counter:
     """Monotonic counter, optionally labelled."""
 
@@ -119,6 +129,13 @@ class Counter:
     def series(self) -> List[Tuple[LabelKey, float]]:
         with self._lock:
             return sorted(self._values.items())
+
+    def render(self) -> List[str]:
+        lines = ["# HELP %s %s" % (self.name, self.help), "# TYPE %s counter" % self.name]
+        series = self.series() or [((), 0.0)]
+        for key, v in series:
+            lines.append("%s%s %s" % (self.name, _format_labels(key), _fmt_value(v)))
+        return lines
 
 
 class Gauge:
@@ -151,6 +168,13 @@ class Gauge:
     def series(self) -> List[Tuple[LabelKey, float]]:
         with self._lock:
             return sorted(self._values.items())
+
+    def render(self) -> List[str]:
+        lines = ["# HELP %s %s" % (self.name, self.help), "# TYPE %s gauge" % self.name]
+        series = self.series() or [((), 0.0)]
+        for key, v in series:
+            lines.append("%s%s %s" % (self.name, _format_labels(key), _fmt_value(v)))
+        return lines
 
 
 class Histogram:
@@ -224,6 +248,26 @@ class Histogram:
                 for key in sorted(self._counts)
             ]
 
+    def render(self) -> List[str]:
+        lines = ["# HELP %s %s" % (self.name, self.help), "# TYPE %s histogram" % self.name]
+        series = self.series()
+        if not series:
+            series = [((), [0] * (len(self.buckets) + 1), 0.0, 0)]
+        for key, counts, total_sum, total in series:
+            cum = 0
+            for i, b in enumerate(self.buckets):
+                cum += counts[i]
+                lines.append(
+                    "%s_bucket%s %d"
+                    % (self.name, _format_labels(key, 'le="%s"' % _fmt_value(b)), cum)
+                )
+            lines.append(
+                "%s_bucket%s %d" % (self.name, _format_labels(key, 'le="+Inf"'), total)
+            )
+            lines.append("%s_sum%s %s" % (self.name, _format_labels(key), _fmt_value(total_sum)))
+            lines.append("%s_count%s %d" % (self.name, _format_labels(key), total))
+        return lines
+
 
 class MetricsRegistry:
     """Get-or-create home for all instruments in the process."""
@@ -275,6 +319,25 @@ class MetricsRegistry:
         with self._lock:
             return [self._metrics[n] for n in sorted(self._metrics)]
 
+    def render_prometheus(self) -> str:
+        lines: List[str] = []
+        for m in self.metrics():
+            lines.extend(m.render())
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> Dict[str, float]:
+        """Flat ``name{labels} -> value`` map for bench artifacts."""
+        out: Dict[str, float] = {}
+        for m in self.metrics():
+            if isinstance(m, (Counter, Gauge)):
+                for key, v in m.series():
+                    out[m.name + _format_labels(key)] = v
+            elif isinstance(m, Histogram):
+                for key, _counts, total_sum, total in m.series():
+                    out[m.name + "_count" + _format_labels(key)] = total
+                    out[m.name + "_sum" + _format_labels(key)] = total_sum
+        return out
+
     def rows(self) -> Dict[str, List]:
         """Column-oriented rows for the ``system.runtime.metrics`` table."""
         names: List[str] = []
@@ -314,6 +377,10 @@ class MetricsRegistry:
             "p99": p99s,
         }
 
+    def reset(self) -> None:
+        """Drop all instruments (test isolation only)."""
+        with self._lock:
+            self._metrics.clear()
 
 
 REGISTRY = MetricsRegistry()
@@ -330,3 +397,6 @@ def gauge(name: str, help: str = "") -> Gauge:
 def histogram(name: str, help: str = "", buckets: Optional[Sequence[float]] = None) -> Histogram:
     return REGISTRY.histogram(name, help, buckets)
 
+
+def render_prometheus() -> str:
+    return REGISTRY.render_prometheus()
