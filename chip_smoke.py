@@ -102,6 +102,33 @@ Phases (any failure exits non-zero and prints no result line):
      loss on the workers fails Q6 with DeviceFaultError in the client's
      error (the workers QUARANTINED, then restored by the canary), and
      no worker rebuilt the kernel libraries;
+  7e. `fte`: fault-tolerant execution on the card at TPC-H SF10: a
+     coordinator and two in-process workers (each half the card) under
+     retry_policy = task, Q6 (fused on each worker's partial fragment),
+     Q1 with megakernels off, Q3 over partitioned joins (its hash
+     exchange through the spool) and a grouped count(DISTINCT) through
+     the StatementClient, each cold once and warm twice with every stage
+     output spooled to disk: pages held to the one-device pages byte for
+     byte, the spool bytes written and read, the seconds of spool_write,
+     spool_read and deserialize beside the same statements' `server`
+     numbers, the launches summed from the tasks' profiles, the peak
+     device memory; one instrumented run of each, then
+     system.runtime.plan_signatures over SQL (a row a signature, device
+     wall above 0); seeded faults, each giving the one-device page: a
+     device_loss on worker 0 during Q6 (its task fails with
+     DeviceFaultError and re-runs on worker 1; worker 0 QUARANTINED,
+     then ACTIVE after the canary), a corrupt spool frame (the CRC
+     fails, the producer re-runs), a stalled task (the speculative
+     backup wins, a hedge flag), and retry_policy = query with a worker
+     stopped mid-Q3 (retryCount >= 1); a subprocess coordinator with a
+     recovery WAL and two subprocess workers on the card killed (-9
+     semantics, the seeded coordinator_death site) mid-Q3 and restarted
+     on its port: the client rides the 503 window, the resumed Q3's
+     rows are the one-device page's and the WAL shows no committed task
+     re-run; the autoscaler over Q6 at SF1 (AUTOSCALE_SF: the control
+     loop is the subject, not the scan): a backlog scales out one
+     worker_main subprocess on the card, thinner load scales it in, no
+     query fails; no process rebuilt a kernel library;
   8. TPC-DS SF3 (8.6 M store_sales rows; SF10 until the mesh phase
      needed the call's time), the TPC-H session freed
      first: the 22 statements of tests/test_tpcds.py, its null-FK
@@ -125,7 +152,8 @@ Phases (any failure exits non-zero and prints no result line):
      blacklists the device and execute refuses (the port has no CPU
      re-run: a fault fails the query);
  10. `lake`: a lakehouse table made by CTAS of lineitem's eight Q1/Q6/Q3
-     columns at SF10 (60 M rows, 3.12 GB of .npz), an INSERT of one
+     columns at SF3 (18 M rows; SF10, 60 M rows and 3.12 GB of .npz,
+     until the `fte` phase needed the call's time), an INSERT of one
      orderkey range and a DELETE of another, then ANALYZE of Q1's and
      Q6's columns; Q6 FOR VERSION AS OF each snapshot, Q1 at the last
      (megakernels auto, so ANALYZE's decimal bounds reach the fused
@@ -3205,6 +3233,16 @@ def _last_query(co):
     return max(co.queries.values(), key=lambda q: q.created)
 
 
+def _built_libraries():
+    """Each kernel library in the build directory, by name, with its
+    modification time: a library rebuilt or newly built under another
+    name changes it."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    return {f: os.path.getmtime(os.path.join(kn.build_dir(), f))
+            for f in os.listdir(kn.build_dir()) if f.endswith(".so")}
+
+
 def _server_run(runner, sql, want_page):
     """One statement through the client: its wall on the client's clock,
     the coordinator's query (its page held exactly to the one-device page,
@@ -3278,8 +3316,7 @@ def phase_server(dev):
     want = _server_reference_pages(qs)
     _log(f"[server] one-device reference pages in {time.perf_counter() - t_ref:.1f} s")
     _serialize_device_page(want["SELECT"], dev)
-    libs = {f: os.path.getmtime(os.path.join(kn.build_dir(), f))
-            for f in os.listdir(kn.build_dir()) if f.endswith(".so")}
+    libs = _built_libraries()
     card = detect_device_bytes(device=dev)
     t0 = time.perf_counter()
     runner = DistributedQueryRunner(
@@ -3314,6 +3351,8 @@ def phase_server(dev):
                 for k, n in launches.items():
                     per_run[k] += n
             peak = torch.cuda.max_memory_allocated()
+            MAIN.setdefault("server_splits", {})[label] = split
+            MAIN.setdefault("server_walls", {})[label] = statistics.median(walls)
             for k, n in cold_launch.items():
                 per_task_launches[k] += n
             for k, n in per_run.items():
@@ -3350,7 +3389,7 @@ def phase_server(dev):
         _server_fault(runner, qs, want["Q6"])
     finally:
         runner.stop()
-    now = {f: os.path.getmtime(os.path.join(kn.build_dir(), f)) for f in libs}
+    now = _built_libraries()
     if now != libs:
         raise AssertionError(f"a worker rebuilt the kernel libraries: {libs} -> {now}")
     _log(f"[server] the subprocess worker loaded the {len(libs)} built libraries "
@@ -3491,6 +3530,583 @@ def _server_changes(runner, qs, want_q6, card):
     _log(f"[server] worker {gone.node_id} stopped; discovery dropped it after "
          f"{dropped:.2f} s; Q6 over the other {len(uris)} workers: {wall * 1e3:.3f} ms, "
          f"launches {launches}, page equal to the one-device page")
+
+
+# ---------------------------------------------------------------------------
+# phase 7e: fault-tolerant execution on the card: retry_policy = task over
+# the spooled exchange, seeded faults, whole-query retries, a coordinator
+# killed with -9 and resumed, the autoscaler, the serving observatory
+
+
+# statement -> (SERVER_STATEMENTS key, kernels its tasks must launch at
+# least this often a run, summed over the workers' tasks)
+FTE_STATEMENTS = {
+    "Q6": ("Q6", {"fused_agg_sums": SERVER_WORKERS}),
+    "Q1": ("Q1", {"grouped_count": SERVER_WORKERS, "grouped_sum_i64": SERVER_WORKERS}),
+    "Q3-PART": ("Q3-PART", {"direct_probe": SERVER_WORKERS}),
+    "DISTINCT": ("DISTINCT", {}),
+}
+FTE_STALL_S = 5.0            # the seeded straggler's sleep
+AUTOSCALE_SF = 1.0           # the autoscaler's Q6 (its subject is the control loop)
+AUTOSCALE_CLIENTS = 6        # closed-loop sessions while the backlog builds
+
+
+def _fte_spool(q):
+    """A finished FTE query's spool traffic from its tasks' stats and the
+    root read: bytes written and read, and the seconds of the spool
+    write, the spool read (file read and decode) and the decode alone."""
+    tasks, tm = q.task_stats, q.sched_timings
+    return {
+        "writeBytes": sum(t.get("spoolWriteBytes", 0) for t in tasks),
+        "readBytes": sum(t.get("spoolReadBytes", 0) for t in tasks)
+        + tm.get("rootBytes", 0),
+        "writeS": sum(t.get("spoolWriteS", 0.0) for t in tasks),
+        "readS": sum(t.get("spoolReadS", 0.0) for t in tasks) + tm.get("rootFetchS", 0.0),
+        "deserializeS": sum(t.get("deserializeS", 0.0) for t in tasks)
+        + tm.get("rootDeserializeS", 0.0),
+    }
+
+
+def _fmt_spool(sp, server):
+    out = (f"spool written {sp['writeBytes']} bytes in {sp['writeS'] * 1e3:.1f} ms "
+           f"(spool_write), read {sp['readBytes']} bytes in {sp['readS'] * 1e3:.1f} ms "
+           f"(spool_read), deserialize {sp['deserializeS'] * 1e3:.1f} ms")
+    if server is None:
+        return out + "; server: not measured in this call"
+    return (out + f"; server (HTTP): exchange bytes {server['exchangeBytes']}, "
+            f"partition+serialize {server['serializeS'] * 1e3:.1f} ms, deserialize "
+            f"{server['deserializeS'] * 1e3:.1f} ms")
+
+
+def _journal_events(kind, query_id):
+    from trino_tpu_torch.obs import journal
+
+    return [e for e in journal.get_journal().tail()
+            if e["eventType"] == kind and e.get("queryId") == query_id]
+
+
+def phase_fte(dev, profile=False):
+    """Fault-tolerant execution at SF10: a coordinator and SERVER_WORKERS
+    in-process workers on the card under retry_policy = task, each
+    statement cold once and warm twice through the StatementClient with
+    its stage outputs spooled to disk, pages held to the one-device
+    pages; then seeded faults (a device loss, a corrupt spool, a
+    straggler), retry_policy = query with a worker stopped mid-Q3, a
+    subprocess coordinator killed with -9 mid-Q3 and resumed, the
+    autoscaler and the signature census over SQL.  With ``profile``, a
+    breakdown of Q3 partitioned's spool read (_fte_spool_breakdown)."""
+    import gc
+
+    from trino_tpu_torch.memory import detect_device_bytes
+    from trino_tpu_torch.ops import kernels as kn
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    qs = _tpch_sql()
+    t_ref = time.perf_counter()
+    want = _server_reference_pages(qs)
+    _log(f"[fte] one-device reference pages in {time.perf_counter() - t_ref:.1f} s")
+    libs = _built_libraries()
+    card = detect_device_bytes(device=dev)
+    t0 = time.perf_counter()
+    runner = DistributedQueryRunner(
+        workers=SERVER_WORKERS,
+        catalogs=(("tpch", "tpch", {"tpch.scale-factor": MAIN_SF}),),
+        properties={"result_cache": False, "retry_policy": "task",
+                    "query_max_memory_bytes": card // SERVER_WORKERS},
+        startup_timeout=60.0, device=dev,
+    )
+    _log(f"[fte] coordinator and {SERVER_WORKERS} workers up in "
+         f"{time.perf_counter() - t0:.2f} s under retry_policy = task; each worker's "
+         f"device pool {runner.worker_device_bytes} bytes of the card's {card}")
+    co = runner.coordinator.coordinator
+    signatures = {}
+    try:
+        kn.reset_counts()  # the fte path starts here
+        per_task = dict.fromkeys(KERNEL_FNS, 0)
+        for label, (key, want_k) in FTE_STATEMENTS.items():
+            sql, props, _k = SERVER_STATEMENTS[key]
+            for k, v in {**SERVER_DEFAULTS, **props}.items():
+                runner.execute(f"set session {k} = '{v}'")
+            text = qs.get(sql, sql)
+            cold, _rows, _tasks, cold_launch, _split = _server_run(runner, text, want[key])
+            cold_spool = _fte_spool(_last_query(co))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls, per_run = [], dict.fromkeys(KERNEL_FNS, 0)
+            for _ in range(SERVER_WARM):
+                wall, rows, tasks, launches, split = _server_run(runner, text, want[key])
+                walls.append(wall)
+                for k, n in launches.items():
+                    per_run[k] += n
+            peak = torch.cuda.max_memory_allocated()
+            q = _last_query(co)
+            signatures[label] = q.plan_signature
+            spool = _fte_spool(q)
+            for k in KERNEL_FNS:
+                per_task[k] += cold_launch[k] + per_run[k]
+            for name, per in want_k.items():
+                if per_run[name] < per * SERVER_WARM:
+                    raise AssertionError(f"fte {label}: {name} launched {per_run[name]} "
+                                         f"times in {SERVER_WARM} runs' tasks")
+            if not spool["writeBytes"] or not spool["readBytes"]:
+                raise AssertionError(f"fte {label}: no spool traffic {spool}")
+            server = MAIN.get("server_splits", {}).get(key)
+            server_wall = MAIN.get("server_walls", {}).get(key)
+            _log(f"[fte] {label}: cold {cold:.3f} s (spool written "
+                 f"{cold_spool['writeBytes']} bytes); warm median "
+                 f"{statistics.median(walls) * 1e3:.3f} ms (all: "
+                 f"{', '.join(f'{x * 1e3:.3f}' for x in walls)}; server warm median "
+                 + ("not measured in this call" if server_wall is None
+                    else f"{server_wall * 1e3:.3f} ms")
+                 + f") on the client's clock; last warm run: {len(tasks)} tasks, "
+                 f"{_fmt_split(split)}; {_fmt_spool(spool, server)}; launches over "
+                 f"{SERVER_WARM} warm runs' tasks {per_run}; peak device memory "
+                 f"{peak / 2**30:.2f} GiB; {len(rows)} rows, page equal to the "
+                 f"one-device page")
+        launches = dict(kn.LAUNCHES)
+        for name in KERNEL_FNS:
+            if launches[name] == 0 or per_task[name] == 0:
+                raise AssertionError(f"{name} never launched under FTE ({launches}, "
+                                     f"tasks {per_task})")
+        MAIN["fte_launches"] = launches
+        _log(f"[fte] FTE path launches in this process: {launches}; summed over the "
+             f"tasks' profiles: {per_task}")
+        if profile:
+            _fte_spool_breakdown(runner, qs, want)
+        _fte_census(runner, qs, want, signatures)
+        _fte_faults(runner, qs, want)
+    finally:
+        runner.stop()
+        del runner
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    _fte_recovery(dev, qs, want["Q3"], card)
+    _fte_autoscaler(dev, qs, card)
+    now = _built_libraries()
+    if now != libs:
+        raise AssertionError(f"a worker rebuilt the kernel libraries: {libs} -> {now}")
+    _log(f"[fte] no process rebuilt the {len(libs)} kernel libraries (no nvcc run)")
+
+
+def _spool_files(base, query_id):
+    """The buffer files of a query's committed spool attempts, with the
+    buffer id (the consumer task) each one feeds."""
+    out = []
+    for d, _dirs, names in os.walk(os.path.join(base, query_id)):
+        if "_COMMIT" in names:
+            out += [(os.path.join(d, f), int(f[len("buffer_"):-len(".bin")]))
+                    for f in sorted(names) if f.startswith("buffer_")]
+    return out
+
+
+def _fte_spool_breakdown(runner, qs, want):
+    """Where Q3 partitioned's spool read goes (--profile): one warm run
+    whose spool tree is kept, then its committed buffer files read back
+    in this process.  First by one thread, split into the file read, the
+    copy of each frame out of the file's bytes (what the reader paid
+    before it decoded from a view of them), and each frame's CRC, zstd
+    decompression and column decode; then by pools of 2 to 64 threads over
+    all the files, as the consumers' exchange clients read them together
+    at the stage barrier, summing each frame's decode wall as the tasks'
+    stats do."""
+    import struct
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from trino_tpu_torch import serde
+    from trino_tpu_torch.exchange import filesystem as fs
+
+    kept = []
+    cleanup = fs.FileSystemExchangeManager.cleanup_query
+    fs.FileSystemExchangeManager.cleanup_query = lambda self, qid: kept.append((self, qid))
+    try:
+        sql, props, _k = SERVER_STATEMENTS["Q3-PART"]
+        for k, v in {**SERVER_DEFAULTS, **props}.items():
+            runner.execute(f"set session {k} = '{v}'")
+        wall, _rows, tasks, _launch, _split = _server_run(runner, qs.get(sql, sql),
+                                                          want["Q3-PART"])
+        q = _last_query(runner.coordinator.coordinator)
+        spool = _fte_spool(q)
+    finally:
+        fs.FileSystemExchangeManager.cleanup_query = cleanup
+    try:
+        files = [f for mgr, qid in kept for f in _spool_files(mgr.base, qid)]
+        consumers = len({b for _p, b in files})
+        read_s = copy_s = crc_s = zstd_s = decode_s = 0.0
+        nbytes = nframes = 0
+        t_all = time.perf_counter()
+        for path, _b in files:
+            t = time.perf_counter()
+            with open(path, "rb") as f:
+                data = f.read()
+            read_s += time.perf_counter() - t
+            mv = memoryview(data)
+            (n,) = struct.unpack_from("<I", mv, 0)
+            off = 4
+            for _ in range(n):
+                (ln,) = struct.unpack_from("<I", mv, off)
+                off += 4
+                fr = mv[off:off + ln]
+                t = time.perf_counter()
+                bytes(fr)
+                copy_s += time.perf_counter() - t
+                _n, markers, usize, csize = serde._HEADER_FIELDS.unpack_from(fr, 4)
+                body = fr[serde.HEADER_V2:serde.HEADER_V2 + csize]
+                t = time.perf_counter()
+                zlib.crc32(body)
+                crc_s += time.perf_counter() - t
+                if markers & serde.MARKER_COMPRESSED:
+                    t = time.perf_counter()
+                    serde._decompressor().decompress(body, max_output_size=usize)
+                    zstd_s += time.perf_counter() - t
+                t = time.perf_counter()
+                serde.deserialize_page(fr)
+                decode_s += time.perf_counter() - t
+                off += ln
+                nbytes += ln
+                nframes += 1
+        serial_s = time.perf_counter() - t_all
+        _log(f"[fte] spool breakdown, Q3 partitioned (one warm run {wall:.3f} s, "
+             f"{len(tasks)} tasks; its tasks' spool_read {spool['readS'] * 1e3:.1f} ms, "
+             f"deserialize {spool['deserializeS'] * 1e3:.1f} ms summed): {len(files)} "
+             f"committed buffer files for {consumers} consumer buffers, {nframes} frames, "
+             f"{nbytes} bytes; read back by one thread in {serial_s * 1e3:.1f} ms: file "
+             f"read {read_s * 1e3:.1f} ms, a copy of every frame {copy_s * 1e3:.1f} ms, "
+             f"CRC {crc_s * 1e3:.1f} ms, zstd {zstd_s * 1e3:.1f} ms, deserialize_page "
+             f"(CRC, zstd and the column decode) {decode_s * 1e3:.1f} ms; "
+             f"{len(os.sched_getaffinity(0))} host cores")
+        for threads in (2, 4, 8, 16, 32, 64):
+            stats = []
+
+            def read(path):
+                st = {"bytes": 0, "deserializeS": 0.0}
+                stats.append(st)
+                t = time.perf_counter()
+                fs.read_spool_pages(path, stats=st)
+                st["readS"] = time.perf_counter() - t
+
+            t = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=threads) as pool:
+                list(pool.map(read, [p for p, _b in files]))
+            elapsed = time.perf_counter() - t
+            _log(f"[fte] spool breakdown, {threads} threads over the {len(files)} files: "
+                 f"{elapsed * 1e3:.1f} ms elapsed; summed over the reads: spool_read "
+                 f"{sum(st['readS'] for st in stats) * 1e3:.1f} ms, deserialize "
+                 f"{sum(st['deserializeS'] for st in stats) * 1e3:.1f} ms")
+    finally:
+        for mgr, qid in kept:
+            cleanup(mgr, qid)
+
+
+def _fte_census(runner, qs, want, signatures):
+    """One instrumented warm run of each statement (operator_stats: the
+    frames carry device walls), then system.runtime.plan_signatures over
+    SQL: one row for each of the phase's signatures, device_wall_s > 0."""
+    runner.execute("set session operator_stats = true")
+    try:
+        for label, (key, _k) in FTE_STATEMENTS.items():
+            sql, props, _k2 = SERVER_STATEMENTS[key]
+            for k, v in {**SERVER_DEFAULTS, **props}.items():
+                runner.execute(f"set session {k} = '{v}'")
+            _server_run(runner, qs.get(sql, sql), want[key])
+    finally:
+        runner.execute("set session operator_stats = false")
+    _cols, rows = runner.execute(
+        "select signature, count, device_wall_s, host_wall_s, p50_s "
+        "from system.runtime.plan_signatures")
+    by_sig = {r[0]: r for r in rows}
+    for label, sig in signatures.items():
+        r = by_sig.get(sig)
+        if r is None or not r[2] > 0:
+            raise AssertionError(f"plan_signatures: {label} ({sig}) -> {r}; rows {rows}")
+    _log("[fte] system.runtime.plan_signatures: " + "; ".join(
+        f"{label} count {by_sig[sig][1]}, device_wall_s {by_sig[sig][2]:.4f}, "
+        f"host_wall_s {by_sig[sig][3]:.4f}, p50 {by_sig[sig][4]:.3f} s"
+        for label, sig in signatures.items()))
+
+
+def _fte_faults(runner, qs, want):
+    """Seeded faults under retry_policy = task, each giving the one-device
+    page: (a) a device loss on worker 0 during Q6 fails its task with
+    DeviceFaultError and the task re-runs on worker 1 (worker 0 reads
+    QUARANTINED, then ACTIVE after the canary); (b) a corrupt spool frame
+    fails the consumer's CRC and the producer re-runs; (c) a straggler
+    is out-raced by a speculative backup (a hedge flag); (d) under
+    retry_policy = query a worker stopped mid-Q3 costs a whole-query
+    retry."""
+    import threading
+    import urllib.request
+
+    from trino_tpu_torch.client.client import StatementClient
+    from trino_tpu_torch.obs import journal
+    from trino_tpu_torch.server import protocol
+    from trino_tpu_torch.utils.faults import FaultInjector
+
+    co = runner.coordinator.coordinator
+    for k, v in SERVER_DEFAULTS.items():
+        runner.execute(f"set session {k} = '{v}'")
+    # (a) device loss on worker 0's card at its first fused launch
+    bad, good = runner.workers[0], runner.workers[1]
+    runner.execute("set session device_probe_backoff_s = 30.0")
+    bad.supervisor.fault_injector = FaultInjector(
+        {"device_loss": {"nth": 1, "match": "fused_agg_sums"}})
+    wall, _rows, tasks, launches, _split = _server_run(runner, qs["Q6"], want["Q6"])
+    q = _last_query(co)
+    moved = [e for e in _journal_events(journal.FTE_REASSIGN, q.query_id)
+             if e["detail"].get("excludedUri") == bad.uri]
+    lost = [e for e in journal.get_journal().tail()
+            if e["eventType"] == journal.DEVICE_QUARANTINE and e.get("nodeId") == bad.node_id]
+    state = _worker_info(bad.uri)["state"]
+    if not moved or not lost or state != "QUARANTINED":
+        raise AssertionError(f"device loss: reassigned {moved}, quarantine {lost}, "
+                             f"worker 0 {state}")
+    if journal.CPU_FALLBACK in {e["eventType"] for e in journal.get_journal().tail()}:
+        raise AssertionError("a task re-ran on the CPU")
+    bad.supervisor.fault_injector = None
+    runner.execute("set session device_probe_backoff_s = 1.0")
+    t1 = time.perf_counter()
+    with bad.supervisor._lock:
+        for d in bad.supervisor._devices.values():
+            d.next_probe = 0.0
+    deadline = time.time() + 30.0
+    while time.time() < deadline and _worker_info(bad.uri)["state"] != "ACTIVE":
+        time.sleep(0.05)
+    if _worker_info(bad.uri)["state"] != "ACTIVE":
+        raise AssertionError("the canary did not restore worker 0")
+    _log(f"[fte] (a) device_loss on worker 0's first fused launch: Q6 {wall * 1e3:.1f} ms, "
+         f"{len(moved)} task(s) failed with DeviceFaultError and re-ran on worker 1 "
+         f"({sum(t['uri'] == good.uri for t in tasks)} of {len(tasks)} winning tasks "
+         f"there), launches {launches}; worker 0 QUARANTINED, ACTIVE after the canary "
+         f"in {time.perf_counter() - t1:.2f} s; page equal to the one-device page")
+    # (b) a bit flipped in the first spooled frame after serialization
+    runner.execute("set session fault_injection = "
+                   "'{\"seed\": 5, \"spool_write_corrupt\": {\"nth\": 1}}'")
+    wall, _rows, _tasks, _l, _split = _server_run(runner, qs["Q6"], want["Q6"])
+    q = _last_query(co)
+    runner.execute("set session fault_injection = ''")
+    heals = _journal_events(journal.SPOOL_HEAL, q.query_id)
+    if not heals:
+        raise AssertionError("spool_write_corrupt: no heal journaled")
+    _log(f"[fte] (b) spool_write_corrupt: the consumer's CRC check failed, "
+         f"{len(heals)} spool attempt(s) decommitted and their producers re-ran "
+         f"({heals[0]['detail'].get('corruptPath')}); Q6 {wall * 1e3:.1f} ms, page equal")
+    # (c) fragment 1's task 0 sleeps FTE_STALL_S before it runs
+    spec = json.dumps({"task_stall": {"stall_s": FTE_STALL_S, "match": ".1.0.0",
+                                      "times": 1}})
+    runner.execute(f"set session fault_injection = '{spec}'")
+    wall, _rows, _tasks, _l, _split = _server_run(runner, qs["Q6"], want["Q6"])
+    q = _last_query(co)
+    runner.execute("set session fault_injection = ''")
+    hedges = [f for f in q.straggler_flags if f.get("action") == "hedge"]
+    if not hedges or wall >= FTE_STALL_S:
+        raise AssertionError(f"task_stall: hedges {q.straggler_flags}, wall {wall:.2f} s")
+    _log(f"[fte] (c) task_stall of {FTE_STALL_S} s: the speculative backup won, hedge "
+         f"flag {hedges[0]['task']} after {hedges[0]['elapsedS']:.2f} s; Q6 "
+         f"{wall * 1e3:.1f} ms, page equal")
+    # (d) retry_policy = query, a worker stopped while Q3 runs
+    runner.execute("set session retry_policy = 'query'")
+    runner.execute("set session query_retry_attempts = 4")
+    runner.execute("set session join_distribution_type = 'broadcast'")
+    out = {}
+
+    def go():
+        try:
+            out["rows"] = StatementClient(runner.coordinator.uri).execute(qs["Q3"])[1]
+        except Exception as e:  # noqa: BLE001 — reported below
+            out["error"] = e
+
+    t2 = time.perf_counter()
+    th = threading.Thread(target=go)
+    th.start()
+    victim = runner.workers[-1]
+    deadline = time.time() + 60.0
+    while time.time() < deadline and not any(
+            t.state == "RUNNING" for t in list(victim.task_manager.tasks.values())):
+        time.sleep(0.01)
+    runner.kill_worker(-1)
+    th.join(300.0)
+    if "error" in out or th.is_alive():
+        raise AssertionError(f"retry_policy = query: {out.get('error')}")
+    if out["rows"] != json.loads(json.dumps(protocol.data_json(want["Q3"]))):
+        raise AssertionError("retry_policy = query: Q3's rows differ")
+    q = max((q for q in co.queries.values() if q.sql == qs["Q3"]),
+            key=lambda q: q.created)
+    with urllib.request.urlopen(f"{runner.coordinator.uri}/v1/query/{q.query_id}",
+                                timeout=5.0) as r:
+        doc = json.loads(r.read())
+    if doc["retryCount"] < 1:
+        raise AssertionError(f"retry_policy = query: retryCount {doc['retryCount']}")
+    _log(f"[fte] (d) retry_policy = query: worker {victim.node_id} stopped mid-Q3; "
+         f"retryCount {doc['retryCount']}, Q3 answered in "
+         f"{time.perf_counter() - t2:.2f} s on the client's clock, rows equal to the "
+         f"one-device page's")
+
+
+def _fte_recovery(dev, qs, want_q3, card):
+    """A subprocess coordinator with a recovery WAL and two subprocess
+    workers on the card: the seeded coordinator_death site kills it
+    (-9 semantics) right after the second task_committed record of Q3
+    under FTE; it restarts on the same port, the client rides the 503
+    window, the resumed Q3 answers the one-device page's rows, and the
+    WAL shows no committed task re-run."""
+    import shutil
+    import tempfile
+    import threading
+
+    from trino_tpu_torch.client.client import StatementClient
+    from trino_tpu_torch.server import protocol
+    from trino_tpu_torch.server import recovery as rec
+    from trino_tpu_torch.testing.runner import SubprocessCoordinator
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    props = {"retry_policy": "task", "coordinator_recovery_dir": os.path.join(root, "wal"),
+             "coordinator_recovery_window_s": 60.0, "result_cache": False,
+             "join_distribution_type": "broadcast", "node_gone_grace_s": 5.0,
+             "query_max_memory_bytes": card // 3}
+    t0 = time.perf_counter()
+    coord = SubprocessCoordinator(
+        catalogs=(("tpch", "tpch", {"tpch.scale-factor": MAIN_SF}),),
+        properties=props, device=dev, worker_device_bytes=card // 3,
+        fault_injection={"coordinator_death": {"match": rec.TASK_COMMITTED, "nth": 2}})
+    try:
+        coord.add_worker(startup_timeout=120.0)
+        coord.add_worker(startup_timeout=120.0)
+        _log(f"[fte] recovery: subprocess coordinator and 2 subprocess workers up in "
+             f"{time.perf_counter() - t0:.1f} s")
+        fired = []
+
+        def restart_when_dead():
+            coord.proc.wait()
+            fired.append((coord.proc.returncode, time.perf_counter()))
+            coord.restart()
+            coord.wait_for_workers(2, timeout=120.0)
+
+        mon = threading.Thread(target=restart_when_dead, daemon=True)
+        mon.start()
+        client = StatementClient(coord.uri, restart_grace_s=120.0)
+        t1 = time.perf_counter()
+        _cols, rows = client.execute(qs["Q3"])
+        resumed = time.perf_counter() - t1
+        mon.join(timeout=180.0)
+        if not fired:
+            raise AssertionError("the coordinator was never killed")
+        want_rows = json.loads(json.dumps(protocol.data_json(want_q3)))
+        if rows != want_rows:
+            raise AssertionError("the resumed Q3's rows differ from the one-device page's")
+        t2 = time.perf_counter()
+        _cols, rows2 = client.execute(qs["Q3"])
+        again = time.perf_counter() - t2
+        if rows2 != rows:
+            raise AssertionError("an undisturbed Q3 after the restart differs")
+        status = coord.status()
+        if status.get("recoveredQueries", 0) < 1:
+            raise AssertionError(f"recovery: {status}")
+        records = rec.read_wal_dir(props["coordinator_recovery_dir"])
+        qid = next(r["queryId"] for r in records
+                   if r["recordType"] == rec.QUERY_SUBMITTED and r.get("sql") == qs["Q3"])
+        mine = [r for r in records if r["queryId"] == qid]
+        before = {(r["fragmentSig"], r["taskIndex"]) for r in mine
+                  if r["recordType"] == rec.TASK_COMMITTED
+                  and f"{os.sep}{qid}{os.sep}" in r["spoolPath"]}
+        after = {(r["fragmentSig"], r["taskIndex"]) for r in mine
+                 if r["recordType"] == rec.TASK_COMMITTED
+                 and f"{os.sep}{qid}_rec{os.sep}" in r["spoolPath"]}
+        rerun_dispatch = [r for r in mine if r["recordType"] == rec.TASK_DISPATCHED
+                          and r["taskId"].startswith(f"{qid}_rec.")]
+        terminal = rec.replay_wal(records)[qid].terminal
+        if not before or not after or (before & after) or terminal != "FINISHED":
+            raise AssertionError(f"recovery WAL: committed before {before}, after {after}, "
+                                 f"terminal {terminal}")
+        _log(f"[fte] recovery: coordinator_death after the 2nd task_committed record "
+             f"(exit {fired[0][0]}); restarted on port {coord.port}; the client's Q3 "
+             f"answered {resumed:.2f} s after submission, rows equal to the one-device "
+             f"page's; recoveredQueries {status.get('recoveredQueries')}; the WAL: "
+             f"{len(before)} task(s) committed before the kill, none of them re-run; "
+             f"{len(rerun_dispatch)} task(s) dispatched and {len(after)} committed after "
+             f"the restart; an undisturbed Q3 {again:.2f} s, the same rows")
+    finally:
+        coord.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _fte_autoscaler(dev, qs, card):
+    """The autoscaler: a one-worker cluster (Q6 at AUTOSCALE_SF, one slot)
+    under AUTOSCALE_CLIENTS closed-loop clients builds a backlog, scales
+    out one worker_main subprocess on the card, then thinner load scales
+    it in; every query answers the one-device page's rows."""
+    import threading
+
+    from trino_tpu_torch.client.client import StatementClient
+    from trino_tpu_torch.server import protocol
+    from trino_tpu_torch.session import tpch_session
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    ref = _card_session(tpch_session, AUTOSCALE_SF)
+    want = json.loads(json.dumps(protocol.data_json(ref.execute(qs["Q6"]))))
+    del ref
+    failures, results = [], []
+    stop, heavy = threading.Event(), threading.Event()
+    heavy.set()
+    with DistributedQueryRunner(
+        workers=1, catalogs=(("tpch", "tpch", {"tpch.scale-factor": AUTOSCALE_SF}),),
+        properties={"result_cache": False},
+        resource_groups={"groups": [{"name": "global", "hardConcurrencyLimit": 1,
+                                     "maxQueued": 500}]},
+        startup_timeout=60.0, device=dev,
+    ) as runner:
+        scaler = runner.enable_autoscaler(min_workers=1, max_workers=2, backlog_high=3,
+                                          hold_s=0.1, cooldown_s=0.5, idle_grace_s=0.8)
+
+        def loop(i):
+            client = StatementClient(runner.coordinator.uri)
+            while not stop.is_set() and (i == 0 or heavy.is_set()):
+                try:
+                    _c, rows = client.execute(qs["Q6"])
+                    results.append(rows == want)
+                except Exception as e:  # noqa: BLE001 — the assertion
+                    failures.append(str(e))
+                if not heavy.is_set():
+                    time.sleep(0.3)
+
+        threads = [threading.Thread(target=loop, args=(i,), daemon=True)
+                   for i in range(AUTOSCALE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        deadline = time.time() + 120.0
+        while runner.alive_workers() < 2 and time.time() < deadline:
+            time.sleep(0.1)
+        out_s = time.perf_counter() - t0
+        if runner.alive_workers() != 2:
+            raise AssertionError(f"the autoscaler never scaled out: {scaler.stats()}")
+        n_out = len(results)
+        heavy.clear()
+        t1 = time.perf_counter()
+        deadline = time.time() + 90.0
+        while runner.alive_workers() != 1 and time.time() < deadline:
+            time.sleep(0.1)
+        in_s = time.perf_counter() - t1
+        if runner.alive_workers() != 1:
+            raise AssertionError(f"the autoscaler never scaled in: {scaler.stats()}")
+        n = len(results)
+        deadline = time.time() + 30.0
+        while len(results) < n + 3 and time.time() < deadline:
+            time.sleep(0.1)
+        stop.set()
+        for t in threads:
+            t.join(timeout=30.0)
+        actions = [e["action"] for e in scaler.stats()["events"]]
+        if failures or not all(results) or len(results) <= n or \
+                "scale_out" not in actions or "scale_in" not in actions:
+            raise AssertionError(f"autoscaler: {len(failures)} failures {failures[:3]}, "
+                                 f"{results.count(False)} wrong answers, actions {actions}")
+    _log(f"[fte] autoscaler (Q6 at SF{AUTOSCALE_SF:g}, one slot, {AUTOSCALE_CLIENTS} "
+         f"clients): scaled out to 2 workers {out_s:.1f} s after the load began "
+         f"({n_out} queries by then), scaled in {in_s:.1f} s after it thinned; "
+         f"{len(results)} queries, 0 failed, every answer the one-device page's; "
+         f"actions {actions}; the subprocess worker's device pool "
+         f"{runner.autoscale_device_bytes} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -4053,7 +4669,7 @@ def phase_faults(dev):
 # parquet with row-group pruning)
 
 
-LAKE_SF = 10.0
+LAKE_SF = 3.0                 # cut from 10 for the call's budget (PERF.md section 4)
 LAKE_COLS = ("l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
              "l_returnflag", "l_linestatus", "l_shipdate")
 LAKE_REPS = 2                # warm runs after the cold one
@@ -4083,7 +4699,7 @@ def _timed(mod, name, acc):
 
 
 def phase_lake(dev):
-    """Lakehouse and hive tables at TPC-H SF10: CTAS of lineitem's eight
+    """Lakehouse and hive tables at TPC-H LAKE_SF: CTAS of lineitem's eight
     Q1/Q6/Q3 columns into lake.default.lineitem, an INSERT of one
     orderkey range and a DELETE of another (three snapshots with data);
     Q6 FOR VERSION AS OF each snapshot, Q1 at the last and Q3 with
@@ -4809,7 +5425,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "gen", "session", "main", "ext", "ooc",
-                             "ds", "faults", "lake", "obs", "mesh", "server"],
+                             "ds", "faults", "lake", "obs", "mesh", "server", "fte"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 on-device generator against the host "
                          "generator, only the build and the SF1 session "
@@ -4824,11 +5440,14 @@ def main(argv=None) -> int:
                          "only the build and the lakehouse/hive path, or only the build "
                          "and the observatories (history, doctor, compile observatory and "
                          "cache, system catalog, access control), only the build and the "
-                         "mesh (distributed = true over 8 shards on the card), or only the "
+                         "mesh (distributed = true over 8 shards on the card), only the "
                          "build and the server path (a coordinator and workers on the card, "
-                         "through the statement client)")
+                         "through the statement client), or only the build and fault-"
+                         "tolerant execution (retry_policy = task over the spool, seeded "
+                         "faults, coordinator recovery, the autoscaler)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one warm run of each SF10 query")
+                    help="trace one warm run of each SF10 query; in the fte phase, "
+                         "also break down Q3 partitioned's spool read")
     ap.add_argument("--reps", type=int, default=MAIN_REPS,
                     help="warm repetitions of each main-path query")
     ap.add_argument("--parent", metavar="DIR",
@@ -4872,6 +5491,8 @@ def main(argv=None) -> int:
         phases.append(("mesh", lambda: phase_mesh(dev, args.profile)))
     elif args.phase == "server":
         phases.append(("server", lambda: phase_server(dev)))
+    elif args.phase == "fte":
+        phases.append(("fte", lambda: phase_fte(dev, args.profile)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -4885,6 +5506,7 @@ def main(argv=None) -> int:
             ("timing", lambda: phase_timing(dev)),
             ("mesh", lambda: phase_mesh(dev, args.profile)),
             ("server", lambda: phase_server(dev)),
+            ("fte", lambda: phase_fte(dev, args.profile)),
             ("ooc", lambda: phase_ooc(dev, args.profile)),
             ("ds", lambda: phase_ds(dev, args.profile)),
             ("faults", lambda: phase_faults(dev)),
@@ -4915,10 +5537,12 @@ def main(argv=None) -> int:
         return 1
     print(smi)
     if "kernels" in MAIN:
-        # the mesh and server paths' launches of each kernel beside the main path's
+        # the mesh, server and FTE paths' launches of each kernel beside the
+        # main path's
         for row in MAIN["kernels"]:
             row["mesh_launches"] = MAIN.get("mesh_launches", {}).get(row["name"])
             row["server_launches"] = MAIN.get("server_launches", {}).get(row["name"])
+            row["fte_launches"] = MAIN.get("fte_launches", {}).get(row["name"])
         print(json.dumps({"kernels": MAIN["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,7 +49,7 @@ def _port_shims():
     out = {}
     for obj in (tsession.tpch_session, tsession.tpcds_session, tsession.Session,
                 trunner.DistributedQueryRunner, trunner.spawn_subprocess_worker,
-                CoordinatorServer, WorkerServer):
+                trunner.SubprocessCoordinator, CoordinatorServer, WorkerServer):
         out[id(obj)] = functools.partial(obj, device="cpu")
     out[id(tcli.main)] = cli_main
     return out
@@ -75,8 +75,8 @@ class _PortImports(ast.NodeTransformer):
     targets) to the port's modules."""
 
     def _rebind(self, node, names):
-        # a module the port does not have yet (fault-tolerant execution,
-        # recovery) binds placeholders: only the cases not replayed use it
+        # a module the port does not have yet (the cross-host mesh) binds
+        # placeholders: only the cases not replayed use it
         missing = "\n".join(f"    {n} = __missing__({n!r})" for n in names)
         guard = ast.parse(f"try:\n    pass\nexcept ImportError:\n{missing}").body[0]
         guard.body = [node]
@@ -221,12 +221,16 @@ def _exec_module(filename: str, port: bool):
 _BUILTIN_SPLIT = ("tmp_path",)
 
 
-def replay_module(filename: str, select=None, skip=(), target=None):
+def replay_module(filename: str, select=None, skip=(), target=None, distinct=()):
     """Define, in the calling test module, one test per case of
     tests/<filename> (those named or at the lines in `select`, none in
     `skip`) that runs the JAX case and the port's replay of it and
     compares their client records.  The module's fixtures are defined
-    twice, as jax_<module>_<name> and port_<module>_<name>."""
+    twice, as jax_<module>_<name> and port_<module>_<name>.  A case
+    named or at a line in `distinct` runs closed-loop traffic whose
+    number of statements follows the clock: its records are compared as
+    sets of distinct records (every result either package saw, the other
+    saw too)."""
     target = target if target is not None else sys._getframe(1).f_globals
     jns, jfix, jtests = _exec_module(filename, port=False)
     pns, _pfix, _ = _exec_module(filename, port=True)
@@ -275,9 +279,11 @@ def replay_module(filename: str, select=None, skip=(), target=None):
                 (f"{p!r}: _split({p}, {side!r})" if p in _BUILTIN_SPLIT else f"{p!r}: {p}")
                 for p in params) + "}"
 
+        by_set = name in distinct or line in distinct
         src = "".join(f"@{d}\n" for d in decorators) + (
             f"def {name}({', '.join(wparams)}):\n"
-            f"    _run_pair(_jfn, {kwargs_src('jax')}, _pfn, {kwargs_src('port')})\n")
+            f"    _run_pair(_jfn, {kwargs_src('jax')}, _pfn, {kwargs_src('port')},"
+            f" distinct={by_set})\n")
         env = dict(jns)
         env.update({"_jfn": jfn, "_pfn": pfn, "_run_pair": run_pair, "_split": _split})
         exec(src, env)
@@ -292,20 +298,55 @@ def _split(tmp_path, side):
     return d
 
 
-def run_pair(jfn, jkw, pfn, pkw):
-    """Run the JAX case, then the port's; the port must pass, and when the
-    JAX case passed too their client records must be equal."""
+def _distinct(rec):
+    return {repr(r) for r in rec}
+
+
+@contextlib.contextmanager
+def _private_tmp():
+    """A temporary directory of the case's own as the process's (and its
+    children's) temp dir: what a case writes under the default temp dir
+    (the FTE spool trees, addressed by the cases' fixed query ids) can
+    meet neither the other package's run of the case, nor a task thread
+    it left running, nor the same test file run by another process."""
+    import shutil
+    import tempfile
+
+    saved = tempfile.tempdir, os.environ.get("TMPDIR")
+    d = tempfile.mkdtemp(prefix="replay_")
+    tempfile.tempdir = d
+    os.environ["TMPDIR"] = d
+    try:
+        yield d
+    finally:
+        tempfile.tempdir = saved[0]
+        if saved[1] is None:
+            os.environ.pop("TMPDIR", None)
+        else:
+            os.environ["TMPDIR"] = saved[1]
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def run_pair(jfn, jkw, pfn, pkw, distinct=False):
+    """Run the JAX case, then the port's, each under a temp dir of its
+    own; the port must pass, and when the JAX case passed too their
+    client records must be equal (as sets of distinct records, with
+    ``distinct``)."""
     jrec, prec = [], []
     jax_error = None
-    with _recording("trino_tpu", jrec):
+    with _recording("trino_tpu", jrec), _private_tmp():
         try:
             jfn(**jkw)
         except Exception as e:  # the reference's own failure: see above
             jax_error = e
-    with _recording("trino_tpu_torch", prec):
+    with _recording("trino_tpu_torch", prec), _private_tmp():
         pfn(**pkw)
     if jax_error is None:
-        assert_same_records(jrec, prec)
+        if distinct:
+            assert prec and _distinct(jrec) == _distinct(prec), (
+                _distinct(jrec) ^ _distinct(prec))
+        else:
+            assert_same_records(jrec, prec)
 
 
 replay_module("test_server.py")

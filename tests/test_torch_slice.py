@@ -234,7 +234,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'trino_tpu_torch.distributed.topology', 'trino_tpu_torch.testing',"
         " 'trino_tpu_torch.testing.runner', 'trino_tpu_torch.cli',"
         " 'trino_tpu_torch.exec.exchange_client', 'trino_tpu_torch.memory.admission',"
-        " 'trino_tpu_torch.memory.cluster', 'trino_tpu_torch.memory.killer'}\n"
+        " 'trino_tpu_torch.memory.cluster', 'trino_tpu_torch.memory.killer',"
+        " 'trino_tpu_torch.exchange', 'trino_tpu_torch.exchange.filesystem',"
+        " 'trino_tpu_torch.server.fte', 'trino_tpu_torch.server.recovery',"
+        " 'trino_tpu_torch.server.autoscaler', 'trino_tpu_torch.obs.serving_observatory',"
+        " 'trino_tpu_torch.services', 'trino_tpu_torch.services.proxy',"
+        " 'trino_tpu_torch.services.verifier'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )

@@ -7,8 +7,9 @@ whose contents are deterministic must be byte-identical, the others are
 compared on the columns that are (ids, timestamps and walls aside), and
 the tables that report engine-specific work (compiles, the census, the
 flight recorder, the bandwidth ledger) must carry the JAX package's
-columns.  The serving observatory's three tables wait for the server
-slice.  Also SHOW CATALOGS, the names and labels of
+columns.  The serving observatory's three tables (plan_signatures,
+signature_affinity, slos) carry the JAX schemas, and after the same
+observations both packages' rows.  Also SHOW CATALOGS, the names and labels of
 ``system.runtime.metrics``, the file-based access-control cases of
 tests/test_cluster_features.py:116-180 and the authenticators, replayed
 against the port, and a denied query that loads no scan and runs no
@@ -42,7 +43,6 @@ from trino_tpu_torch.utils import metrics
 
 SF = 0.001
 SERVING = ("plan_signatures", "signature_affinity", "slos")
-NOT_SERVING = "table_name not in ('plan_signatures', 'signature_affinity', 'slos')"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,11 +60,13 @@ def _jax_compile_cache_of_its_own():
 
 
 def test_schemas_are_the_jax_schemas_without_the_serving_tables():
+    """Every schema, the serving observatory's three tables included (the
+    name is the one this test had while those tables were missing)."""
     want = {t: [(c, str(ty)) for c, ty in cols]
-            for t, cols in jax_system.SCHEMAS.items() if t not in SERVING}
+            for t, cols in jax_system.SCHEMAS.items()}
     got = {t: [(c, str(ty)) for c, ty in cols] for t, cols in system.SCHEMAS.items()}
     assert list(got) == list(want) and got == want
-    assert len(got) == 21
+    assert len(got) == 24 and set(SERVING) <= set(got)
 
 
 @pytest.fixture(scope="module")
@@ -106,8 +108,8 @@ def pair(tmp_path_factory):
 # (table, the query of its deterministic columns)
 IDENTICAL = {
     "catalogs": "select * from system.metadata.catalogs",
-    "tables": f"select * from system.metadata.tables where {NOT_SERVING}",
-    "columns": f"select * from system.jdbc.columns where {NOT_SERVING}",
+    "tables": "select * from system.metadata.tables",
+    "columns": "select * from system.jdbc.columns",
     "views": "select * from system.metadata.views",
     "queries": "select state, query, user, rows, error from system.runtime.queries "
                "where state <> 'RUNNING'",
@@ -137,8 +139,7 @@ def test_system_table_matches_jax(pair, table):
     a, b = js.execute(IDENTICAL[table]), ts.execute(IDENTICAL[table])
     if table in ("tables", "columns", "events"):
         # the JAX page's dictionary also holds the names its filter
-        # dropped (the serving tables, other queries): the same rows,
-        # other codes
+        # dropped (other queries): the same rows, other codes
         assert (b.names, b.to_pylist()) == (a.names, a.to_pylist())
     else:
         convert.assert_pages_identical(a, b)
@@ -154,7 +155,7 @@ def test_session_properties_rows_match_jax(pair):
     assert set(port) <= {r[0] for r in js.execute(sql).to_pylist()}
     # each session has a history directory of its own
     assert port.pop("query_history_dir")[1] == jax.pop("query_history_dir")[1] == ""
-    assert len(port) == 50 and port == jax
+    assert len(port) == 73 and port == jax
     for name in ("query_history_max_bytes", "query_doctor",
                  "compile_cache", "compile_cache_dir", "compile_prewarm",
                  "compile_observatory_dir", "compile_census_max_families",
@@ -162,8 +163,45 @@ def test_session_properties_rows_match_jax(pair):
                  "resource_group_queue_deadline_s", "memory_admission_timeout_s",
                  "low_memory_killer_policy", "query_max_total_memory_bytes",
                  "exchange_retry_attempts", "exchange_retry_budget_s",
-                 "dynamic_filtering", "node_gone_grace_s"):
+                 "dynamic_filtering", "node_gone_grace_s") + A7:
         assert name in port
+    # the JAX package's properties the port does not take: the cross-host
+    # mesh, the CPU re-run and the six of the eager-only executor
+    missing = {r[0] for r in js.execute(sql).to_pylist()} - set(port) - {"query_history_dir"}
+    assert missing == {"cross_host_mesh", "device_cpu_fallback", "group_capacity",
+                       "jit_fragments", "padding_ladder", "padding_ladder_file",
+                       "topn_initial_factor", "donate_pages"}, missing
+
+
+# the fault-tolerance, recovery, autoscaler and serving properties
+A7 = ("retry_policy", "query_retry_attempts", "fte_max_attempts", "fte_task_timeout_s",
+      "fte_speculation_factor", "fte_speculation_min_s", "speculative_execution",
+      "adaptive_replan_factor", "coordinator_recovery_dir",
+      "coordinator_recovery_window_s", "autoscale_min_workers", "autoscale_max_workers",
+      "autoscale_backlog_high", "autoscale_cooldown_s", "autoscale_idle_grace_s",
+      "serving_observatory_dir", "serving_observatory_max_bytes",
+      "signature_census_max", "slo_latency_target_s", "slo_error_budget",
+      "slo_fast_window_s", "slo_slow_window_s", "slo_burn_threshold")
+
+
+@pytest.mark.parametrize("name, value, bad, default", [
+    ("retry_policy", "'task'", "'sometimes'", "'none'"),
+    ("adaptive_replan_factor", "2.5", "'x'", "4.0"),
+    ("fte_max_attempts", "6", "'many'", "4"),
+    ("speculative_execution", "false", "'perhaps'", "true"),
+])
+def test_a7_properties_set_and_refuse_as_in_jax(pair, name, value, bad, default):
+    js, ts = pair
+    show = ("select name, value, \"default\" from system.metadata.session_properties "
+            f"where name = '{name}'")
+    for s in (js, ts):
+        s.execute(f"set session {name} = {value}")
+    assert ts.execute(show).to_pylist() == js.execute(show).to_pylist()
+    for s in (js, ts):
+        with pytest.raises(Exception):
+            s.execute(f"set session {name} = {bad}")
+        s.execute(f"set session {name} = {default}")
+    assert ts.execute(show).to_pylist() == js.execute(show).to_pylist()
 
 
 # the tables whose rows report engine-specific work: the JAX columns, and
@@ -204,6 +242,33 @@ def test_engine_tables_carry_the_jax_columns(pair, table, monkeypatch):
         for s in pair:
             s.execute("set session operator_stats = false")
             s.execute("set session bandwidth_ledger = false")
+
+
+@pytest.mark.parametrize("table", SERVING)
+def test_serving_tables_match_jax(pair, table):
+    """After the same observations each package's serving observatory
+    answers its three tables with the same rows."""
+    from trino_tpu.obs import serving_observatory as jax_so
+    from trino_tpu_torch.obs import serving_observatory as so
+
+    js, ts = pair
+    for mod in (jax_so, so):
+        mod._reset_observatory()
+        obs = mod.get_observatory()
+        for i in range(3):
+            obs.observe_query(
+                signature="sig-sys", tenant="etl", query_id=f"q{i}",
+                latency_s=0.2 * (i + 1), ok=i != 2, device_wall_s=0.01,
+                host_wall_s=0.02, cache_hit=bool(i), cache_stored=True,
+                families=["famX"], node_id="node-1", ts=1000.0 + i, quiet=True)
+    try:
+        sql = f"select * from system.runtime.{table}"
+        a, b = js.execute(sql), ts.execute(sql)
+        assert b.count == a.count > 0
+        convert.assert_pages_identical(a, b)
+    finally:
+        for mod in (jax_so, so):
+            mod._reset_observatory()
 
 
 def test_show_catalogs_matches_jax(pair):

@@ -7,11 +7,13 @@ optimizer, analyzer, executor and session actually read: the memory
 limit, spill and streaming ones, on-device generation, the result
 cache, operator stats, the bandwidth ledger, ANALYZE's histogram, the
 fault path's (fault injection, the device supervisor, the incident
-journal and the flight recorder) and the observatories' (the query
-history, the doctor, the compile cache and the compile observatory).
-Any other name, including the JAX package's properties whose machinery
-the port does not have yet (retries, the serving observatory) or never
-will (the padding ladder: an eager executor pads nothing), raises
+journal and the flight recorder), the observatories' (the query
+history, the doctor, the compile cache, the compile observatory and the
+serving observatory's census and SLOs) and the server's (fault-tolerant
+execution and whole-query retries, coordinator recovery, the
+autoscaler).  Any other name, including the JAX package's properties
+whose machinery the port does not have yet (the cross-host mesh) or
+never will (the padding ladder: an eager executor pads nothing), raises
 KeyError at SET time rather than being silently ignored; values are
 validated and typed at SET time.
 
@@ -47,6 +49,13 @@ def _megakernels(s: str) -> str:
     v = str(s).strip().lower()
     if v not in ("auto", "on", "off"):
         raise ValueError(f"megakernels must be auto|on|off, got: {s}")
+    return v
+
+
+def _retry_policy(s: str) -> str:
+    v = str(s).strip().lower()
+    if v not in ("none", "task", "query"):
+        raise ValueError(f"retry_policy must be none|task|query, got: {s}")
     return v
 
 
@@ -381,6 +390,153 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             "equi-height histogram buckets ANALYZE collects per "
             "numeric/date column (device-sort quantile boundaries)",
             int, 8,
+        ),
+        # fault-tolerant execution and whole-query retries, coordinator
+        # recovery, the autoscaler and the serving observatory
+        # (server/fte.py, recovery.py, autoscaler.py,
+        # obs/serving_observatory.py)
+        PropertyMetadata(
+            "retry_policy",
+            "failure recovery: none (pipelined) | task (FTE over spool) "
+            "| query (whole-query re-dispatch on retriable failure)",
+            _retry_policy, "none",
+        ),
+        PropertyMetadata(
+            "query_retry_attempts",
+            "retry_policy=query: whole-query re-dispatches before the "
+            "failure is surfaced (query-retry-attempts analog)",
+            int, 2,
+        ),
+        PropertyMetadata(
+            "fte_max_attempts",
+            "FTE: attempts per task before the query fails",
+            int, 4,
+        ),
+        PropertyMetadata(
+            "fte_task_timeout_s",
+            "FTE: per-attempt wall-clock timeout (seconds)",
+            float, 300.0,
+        ),
+        PropertyMetadata(
+            "fte_speculation_factor",
+            "FTE: speculate when a task exceeds this multiple of the "
+            "median completed sibling duration",
+            float, 2.0,
+        ),
+        PropertyMetadata(
+            "fte_speculation_min_s",
+            "FTE: minimum straggler age before speculation (seconds)",
+            float, 0.75,
+        ),
+        PropertyMetadata(
+            "speculative_execution",
+            "FTE: launch backup attempts for straggler tasks "
+            "(EventDrivenFaultTolerantQueryScheduler SPECULATIVE class)",
+            _bool, True,
+        ),
+        PropertyMetadata(
+            "adaptive_replan_factor",
+            "FTE: replan the undispatched remainder when a fragment's "
+            "observed output rows diverge from the estimate by this "
+            "multiple in either direction (0 disables)",
+            float, 4.0,
+        ),
+        PropertyMetadata(
+            "coordinator_recovery_dir",
+            "directory for the coordinator's write-ahead intent log "
+            "(mmap'd torn-tail-tolerant JSONL segments journaling every "
+            "query-state transition); on boot the coordinator replays "
+            "it, resuming FTE queries from committed spools and failing "
+            "pipelined ones with a retryable COORDINATOR_RESTART error; "
+            "empty disables crash recovery",
+            str, "",
+        ),
+        PropertyMetadata(
+            "coordinator_recovery_window_s",
+            "how long a restarted coordinator answers polls for "
+            "still-recovering queries with 503+Retry-After (instead of "
+            "404) and waits for discovery re-announcements to rebuild "
+            "the live worker set before dispatching resumed work",
+            float, 10.0,
+        ),
+        PropertyMetadata(
+            "autoscale_min_workers",
+            "autoscaler floor: scale-in never drains below this many "
+            "ACTIVE workers",
+            int, 1,
+        ),
+        PropertyMetadata(
+            "autoscale_max_workers",
+            "autoscaler ceiling: scale-out stops adding workers here",
+            int, 4,
+        ),
+        PropertyMetadata(
+            "autoscale_backlog_high",
+            "queued queries (groups + memory admission) that count as "
+            "sustained overload and trigger scale-out",
+            int, 4,
+        ),
+        PropertyMetadata(
+            "autoscale_cooldown_s",
+            "seconds between autoscaler actions (anti-flap)",
+            float, 2.0,
+        ),
+        PropertyMetadata(
+            "autoscale_idle_grace_s",
+            "seconds of empty backlog before scale-in drains a worker",
+            float, 1.5,
+        ),
+        PropertyMetadata(
+            "serving_observatory_dir",
+            "directory for the crash-safe per-signature workload census "
+            "(mmap'd torn-tail-tolerant JSONL segments, merged across "
+            "restarts and backfilled from the persisted query history); "
+            "empty keeps the serving observatory in-memory only",
+            str, "",
+        ),
+        PropertyMetadata(
+            "serving_observatory_max_bytes",
+            "byte budget for the serving observatory's two on-disk "
+            "census segments",
+            int, 1 << 20,
+        ),
+        PropertyMetadata(
+            "signature_census_max",
+            "bound on distinct plan signatures the workload census "
+            "profiles (overflow folds into __other__, never dropped)",
+            int, 128,
+        ),
+        PropertyMetadata(
+            "slo_latency_target_s",
+            "default per-tenant latency objective: a finished query "
+            "slower than this (or any failed query) burns its tenant's "
+            "SLO error budget",
+            float, 1.0,
+        ),
+        PropertyMetadata(
+            "slo_error_budget",
+            "default fraction of a tenant's queries allowed to violate "
+            "the latency objective before the burn rate exceeds 1.0",
+            float, 0.1,
+        ),
+        PropertyMetadata(
+            "slo_fast_window_s",
+            "fast SLO burn-rate window (page-now signal; a burn past "
+            "slo_burn_threshold here journals a throttled slo_burn "
+            "event)",
+            float, 30.0,
+        ),
+        PropertyMetadata(
+            "slo_slow_window_s",
+            "slow SLO burn-rate window (sustained-breach signal for "
+            "system.runtime.slos and the webui panel)",
+            float, 300.0,
+        ),
+        PropertyMetadata(
+            "slo_burn_threshold",
+            "fast-window burn rate above which the serving observatory "
+            "journals slo_burn and the query doctor starts citing it",
+            float, 2.0,
         ),
     ]
 }

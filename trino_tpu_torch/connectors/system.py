@@ -279,6 +279,56 @@ SCHEMAS: Dict[str, List] = {
         ("wall_s", T.DOUBLE),
         ("ts", T.DOUBLE),
     ],
+    # the serving observatory's workload census (obs/serving_observatory):
+    # one row per profiled canonical plan signature — arrival rate,
+    # latency percentiles, observed device/host cost, estimate drift and
+    # result-cache tallies, busiest shape first
+    "plan_signatures": [
+        ("signature", T.VARCHAR),
+        ("tenant", T.VARCHAR),
+        ("count", T.BIGINT),
+        ("rate_per_s", T.DOUBLE),
+        ("p50_s", T.DOUBLE),
+        ("p95_s", T.DOUBLE),
+        ("p99_s", T.DOUBLE),
+        ("device_wall_s", T.DOUBLE),
+        ("host_wall_s", T.DOUBLE),
+        ("drift_ratio", T.DOUBLE),
+        ("cache_hits", T.BIGINT),
+        ("cache_misses", T.BIGINT),
+        ("families", T.BIGINT),
+        ("last_ts", T.DOUBLE),
+    ],
+    # per-node warmth per signature: which nodes hold warm compiled
+    # programs for a signature's kernel families (per-family census off
+    # worker announcements) or its fragment-result-cache entry — the
+    # locality-aware dispatcher's input table
+    "signature_affinity": [
+        ("signature", T.VARCHAR),
+        ("node_id", T.VARCHAR),
+        ("warm_families", T.BIGINT),
+        ("families_total", T.BIGINT),
+        ("result_cache", T.BIGINT),
+        ("score", T.DOUBLE),
+    ],
+    # per-tenant SLO compliance: declared objectives plus live fast/slow
+    # window burn rates over the tenant's latency samples
+    "slos": [
+        ("tenant", T.VARCHAR),
+        ("latency_target_s", T.DOUBLE),
+        ("error_budget", T.DOUBLE),
+        ("fast_window_s", T.DOUBLE),
+        ("slow_window_s", T.DOUBLE),
+        ("fast_burn_rate", T.DOUBLE),
+        ("slow_burn_rate", T.DOUBLE),
+        ("peak_fast_burn", T.DOUBLE),
+        ("violations_total", T.BIGINT),
+        ("observed_total", T.BIGINT),
+        ("burn_events", T.BIGINT),
+        ("p50_s", T.DOUBLE),
+        ("p95_s", T.DOUBLE),
+        ("p99_s", T.DOUBLE),
+    ],
     # one row per metric series from the process-global MetricsRegistry —
     # the plugin/trino-jmx "metrics as SQL" surface; histograms expose
     # interpolated p50/p95/p99 alongside the observation count
@@ -678,6 +728,86 @@ class _SystemSource:
                 "min_rows": [r["minRows"] for r in recs],
                 "max_rows": [r["maxRows"] for r in recs],
                 "total_rows": [r["totalRows"] for r in recs],
+            }
+        if table == "plan_signatures":
+            from ..obs import serving_observatory as _so
+
+            recs = _so.get_observatory().signature_rows()
+            return {
+                "signature": [r["signature"] for r in recs],
+                "tenant": [r["tenant"] for r in recs],
+                "count": [int(r["count"]) for r in recs],
+                "rate_per_s": [float(r["ratePerS"]) for r in recs],
+                "p50_s": [float(r["p50S"]) for r in recs],
+                "p95_s": [float(r["p95S"]) for r in recs],
+                "p99_s": [float(r["p99S"]) for r in recs],
+                "device_wall_s": [
+                    float(r["deviceWallS"]) for r in recs
+                ],
+                "host_wall_s": [float(r["hostWallS"]) for r in recs],
+                "drift_ratio": [float(r["driftRatio"]) for r in recs],
+                "cache_hits": [int(r["cacheHits"]) for r in recs],
+                "cache_misses": [int(r["cacheMisses"]) for r in recs],
+                "families": [len(r["families"]) for r in recs],
+                "last_ts": [float(r["lastTs"]) for r in recs],
+            }
+        if table == "signature_affinity":
+            from ..obs import serving_observatory as _so
+
+            recs = _so.get_observatory().affinity_rows(
+                local_node_id=getattr(s, "serving_node_id", "") or "local"
+            )
+            return {
+                "signature": [r["signature"] for r in recs],
+                "node_id": [r["nodeId"] for r in recs],
+                "warm_families": [
+                    int(r["warmFamilies"]) for r in recs
+                ],
+                "families_total": [
+                    int(r["familiesTotal"]) for r in recs
+                ],
+                "result_cache": [
+                    int(bool(r["resultCache"])) for r in recs
+                ],
+                "score": [float(r["score"]) for r in recs],
+            }
+        if table == "slos":
+            from ..obs import serving_observatory as _so
+
+            recs = _so.get_observatory().slo_rows()
+            return {
+                "tenant": [r["tenant"] for r in recs],
+                "latency_target_s": [
+                    float(r["latencyTargetS"]) for r in recs
+                ],
+                "error_budget": [
+                    float(r["errorBudget"]) for r in recs
+                ],
+                "fast_window_s": [
+                    float(r["fastWindowS"]) for r in recs
+                ],
+                "slow_window_s": [
+                    float(r["slowWindowS"]) for r in recs
+                ],
+                "fast_burn_rate": [
+                    float(r["fastBurnRate"]) for r in recs
+                ],
+                "slow_burn_rate": [
+                    float(r["slowBurnRate"]) for r in recs
+                ],
+                "peak_fast_burn": [
+                    float(r["peakFastBurn"]) for r in recs
+                ],
+                "violations_total": [
+                    int(r["violationsTotal"]) for r in recs
+                ],
+                "observed_total": [
+                    int(r["observedTotal"]) for r in recs
+                ],
+                "burn_events": [int(r["burnEvents"]) for r in recs],
+                "p50_s": [float(r["p50S"]) for r in recs],
+                "p95_s": [float(r["p95S"]) for r in recs],
+                "p99_s": [float(r["p99S"]) for r in recs],
             }
         if table == "diagnoses":
             from ..obs import doctor as _doctor

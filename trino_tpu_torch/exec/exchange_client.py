@@ -1,8 +1,10 @@
 """Direct exchange client: pull serialized pages from upstream tasks.
 
-Counterpart of trino_tpu/exec/exchange_client.py, without the spool
-read of fault-tolerant execution (a location is always a live task
-buffer).
+Counterpart of trino_tpu/exec/exchange_client.py.  A location is a live
+task buffer (pipelined) or a committed spool file (fault-tolerant
+execution); both count their frame bytes and decode seconds, and a spool
+read also its wall.  A spool read never falls back to HTTP: a damaged
+file raises SpoolCorruptionError and the FTE scheduler heals it.
 
 Reference parity: operator/DirectExchangeClient.java:56 (addLocation:154,
 pollPage:221) and HttpPageBufferClient.java:98 — async long-poll GET of
@@ -234,16 +236,25 @@ class ExchangeClient:
         self.last_fetch_wall_s = 0.0
         self.last_fetch_bytes = 0
         self.last_deserialize_s = 0.0
+        # fault-tolerant mode: the committed spool files' frame bytes and
+        # the wall of reading and decoding them
+        self.last_spool_bytes = 0
+        self.last_spool_read_s = 0.0
 
     def fetch_sources(
         self, sources: Dict[int, List[dict]]
     ) -> Dict[int, List[Page]]:
-        """sources: fragment_id -> list of live task buffer locations
-        {uri, task, buffer} (pipelined mode)."""
+        """sources: fragment_id -> list of locations, each either a live
+        task buffer {uri, task, buffer} (pipelined mode) or a committed
+        spool file {path} (fault-tolerant mode).  Spool corruption
+        propagates as SpoolCorruptionError so the hosting task FAILS and
+        the FTE retry loop owns the recovery."""
         out: Dict[int, List[Page]] = {}
         self.last_fetch_wall_s = 0.0
         self.last_fetch_bytes = 0
         self.last_deserialize_s = 0.0
+        self.last_spool_bytes = 0
+        self.last_spool_read_s = 0.0
         flat = [
             (fid, loc) for fid, locs in sources.items() for loc in locs
         ]
@@ -258,9 +269,29 @@ class ExchangeClient:
         stats = []
 
         def fetch(loc: dict) -> List[Page]:
-            start = time.time()
-            st = {"bytes": 0, "deserializeS": 0.0}
+            st = {"bytes": 0, "deserializeS": 0.0, "spoolReadS": 0.0}
             stats.append(st)
+            if "path" in loc:
+                from ..exchange.filesystem import (
+                    SpoolCorruptionError,
+                    read_spool_pages,
+                )
+
+                t_read = time.perf_counter()
+                with TRACER.span(
+                    "spool_read", traceparent=self.traceparent, path=loc["path"]
+                ):
+                    if self.fault_injector is not None and (
+                        self.fault_injector.fires("spool_read", key=loc["path"])
+                    ):
+                        raise SpoolCorruptionError(
+                            loc["path"], "injected spool read fault"
+                        )
+                    pages = read_spool_pages(loc["path"], stats=st)
+                st["spoolReadS"] = time.perf_counter() - t_read
+                st["spoolBytes"] = st["bytes"]
+                return pages
+            start = time.time()
             with TRACER.span(
                 "exchange_fetch",
                 traceparent=self.traceparent,
@@ -286,4 +317,6 @@ class ExchangeClient:
         self.last_fetch_wall_s = time.time() - fetch_t0
         self.last_fetch_bytes = sum(st["bytes"] for st in stats)
         self.last_deserialize_s = sum(st["deserializeS"] for st in stats)
+        self.last_spool_bytes = sum(st.get("spoolBytes", 0) for st in stats)
+        self.last_spool_read_s = sum(st["spoolReadS"] for st in stats)
         return out

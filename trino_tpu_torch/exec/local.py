@@ -756,6 +756,10 @@ class LocalExecutor:
                 break
         else:
             raise ExecutionError("the executor's retry ladder did not settle")
+        if hint is None:
+            # the serving observatory's affinity: this node ran the family
+            compile_observatory.get_observatory().note_warm(
+                fragment_family(plan))
         if hints is not None:
             hints[id(plan)] = (
                 self.force_wide_mul, plan, frozenset(self.force_expansion),

@@ -274,6 +274,10 @@ class CompileObservatory:
         # are first compiles, not retraces
         self._family_intro: Dict[str, tuple] = {}
         self._family_cold_s = float(family_cold_s)
+        # families of the plan fragments this process has run (note_warm):
+        # the serving observatory's affinity warmth, apart from the
+        # classifier's memory above
+        self._warm: set = set()
         self._storm_window_s = float(storm_window_s)
         self._storm_misses = max(int(storm_misses), 1)
         self._miss_times: deque = deque()
@@ -516,6 +520,7 @@ class CompileObservatory:
             "compileWallS": wall,
             "census": self.census.snapshot(),
             "events": events,
+            "warmFamilies": sorted(self._warm | set(self._families)),
         }
 
     def ingest(self, node_id: str, snapshot: Optional[dict]) -> None:
@@ -545,6 +550,7 @@ class CompileObservatory:
                 },
                 "compileWallS": float(snapshot.get("compileWallS") or 0.0),
                 "census": snapshot.get("census") or {},
+                "warm": set(snapshot.get("warmFamilies") or ()),
                 "seen": seen,
             }
             remote[str(node_id)] = entry
@@ -581,6 +587,43 @@ class CompileObservatory:
             for entry in (getattr(self, "_remote", None) or {}).values():
                 wall += float(entry.get("compileWallS") or 0.0)
         return wall
+
+    def note_warm(self, family: str) -> None:
+        """A plan fragment of ``family`` ran in this process: its
+        programs and capacity hints are warm here.  No ledger event (the
+        port compiles nothing per fragment), and kept apart from the
+        classifier's memory so a later encode of the family is still
+        classified as the JAX package classifies it."""
+        with self._lock:
+            if len(self._warm) < 4 * self.census.max_families:
+                self._warm.add(str(family))
+
+    def node_family_map(
+        self, local_node_id: str = "local"
+    ) -> Dict[str, set]:
+        """Which kernel-family digests each node holds warm compiles
+        for: the local process's census plus every ingested worker's
+        latest cumulative piggyback.  The serving observatory joins
+        this against per-signature family digests to build
+        ``system.runtime.signature_affinity``.  In an in-process
+        cluster the workers share this very observatory, so all warmth
+        appears under ``local_node_id`` — subprocess/remote workers
+        each get their own row via announcements."""
+        out: Dict[str, set] = {}
+        with self._lock:
+            local = (set(self.census.families) | set(self._families)
+                     | self._warm)
+            if local:
+                out[str(local_node_id or "local")] = local
+            for node_id, entry in (
+                getattr(self, "_remote", None) or {}
+            ).items():
+                fams = set(
+                    ((entry.get("census") or {}).get("families") or {})
+                ) | set(entry.get("warm") or ())
+                if fams:
+                    out[str(node_id)] = fams
+        return out
 
     def merged_census(self) -> ShapeCensus:
         """Engine-wide census view: the local sketch plus each ingested

@@ -14,14 +14,17 @@ Implementation: stdlib ThreadingHTTPServer; queries execute on a worker
 thread pool; results paged to the client in fixed-size chunks via nextUri
 tokens (the long-poll pull loop of StatementClientV1.advance()).
 
-Counterpart of trino_tpu/server/coordinator.py for the pipelined path.
-The coordinator's session names its device (CUDA unless the caller
-asked for "cpu"); with `distributed` the queries run on the announced
-workers, each on its own device.  Left out here, with fault-tolerant
-execution and recovery: retry_policy (FTE and whole-query retries), the
-recovery WAL, the autoscaler and the serving observatory (its census,
-affinity and SLO endpoints).  The remote tasks get the session's
-`megakernels` too, so a worker fuses (or not) as the session asked.
+Counterpart of trino_tpu/server/coordinator.py.  The coordinator's
+session names its device (CUDA unless the caller asked for "cpu"); with
+`distributed` the queries run on the announced workers, each on its own
+device, pipelined or under `retry_policy` (task: fault-tolerant
+execution over the spool, server/fte.py; query: whole-query re-runs).
+A `coordinator_recovery_dir` turns on the write-ahead intent log and
+restart recovery (server/recovery.py); `enable_autoscaler` the
+elasticity loop (server/autoscaler.py); every finished query feeds the
+serving observatory's census and SLOs (obs/serving_observatory.py).
+The remote tasks get the session's `megakernels` too, so a worker fuses
+(or not) as the session asked.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from ..sql.parser import parse
 from ..utils.metrics import REGISTRY
 from ..utils.tracing import TRACER
 from . import protocol
+from . import recovery as _recovery
 from .discovery import HeartbeatFailureDetector, NodeManager
 from .resource_groups import QueryQueueFullError, ResourceGroupManager
 
@@ -67,18 +71,22 @@ class QueryExecution:
         self.group = None  # resource group holding our slot
         self.state = "QUEUED"
         self.error: Optional[str] = None
-        self.retry_count = 0  # whole-query re-runs (none without FTE)
+        self.retry_count = 0  # whole-query re-runs under retry_policy=query
+        self.adaptive_actions: list = []  # FTE mid-query replan records
         self.task_stats: list = []  # per-task stats docs (TaskInfo rollup)
         self.timeline: Optional[dict] = None  # merged operator timeline
         self.diagnosis: Optional[dict] = None  # doctor's finalize verdict
         self.straggler_flags: list = []  # dispersion-detector verdicts
         self.session_executed = False  # ran via session.execute (history
         #                                already recorded there)
-        self.tenant = ""  # top-level resource group
-        self.plan_signature = ""  # canonical plan digest (history key)
+        self.tenant = ""  # top-level resource group (serving observatory)
+        self.plan_signature = ""  # canonical plan digest (census key)
         self.kernel_families: tuple = ()  # per-fragment family digests
         self.result_cache_hit: Optional[bool] = None  # None = not keyed
         self.result_cache_stored = False
+        self.recovered = False  # re-registered from the WAL after restart
+        self.resume_event_id: Optional[int] = None  # QUERY_RESUMED citation
+        self.orphan_event_id: Optional[int] = None  # QUERY_ORPHANED citation
         self.page: Optional[Page] = None
         self.types = None
         # host walls of a distributed run: planning, and the scheduler's
@@ -101,6 +109,7 @@ class Coordinator:
         distributed: bool = False,
         resource_groups: Optional[dict] = None,
         authenticator=None,
+        fault_injection: Optional[dict] = None,
     ):
         self.session = session
         # admission control (InternalResourceGroupManager)
@@ -168,6 +177,9 @@ class Coordinator:
             for g in self.resource_groups.groups.values():
                 if g.parent is None and g.queue_deadline_s <= 0:
                     g.queue_deadline_s = default_deadline
+        # elasticity control loop (enable_autoscaler wires the harness's
+        # scale-out hook); ticked from the enforcement loop
+        self.autoscaler = None
         # live straggler detector fed by announcement-piggybacked task
         # rollups (obs/opstats); one summary per task id, ever
         from ..obs.opstats import StragglerDetector
@@ -177,7 +189,9 @@ class Coordinator:
                 session.properties.get("straggler_dispersion_factor")
                 or 2.0
             ),
-            min_s=0.75,
+            min_s=float(
+                session.properties.get("fte_speculation_min_s") or 0.75
+            ),
         )
         self._opstats_seen: set = set()
         self._opstats_by_stage: Dict[tuple, list] = {}
@@ -186,11 +200,52 @@ class Coordinator:
             # node-death fan-out: memory-pool eviction + opstats ghost
             # retirement the moment a node is declared GONE
             self.node_manager.add_gone_listener(self._on_node_gone)
-        # restart recovery belongs to fault-tolerant execution: a
-        # pipelined coordinator has nothing to recover (/v1/status keeps
-        # the counters at 0)
+        # -- coordinator crash recovery (server/recovery.py) ------------
+        # WAL + restart-time resume; the chaos injector arming the
+        # seeded coordinator_death site is only ever passed by
+        # coordinator_main (a subprocess coordinator) — an in-process
+        # coordinator firing os._exit would take the test runner down,
+        # exactly the worker_death containment rule
         self.recovered_queries = 0
         self.orphaned_queries = 0
+        self.wal = None
+        self.recovery = None
+        recovery_dir = str(
+            session.properties.get("coordinator_recovery_dir") or ""
+        )
+        if recovery_dir and distributed:
+            from ..utils.faults import FaultInjector
+
+            injector = (
+                FaultInjector.from_spec(fault_injection)
+                if fault_injection
+                else None
+            )
+            self.wal = _recovery.CoordinatorWAL(
+                recovery_dir, injector=injector
+            )
+            self.recovery = _recovery.RecoveryManager(
+                self, recovery_dir,
+                window_s=float(
+                    session.properties.get("coordinator_recovery_window_s")
+                    or 10.0
+                ),
+            )
+            # synchronous: every non-terminal WAL query is back in the
+            # tracker (same id, same slug) before the HTTP server ever
+            # answers a poll; the resume/orphan pass runs in background
+            # once discovery re-announcements rebuild the worker set
+            self.recovery.register()
+            threading.Thread(
+                target=self.recovery.run, daemon=True
+            ).start()
+        # -- serving observatory (obs/serving_observatory.py) -----------
+        # per-signature census + cache-affinity map + per-tenant SLO
+        # burn monitor; persisted census when serving_observatory_dir is
+        # set, backfilled from whatever query history survived restarts
+        self.serving = self._configure_serving_observatory(
+            resource_groups
+        )
         self._stop_enforcement = threading.Event()
         if distributed:
             threading.Thread(
@@ -204,6 +259,86 @@ class Coordinator:
             # a ticker: an idle queue must shed on time, not on the next
             # submit
             threading.Thread(target=self._shed_loop, daemon=True).start()
+
+    def _configure_serving_observatory(self, resource_groups):
+        """Boot the process-global serving observatory from session
+        properties, declare per-tenant SLO objectives from the raw
+        resource-group spec (``sloLatencyTargetS``/``sloErrorBudget``
+        on top-level groups), and backfill the signature census from
+        whatever persisted query history survived earlier processes."""
+        from ..obs import serving_observatory as _so
+        from ..obs.history import get_store
+
+        props = self.session.properties
+
+        def _num(key, default):
+            try:
+                return float(props.get(key) or default)
+            except (TypeError, ValueError):
+                return default
+
+        obs = _so.configure(
+            props.get("serving_observatory_dir") or None,
+            max_bytes=props.get("serving_observatory_max_bytes"),
+            max_signatures=int(
+                props.get("signature_census_max")
+                or _so.DEFAULT_MAX_SIGNATURES
+            ),
+            slo={
+                "latency_target_s": _num(
+                    "slo_latency_target_s", _so.DEFAULT_LATENCY_TARGET_S
+                ),
+                "error_budget": _num(
+                    "slo_error_budget", _so.DEFAULT_ERROR_BUDGET
+                ),
+                "fast_window_s": _num(
+                    "slo_fast_window_s", _so.DEFAULT_FAST_WINDOW_S
+                ),
+                "slow_window_s": _num(
+                    "slo_slow_window_s", _so.DEFAULT_SLOW_WINDOW_S
+                ),
+                "burn_threshold": _num(
+                    "slo_burn_threshold", _so.DEFAULT_BURN_THRESHOLD
+                ),
+            },
+        )
+        # tenants are top-level groups OR the direct children of one
+        # (InternalResourceGroup.tenant), so SLO spec keys are honored
+        # on both levels of the tree
+        def _declare(spec):
+            if not isinstance(spec, dict) or not spec.get("name"):
+                return
+            target = spec.get("sloLatencyTargetS")
+            budget = spec.get("sloErrorBudget")
+            if target is not None or budget is not None:
+                obs.slo.set_objective(
+                    str(spec["name"]),
+                    latency_target_s=target,
+                    error_budget=budget,
+                )
+
+        for spec in (resource_groups or {}).get("groups") or []:
+            _declare(spec)
+            for sub in (
+                spec.get("subGroups") or ()
+                if isinstance(spec, dict)
+                else ()
+            ):
+                _declare(sub)
+        try:
+            store = get_store(
+                props.get("query_history_dir") or None,
+                max_bytes=int(
+                    props.get("query_history_max_bytes") or (1 << 20)
+                ),
+            )
+            obs.backfill_from_history(store.entries())
+        except Exception:  # noqa: BLE001 — backfill is best-effort
+            pass
+        # system-table scans run through the session; the affinity map
+        # needs to know which node id "this process" is
+        self.session.serving_node_id = self.node_id
+        return obs
 
     def _stash_plan_telemetry(self, q: QueryExecution, plan) -> None:
         """Stamp the query with its canonical plan signature (its query
@@ -228,6 +363,34 @@ class Coordinator:
         except Exception:  # noqa: BLE001 — telemetry must not fail planning
             pass
 
+    def enable_autoscaler(self, scale_out=None, **overrides):
+        """Attach the elasticity control loop.  ``scale_out`` is the
+        add-a-worker hook (DistributedQueryRunner.add_subprocess_worker
+        in the harness); knobs default from session properties."""
+        from .autoscaler import Autoscaler
+
+        props = self.session.properties
+        kw = {
+            "min_workers": int(
+                props.get("autoscale_min_workers") or 1
+            ),
+            "max_workers": int(
+                props.get("autoscale_max_workers") or 4
+            ),
+            "backlog_high": int(
+                props.get("autoscale_backlog_high") or 4
+            ),
+            "cooldown_s": float(
+                props.get("autoscale_cooldown_s") or 2.0
+            ),
+            "idle_grace_s": float(
+                props.get("autoscale_idle_grace_s") or 1.5
+            ),
+        }
+        kw.update(overrides)
+        self.autoscaler = Autoscaler(self, scale_out=scale_out, **kw)
+        return self.autoscaler
+
     def _memory_capacity(self) -> int:
         """Admission budget: announced host pools, or the coordinator's
         own manager when no worker has announced yet."""
@@ -251,6 +414,11 @@ class Coordinator:
                 self.resource_groups.shed_expired()
             except Exception:
                 pass
+            if self.autoscaler is not None:
+                try:
+                    self.autoscaler.tick()
+                except Exception:
+                    pass
 
     def _shed_loop(self):
         """Deadline-shed ticker for coordinator-only clusters (the
@@ -325,9 +493,22 @@ class Coordinator:
         group = self.resource_groups.select(user, source)
         q.group = group
         # the tenant survives on the query even after shed/queue-full
-        # paths null q.group (its history record carries it)
+        # paths null q.group — finalize charges the SLO monitor by it
         q.tenant = group.tenant
         self.cluster_memory.note_query_tenant(q.query_id, group.tenant)
+        if self.wal is not None:
+            # intent first: the query durably exists (sql + slug + group
+            # + retry policy) before any dispatch — a crash from here on
+            # is recoverable, and the recorded slug keeps the client's
+            # nextUri valid across the restart
+            self.wal.record(
+                _recovery.QUERY_SUBMITTED, q.query_id,
+                sql=sql, user=user, source=source, slug=q.slug,
+                resourceGroup=getattr(group, "name", ""),
+                retryPolicy=str(
+                    self.session.properties.get("retry_policy") or ""
+                ),
+            )
 
         def on_shed(err):
             # queue-deadline shed: structured, retryable, and journaled
@@ -549,6 +730,17 @@ class Coordinator:
         from ..obs import opstats as _opstats
         from ..obs.history import get_store
 
+        if self.wal is not None and q.state in ("FINISHED", "FAILED"):
+            # terminal WAL record: replay after a later restart must not
+            # try to resume (or orphan) a query that already completed
+            self.wal.record(
+                _recovery.QUERY_FINISHED
+                if q.state == "FINISHED"
+                else _recovery.QUERY_FAILED,
+                q.query_id,
+                state=q.state,
+                error=str(q.error)[:400] if q.error else None,
+            )
         tasks = getattr(q, "task_stats", None) or []
         if tasks and q.timeline is None:
             # fresh detector per merge so the timeline's straggler list
@@ -586,6 +778,10 @@ class Coordinator:
                     getattr(q, "plan_signature", "") or "",
                 "operators": (q.timeline or {}).get("operators") or None,
             })
+        try:
+            self._observe_serving(q)
+        except Exception:
+            pass  # observability must never fail the query
         # the doctor's finalize pass: failed AND finished queries get a
         # verdict (HEALTHY is itself a signal), served by
         # GET /v1/query/{id}/diagnosis and system.runtime.diagnoses
@@ -601,6 +797,44 @@ class Coordinator:
             doctor.record_diagnosis(diag)
             q.diagnosis = diag
         self.cluster_memory.forget_query_tenant(q.query_id)
+
+    def _observe_serving(self, q: QueryExecution) -> None:
+        """Feed one terminal query into the serving observatory: the
+        signature census (latency/cost/drift/cache rollup keyed by the
+        canonical plan digest) and the tenant's SLO burn windows.
+        Guarded: shed paths and the dispatch finally block may both
+        finalize the same query."""
+        if getattr(q, "_serving_observed", False):
+            return
+        q._serving_observed = True
+        from ..obs import serving_observatory as _so
+
+        finished = q.finished or time.time()
+        device_wall = host_wall = 0.0
+        drift = None
+        for frame in (q.timeline or {}).get("operators") or []:
+            device_wall += float(frame.get("deviceWallS") or 0.0)
+            host_wall += float(frame.get("hostWallS") or 0.0)
+            est = float(frame.get("estimatedRows", 0.0) or 0.0)
+            obs = float(frame.get("outputRows", 0.0) or 0.0)
+            if est > 0 and obs > 0:
+                ratio = max(est / obs, obs / est)
+                drift = max(drift or 0.0, ratio)
+        _so.get_observatory().observe_query(
+            signature=getattr(q, "plan_signature", "") or "",
+            tenant=getattr(q, "tenant", "") or "",
+            query_id=q.query_id,
+            latency_s=finished - q.created,
+            ok=q.state == "FINISHED",
+            device_wall_s=device_wall,
+            host_wall_s=host_wall,
+            drift_ratio=drift,
+            cache_hit=getattr(q, "result_cache_hit", None),
+            cache_stored=getattr(q, "result_cache_stored", False),
+            families=getattr(q, "kernel_families", ()) or (),
+            node_id=self.node_id,
+            ts=finished,
+        )
 
     def _plan_is_coordinator_only(self, plan) -> bool:
         """True when the plan scans a connector marked coordinator_only
@@ -680,6 +914,14 @@ class Coordinator:
                     raise SchedulerError(
                         "NO_NODES_AVAILABLE: no alive workers to schedule on"
                     )
+                if self.wal is not None:
+                    # the fragment-graph digest is the resume sanity
+                    # check: replayed SQL must re-plan to this shape
+                    # before any committed spool is trusted
+                    self.wal.record(
+                        _recovery.QUERY_PLANNED, q.query_id,
+                        planDigest=_recovery.plan_digest(plan),
+                    )
                 # fragment result cache: a warm deterministic plan skips
                 # scheduling entirely (the coordinator-side tier — workers
                 # never see the query)
@@ -690,21 +932,31 @@ class Coordinator:
                     return hit
                 with q.lock:
                     q.state = "RUNNING"
+                props = self.session.properties
                 task_props = self._task_properties()
                 try:
                     # the query span parents every scheduler dispatch made
                     # on this thread (traceparent rides the task POSTs), so
                     # worker task spans join this trace
                     with TRACER.span("query", query_id=q.query_id):
-                        sched = DistributedScheduler(
-                            self.session.catalogs, workers, task_props,
-                            memory_view=self.cluster_memory,
-                            node_manager=self.node_manager,
-                        )
-                        page = sched.run(plan, q.query_id)
-                        # per-task stats rollup (TaskStats -> QueryStats)
-                        q.task_stats = getattr(sched, "last_task_stats", [])
-                        q.sched_timings = dict(sched.timings)
+                        if props.get("retry_policy") == "task":
+                            page = self._run_fte(q, plan)
+                        elif props.get("retry_policy") == "query":
+                            page = self._run_with_query_retries(
+                                q, plan, workers, task_props, props
+                            )
+                        else:
+                            sched = DistributedScheduler(
+                                self.session.catalogs, workers, task_props,
+                                memory_view=self.cluster_memory,
+                                node_manager=self.node_manager,
+                            )
+                            page = sched.run(plan, q.query_id)
+                            # per-task stats rollup (TaskStats -> QueryStats)
+                            q.task_stats = getattr(
+                                sched, "last_task_stats", []
+                            )
+                            q.sched_timings = dict(sched.timings)
                 finally:
                     TRACER.flush()
                 if rkey is not None:
@@ -727,6 +979,14 @@ class Coordinator:
                 props.get("query_max_memory_bytes"),
             "spill_enabled": props.get("spill_enabled"),
             "dynamic_filtering": props.get("dynamic_filtering"),
+            "speculative_execution":
+                props.get("speculative_execution"),
+            "fte_max_attempts": props.get("fte_max_attempts"),
+            "fte_task_timeout_s": props.get("fte_task_timeout_s"),
+            "fte_speculation_factor":
+                props.get("fte_speculation_factor"),
+            "fte_speculation_min_s":
+                props.get("fte_speculation_min_s"),
             "fault_injection": props.get("fault_injection"),
             "memory_blocked_timeout_s":
                 props.get("memory_blocked_timeout_s"),
@@ -734,7 +994,11 @@ class Coordinator:
                 props.get("exchange_retry_attempts"),
             "exchange_retry_budget_s":
                 props.get("exchange_retry_budget_s"),
+            # adaptive replanning: estimate-vs-observed divergence
+            # threshold + the broadcast cutoff the flip re-checks
             "statistics_enabled": props.get("statistics_enabled"),
+            "adaptive_replan_factor":
+                props.get("adaptive_replan_factor"),
             "broadcast_join_threshold_rows":
                 props.get("broadcast_join_threshold_rows"),
             # the fused scan->filter->aggregate kernel: a worker fuses
@@ -754,6 +1018,119 @@ class Coordinator:
             "straggler_dispersion_factor":
                 props.get("straggler_dispersion_factor"),
         }
+
+    def _run_fte(
+        self,
+        q: QueryExecution,
+        plan,
+        qid: Optional[str] = None,
+        precommitted=None,
+        wal_qid: Optional[str] = None,
+    ) -> Page:
+        """One FTE (retry_policy=task) run with WAL intent hooks bound
+        to ``wal_qid`` — always the ORIGINAL query id, so that a resumed
+        run (which spools under an epoch-suffixed ``qid``) keeps
+        journaling against the same replay key and a second crash
+        resumes from the union of both epochs' committed records."""
+        from .fte import FaultTolerantScheduler
+
+        wal_key = wal_qid or q.query_id
+        on_dispatch = on_commit = None
+        if self.wal is not None:
+            def on_dispatch(task_id, uri):
+                self.wal.record(
+                    _recovery.TASK_DISPATCHED, wal_key,
+                    taskId=task_id, uri=uri,
+                )
+
+            def on_commit(sig, task_index, path):
+                self.wal.record(
+                    _recovery.TASK_COMMITTED, wal_key,
+                    fragmentSig=sig, taskIndex=task_index,
+                    spoolPath=path,
+                )
+
+        fte = FaultTolerantScheduler(
+            self.session.catalogs, self.node_manager,
+            properties=self._task_properties(),
+            metadata=self.session.metadata,
+            precommitted=precommitted,
+            on_dispatch=on_dispatch, on_commit=on_commit,
+        )
+        page = fte.run(plan, qid or q.query_id)
+        q.adaptive_actions = fte.adaptive_actions
+        q.task_stats = [
+            {"taskId": t["taskId"], "uri": t["uri"], **t["stats"]}
+            for t in getattr(fte, "task_stats", [])
+        ]
+        q.sched_timings = dict(fte.timings)
+        q.straggler_flags = list(
+            getattr(getattr(fte, "straggler", None), "flags", ())
+        )
+        return page
+
+    def _run_with_query_retries(
+        self, q: QueryExecution, plan, workers, task_props, props
+    ) -> Page:
+        """retry-policy=QUERY (the pre-Tardigrade fault tolerance level):
+        the pipelined scheduler streams between live tasks with no spool,
+        so any mid-flight failure poisons the whole run — recovery is a
+        bounded whole-query re-dispatch against a REFRESHED alive-worker
+        set, with backoff long enough for the failure detector to retire
+        the dead node first.  Each attempt runs under a suffixed query id
+        so worker task state from the doomed attempt can never collide
+        with (or be idempotently returned to) the retry."""
+        from ..exec.exchange_client import RemoteTaskError
+        from ..serde import PageIntegrityError
+        from .scheduler import DistributedScheduler, SchedulerError
+
+        max_retries = int(
+            props.get("query_retry_attempts") or QUERY_RETRY_ATTEMPTS
+        )
+        last_error: Optional[Exception] = None
+        for attempt in range(max_retries + 1):
+            if attempt:
+                q.retry_count = attempt
+                REGISTRY.counter(
+                    "trino_tpu_query_retry_total",
+                    "Whole-query re-dispatches under retry_policy=query",
+                ).inc()
+                time.sleep(QUERY_RETRY_BASE_S * (2 ** (attempt - 1)))
+                # re-resolve placement: the failed worker must be gone
+                # from (or back in) the alive set before we re-dispatch
+                deadline = time.time() + 10.0
+                while time.time() < deadline:
+                    workers = self.node_manager.alive()
+                    if workers:
+                        break
+                    time.sleep(0.1)
+                if not workers:
+                    raise SchedulerError(
+                        "NO_NODES_AVAILABLE: no alive workers for "
+                        f"query retry {attempt}"
+                    )
+            qid = (
+                q.query_id if attempt == 0 else f"{q.query_id}-r{attempt}"
+            )
+            try:
+                sched = DistributedScheduler(
+                    self.session.catalogs, workers, task_props,
+                    node_manager=self.node_manager,
+                )
+                page = sched.run(plan, qid)
+                q.task_stats = getattr(sched, "last_task_stats", [])
+                q.sched_timings = dict(sched.timings)
+                return page
+            except (
+                SchedulerError, RemoteTaskError, PageIntegrityError,
+                OSError,  # URLError/ConnectionError: task POST hit a
+                          # dead worker before any error translation ran
+            ) as e:
+                last_error = e
+        raise SchedulerError(
+            f"query failed after {max_retries} whole-query retries: "
+            f"{last_error}"
+        )
 
     def query_profile(self, q: QueryExecution) -> dict:
         """Per-query kernel profile (GET /v1/query/{id}/profile):
@@ -829,6 +1206,17 @@ class Coordinator:
             "summary": summary,
             "tasks": tasks,
         }
+
+    def in_recovery_window(self) -> bool:
+        """True while a restarted coordinator may still be replaying its
+        WAL: polls for query ids we don't know yet answer 503 +
+        Retry-After (the client waits) instead of 404 (the client would
+        fail).  Closed as soon as the recovery pass finishes — after
+        that an unknown id is genuinely unknown."""
+        r = self.recovery
+        if r is None or r.done.is_set():
+            return False
+        return time.time() < self.started + r.window_s
 
     def cancel(self, query_id: str):
         q = self.queries.get(query_id)
@@ -1048,7 +1436,7 @@ class _Handler(BaseHTTPRequestHandler):
                 # as the one executing node when no workers announced)
                 "activeWorkers": len(nm.alive()) if nm is not None else 1,
                 "uptimeSeconds": time.time() - co.started,
-                # restart-recovery outcome (0/0: no recovery WAL)
+                # restart-recovery outcome (0/0 when no WAL configured)
                 "recoveredQueries": co.recovered_queries,
                 "orphanedQueries": co.orphaned_queries,
             })
@@ -1076,6 +1464,39 @@ class _Handler(BaseHTTPRequestHandler):
                 "summary": obs.rollup(),
                 "compiles": obs.tail(256),
                 "census": obs.merged_census().snapshot(),
+            })
+            return
+        if self.path == "/v1/signatures":
+            # the signature census (HTTP face of
+            # system.runtime.plan_signatures), busiest shapes first,
+            # each annotated with its warmest node
+            from ..obs import serving_observatory as _so
+
+            obs = _so.get_observatory()
+            self._json(200, {
+                "signatures": obs.signature_rows(),
+                "top": obs.top_signatures(10, local_node_id=co.node_id),
+            })
+            return
+        if self.path == "/v1/affinity":
+            # per-node warmth per signature (HTTP face of
+            # system.runtime.signature_affinity) — the locality-aware
+            # dispatcher's input table
+            from ..obs import serving_observatory as _so
+
+            self._json(200, {
+                "affinity": _so.get_observatory().affinity_rows(
+                    local_node_id=co.node_id
+                ),
+            })
+            return
+        if self.path == "/v1/slo":
+            # per-tenant objectives + live multi-window burn rates
+            # (HTTP face of system.runtime.slos)
+            from ..obs import serving_observatory as _so
+
+            self._json(200, {
+                "slos": _so.get_observatory().slo_rows(),
             })
             return
         if self.path == "/v1/cache":
@@ -1145,7 +1566,7 @@ class _Handler(BaseHTTPRequestHandler):
                         ((q.finished or time.time()) - q.created) * 1000
                     ),
                     "outputRows": q.page.count if q.page else None,
-                    # whole-query re-dispatches (0: no retry_policy)
+                    # whole-query re-dispatches under retry_policy=query
                     "retryCount": q.retry_count,
                     # per-task rollup (OperatorStats->TaskStats->QueryStats
                     # hierarchy analog): totals + the per-task detail
@@ -1183,6 +1604,16 @@ class _Handler(BaseHTTPRequestHandler):
         ):
             _, _, _, qid, slug, token = parts
             q = co.queries.get(qid)
+            if q is None and co.in_recovery_window():
+                # restart transparency: this id may still be sitting in
+                # the WAL scan — tell the client to wait, not to die
+                self._json(
+                    503,
+                    {"error": "coordinator recovering; retry shortly",
+                     "retryable": True},
+                    headers={"Retry-After": "1"},
+                )
+                return
             if q is None or q.slug != slug:
                 self._json(404, {"error": "query not found"})
                 return
@@ -1220,6 +1651,7 @@ class CoordinatorServer:
                  distributed: bool = False,
                  resource_groups: Optional[dict] = None,
                  authenticator=None,
+                 fault_injection: Optional[dict] = None,
                  device=None):
         # the coordinator runs where its session runs: CUDA unless the
         # caller asks for "cpu" (and then the session must be there too)
@@ -1232,6 +1664,7 @@ class CoordinatorServer:
         self.coordinator = Coordinator(
             session, distributed=distributed,
             resource_groups=resource_groups, authenticator=authenticator,
+            fault_injection=fault_injection,
         )
         handler = type("Handler", (_Handler,), {"coordinator": self.coordinator})
         # serving posture: the stdlib default listen backlog of 5 resets

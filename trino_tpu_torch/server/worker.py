@@ -7,7 +7,9 @@ executors there.  It has no CPU fallback: a fragment that faults fails
 its task with DeviceFaultError (the error rides the task status and the
 exchange to the coordinator and its client), the card is quarantined
 and the node announces QUARANTINED until the canary passes.  Left out:
-the cross-host mesh executor and the fault-tolerant spool write.
+the cross-host mesh executor.  Under fault-tolerant execution a task's
+output frames go to its spool directory (``spool_path``) instead of the
+worker's memory, and its inputs are read back from the producers' spools.
 
 Reference parity:
   - POST /v1/task/{taskId} create-or-update with fragment+splits+buffers
@@ -22,8 +24,9 @@ Reference parity:
   - fault injection (execution/FailureInjector.java:39,61 wired into
     TaskResource.injectFailure:183): the seeded FaultInjector
     (utils/faults.py) drives every chaos site — task_run/task_stall at
-    task start, exchange_fetch inside the exchange client, heartbeat in
-    the announcer.  Tasks carrying a ``fault_injection`` property share one
+    task start, exchange_fetch/spool_read inside the exchange client,
+    spool_write_corrupt on the FTE spool write, heartbeat in the
+    announcer.  Tasks carrying a ``fault_injection`` property share one
     injector per spec (per worker), so nth-call rules count across a
     query; POST /v1/task/{taskId}/fail keeps its taskId-addressed
     one-shot semantics through the same harness.
@@ -159,6 +162,36 @@ class TaskManager:
         with self.lock:
             self.tasks.pop(task_id, None)
 
+    def _spool(self, t: TaskExecution, spool_path: str, inj):
+        """FTE mode: durable spool instead of in-memory serving
+        (spi/exchange ExchangeSink; survives this worker's death).  The
+        frames serialized from the device pages (one copy down a page)
+        go to the spool as they are; consumers read only the spool, so
+        the RAM copy is dropped."""
+        from ..exchange.filesystem import SpoolHandle
+
+        with t.lock:
+            bufs = t.buffers
+        if inj.enabled():
+            # chaos site: flip a bit in a spool-bound frame AFTER
+            # serialization — the commit still happens, so the
+            # corruption is only detectable by the read-side CRC
+            bufs = {
+                bid: [
+                    inj.corrupt("spool_write_corrupt", fr, key=t.task_id)
+                    for fr in frames
+                ]
+                for bid, frames in bufs.items()
+            }
+        t_w = time.perf_counter()
+        with TRACER.span("spool_write", path=spool_path):
+            SpoolHandle(spool_path).write_buffers(bufs)
+        t.stats["spoolWriteS"] = time.perf_counter() - t_w
+        t.stats["spoolWriteBytes"] = sum(
+            len(f) for fs in bufs.values() for f in fs)
+        with t.lock:
+            t.buffers = {}
+
     def _make_executor(self, config, splits_by_scan, remote_pages, dfs):
         """The fragment executor of one task, on this worker's device."""
         config["device"] = self.device
@@ -279,6 +312,11 @@ class TaskManager:
                     kn.counting_launches() as launches:
                 page = ex.execute(plan)
             wall_s = _time.time() - _t0
+            with t.lock:
+                if t.state == "ABORTED":
+                    # the executor freed its reservation when its run
+                    # ended; the page's tensors go with this frame
+                    return
             from ..obs import opstats as _opstats
 
             frames = (
@@ -301,6 +339,9 @@ class TaskManager:
                 "exchangeBytes": int(client.last_fetch_bytes),
                 "blockedExchangeS": ex.blocked_exchange_s,
                 "deserializeS": float(client.last_deserialize_s),
+                # fault-tolerant mode: the part of it read from spool files
+                "spoolReadBytes": int(client.last_spool_bytes),
+                "spoolReadS": float(client.last_spool_read_s),
                 "dynamicFilterRowsPruned": ex.df_rows_pruned,
                 "scanBytes": ex.scan_bytes,
                 "outputRows": page.count,
@@ -355,6 +396,12 @@ class TaskManager:
                 t.buffers.update(frames)
                 for bid in range(len(parts), nbuffers):
                     t.buffers[bid] = []
+            # the output lives on as frames: free its device pages before
+            # the spool write, which may take seconds
+            del page, parts
+            spool_path = doc.get("spool_path")
+            if spool_path:
+                self._spool(t, spool_path, inj)
             with t.lock:
                 if t.state == "ABORTED":
                     return
@@ -670,6 +717,10 @@ class WorkerServer:
     def stop(self):
         self._stop.set()
         self.httpd.shutdown()
+        # a stopped worker refuses connections at once, as a dead process
+        # does: a listening socket nobody serves would hold every caller
+        # (a consumer's fetch, the scheduler's POST) to its socket timeout
+        self.httpd.server_close()
 
     def start_drain(self):
         """PUT /v1/info/state DRAINING (NodeState.DRAINING analog):

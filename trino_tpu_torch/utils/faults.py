@@ -1,10 +1,10 @@
 """Seeded fault injection: the chaos harness behind the robustness tests.
 
 Counterpart of trino_tpu/utils/faults.py (copied; firings count through
-the port's utils/metrics counters and go to its obs/journal).  The
-sites of the server slice (spool, exchange, task, heartbeat, worker and
-coordinator death) are listed so a spec that names them parses in both
-packages; only the sites whose machinery the port has fire today.
+the port's utils/metrics counters and go to its obs/journal).  Every
+site fires in the port as in the JAX package: the device sites at the
+supervised kernel boundary, the spool, exchange, task, heartbeat, worker
+and coordinator-death sites on the server path.
 
 Reference parity: execution/FailureInjector.java (taskId-addressed one-shot
 failures wired through TaskResource's failTask endpoint) generalized into
