@@ -52,11 +52,12 @@ Phases (any failure exits non-zero and prints no result line):
      BERNOULLI (10) and SYSTEM (100) over all 60 M lineitem rows, an ETL
      sequence into the memory catalog (CTAS of all 15 M orders, INSERT
      ... SELECT, DELETE, UPDATE, MERGE, each read back with the scan
-     cache on), the JSON, URL, md5, crc32 and base64 functions over 1.5 M
-     customers, and a MATCH_RECOGNIZE V shape over the orders of the
-     first 15,000 customers: cold once and warm once, with launches,
-     peak memory and exact numpy or Python checks (the five string
-     families read the first 150,000 customers);
+     cache on), the JSON, md5, crc32 and base64 functions over 1.5 M
+     customers and the URL functions over the 100,000 suppliers, and a
+     MATCH_RECOGNIZE V shape over the orders of the first 15,000
+     customers: cold once and warm once, with launches, peak memory and
+     exact numpy or Python checks (the four customer string families
+     read the first 150,000 customers);
   7. each kernel timed with CUDA events at the main path's shapes beside
      its bound, its plain version and, where one exists, one PyTorch call
      computing the same function;
@@ -129,6 +130,20 @@ Phases (any failure exits non-zero and prints no result line):
      loop is the subject, not the scan): a backlog scales out one
      worker_main subprocess on the card, thinner load scales it in, no
      query fails; no process rebuilt a kernel library;
+  7f. `multihost`: the cross-host mesh on the card at TPC-H SF10: a
+     coordinator in this process and two worker_main processes on the
+     card, each a host with 2 logical shards (--local-devices 2), under
+     cross_host_mesh: Q6, Q1 with megakernels off, Q3 over broadcast
+     joins and a grouped count(DISTINCT) through the StatementClient,
+     each cold once and warm once, pages held to the one-device pages
+     byte for byte; every host ran its slice tasks over its shards
+     (grouped_count, grouped_sum_i64 and direct_probe launched there, by
+     the tasks' counts), compiled mesh-mode fragments and fetched pages
+     from the other host (its /metrics); each host process's device
+     peak; then a third host, stalled before each task, killed with -9
+     mid-Q3 under retry_policy = task: the page the one-device page,
+     tasks that ran once (committed spools reused), HOST_GONE
+     journaled; no host rebuilt a kernel library;
   8. TPC-DS SF3 (8.6 M store_sales rows; SF10 until the mesh phase
      needed the call's time), the TPC-H session freed
      first: the 22 statements of tests/test_tpcds.py, its null-FK
@@ -1874,8 +1889,11 @@ MR_CUSTKEY_MAX = 15000
 STR_CUSTKEY_MAX = 150000
 EXT_REPS = 1                 # warm runs (cut from 2 for the call's budget)
 JSON_DOC = "concat('{\"id\": \"', c_name, '\", \"tags\": [\"a\", \"b\"]}')"
-URL_HOST = "concat('https://', replace(c_name, '#', '-'), '.shop.example.com:8080/c?q=1')"
-URL_QUERY = "concat('https://shop.example.com/c?name=', replace(c_name, '#', '%23'), '&page=2')"
+# the URL functions read supplier names (100,000 at SF10): a host
+# dictionary projection runs over the whole dictionary, and over the
+# 1.5 M customer names its cold run took 43.5 s of the call's budget
+URL_HOST = "concat('https://', replace(s_name, '#', '-'), '.shop.example.com:8080/c?q=1')"
+URL_QUERY = "concat('https://shop.example.com/c?name=', replace(s_name, '#', '%23'), '&page=2')"
 EXT_SQL = {
     "EXPLODE-WORDS":
         "select w, count(*) n from part cross join unnest(split(p_name, ' ')) as t(w) "
@@ -1904,7 +1922,7 @@ EXT_SQL = {
     "URL":
         f"select count(distinct h) dh, max(h) mh, count(distinct p) dp, min(p) mp from "
         f"(select url_extract_host({URL_HOST}) h, url_extract_parameter({URL_QUERY}, "
-        f"'name') p from customer where c_custkey <= {STR_CUSTKEY_MAX})",
+        f"'name') p from supplier)",
     "MD5": "select count(distinct md5(c_name)) d, min(md5(c_name)) lo from customer "
            f"where c_custkey <= {STR_CUSTKEY_MAX}",
     "CRC32": f"select sum(crc32(c_phone)) from customer where c_custkey <= {STR_CUSTKEY_MAX}",
@@ -2046,10 +2064,12 @@ def check_strings(s, pages):
         "MD5": [(len(set(md5)), min(md5))],
         "BASE64": [(len(set(b64)), max(b64))],
     }
+    cols, dicts = _scan_host_columns(s, ["s_name"], "supplier")
+    supp = _strings(cols, dicts, "s_name").tolist()
     hosts = [urlparse("https://" + c.replace("#", "-") + ".shop.example.com:8080/c?q=1").hostname
-             for c in names]
+             for c in supp]
     params = [parse_qs(urlparse("https://shop.example.com/c?name=" + c.replace("#", "%23")
-                                + "&page=2").query)["name"][0] for c in names]
+                                + "&page=2").query)["name"][0] for c in supp]
     want["URL"] = [(len(set(hosts)), max(hosts), len(set(params)), min(params))]
     cols, dicts = _scan_host_columns(s, ["c_phone", "c_custkey"], "customer")
     d = dicts["c_phone"]
@@ -2058,7 +2078,8 @@ def check_strings(s, pages):
     want["CRC32"] = [(int(np.bincount(phones, minlength=len(d)) @ crc),)]
     for q, rows in want.items():
         _expect_rows(q, pages[q].to_pylist(), rows)
-    _log(f"[ext] JSON, URL, MD5, CRC32 and BASE64 over {len(names)} customers agree "
+    _log(f"[ext] JSON, MD5, CRC32 and BASE64 over {len(names)} customers and URL over "
+         f"{len(supp)} suppliers agree "
          f"with Python's json, urllib.parse, hashlib, zlib and base64")
 
 
@@ -3434,10 +3455,10 @@ def _serialize_device_page(host, dev):
          f"the host page's, {wall * 1e3:.1f} ms")
 
 
-def _worker_info(uri):
+def _worker_info(uri, what="info"):
     import urllib.request
 
-    with urllib.request.urlopen(f"{uri}/v1/info", timeout=5.0) as r:
+    with urllib.request.urlopen(f"{uri}/v1/{what}", timeout=5.0) as r:
         return json.loads(r.read())
 
 
@@ -4107,6 +4128,260 @@ def _fte_autoscaler(dev, qs, card):
          f"{len(results)} queries, 0 failed, every answer the one-device page's; "
          f"actions {actions}; the subprocess worker's device pool "
          f"{runner.autoscale_device_bytes} bytes")
+
+
+# ---------------------------------------------------------------------------
+# phase 7f: the cross-host mesh: worker processes as hosts of one cluster,
+# each running the slice-eligible fragments over its own shards of the card
+
+
+MH_HOSTS = 2                 # host processes (worker_main --local-devices MH_SHARDS)
+MH_SHARDS = 2                # logical shards of the card in each host
+MH_STALL_S = 3.0             # the victim host's stall before each of its tasks
+# statement -> (SQL key or text, session properties, kernels the hosts'
+# slice tasks must launch at least this often a run, summed over them)
+MH_STATEMENTS = {
+    "Q6": ("Q6", {"megakernels": "auto"},
+           {"grouped_count": MH_HOSTS * MH_SHARDS, "grouped_sum_i64": MH_HOSTS * MH_SHARDS}),
+    "Q1": ("Q1", {"megakernels": "off"},
+           {"grouped_count": MH_HOSTS * MH_SHARDS, "grouped_sum_i64": MH_HOSTS * MH_SHARDS}),
+    # a broadcast build side is what makes Q3's probe fragments slices
+    "Q3": ("Q3", {"megakernels": "auto", "join_distribution_type": "broadcast"},
+           {"direct_probe": 2 * MH_HOSTS * MH_SHARDS}),
+    "QD": (MESH_DISTINCT_SQL, {}, {}),
+}
+
+
+def _multihost_reference_pages(qs):
+    """Each statement's page on one device at SF10: the main path's pages
+    where that phase ran, the rest in its session (or in a session of
+    its own with --phase multihost)."""
+    from trino_tpu_torch.session import tpch_session
+
+    s = MAIN.get("session") or _card_session(tpch_session, MAIN_SF)
+    done = MAIN.get("pages", {})
+    pages = {}
+    for label, (sql, props, _k) in MH_STATEMENTS.items():
+        if (label, props.get("megakernels", "auto")) in done:
+            pages[label] = done[(label, props.get("megakernels", "auto"))]
+            continue
+        _set_session(s, {**SERVER_DEFAULTS, **props})
+        pages[label] = s.execute(qs.get(sql, sql))
+    _set_session(s, SERVER_DEFAULTS)
+    return pages
+
+
+def _host_metrics(uri):
+    """A host's mesh-mode compile events and cross-host fetch bytes, from
+    its /metrics."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"{uri}/metrics", timeout=5.0) as r:
+        text = r.read().decode()
+
+    def value(pattern):
+        m = re.search(pattern, text, re.M)
+        return float(m.group(1)) if m else 0.0
+
+    return (value(r'^trino_tpu_compile_events_total\{[^}]*mode="mesh"[^}]*\} (\S+)'),
+            value(r"^trino_tpu_exchange_cross_host_fetch_bytes (\S+)"))
+
+
+def _by_host(tasks):
+    """The tasks of a run by host: slice tasks (run over the host's
+    shards), one-device tasks, the slice tasks' launches, the process's
+    device peak."""
+    out = {}
+    for t in tasks:
+        h = out.setdefault(t["uri"], {"slices": 0, "one": 0, "peak": 0,
+                                      "launches": dict.fromkeys(KERNEL_FNS, 0)})
+        shards = ((t.get("kernelProfile") or {}).get("mesh") or {}).get("shards")
+        if shards:
+            if shards != MH_SHARDS:
+                raise AssertionError(f"a slice task ran over {shards} shards")
+            h["slices"] += 1
+            for k, n in (t.get("kernelLaunches") or {}).items():
+                h["launches"][k] += n
+        else:
+            h["one"] += 1
+        h["peak"] = max(h["peak"], t.get("devicePeakBytes") or 0)
+    return out
+
+
+def phase_multihost(dev):
+    """The cross-host mesh at SF10: a coordinator in this process and
+    MH_HOSTS worker_main processes on the card, each a host with
+    MH_SHARDS logical shards (--local-devices), under cross_host_mesh:
+    Q6, Q1 with megakernels off, Q3 over broadcast joins and a grouped
+    count(DISTINCT), each cold once and warm once through the
+    StatementClient, pages held to the one-device pages; every host ran
+    slice tasks over its shards (their launches from the tasks'
+    profiles), compiled mesh-mode fragments and fetched bytes from the
+    other host; then a third, stalled host killed with -9 mid-Q3 under
+    retry_policy = task, the page the one-device page, committed spools
+    reused, HOST_GONE journaled."""
+    import threading
+
+    from trino_tpu_torch import convert
+    from trino_tpu_torch.memory import detect_device_bytes
+    from trino_tpu_torch.obs import journal
+    from trino_tpu_torch.server.fte import FaultTolerantScheduler
+    from trino_tpu_torch.sql.parser import parse
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    qs = _tpch_sql()
+    t_ref = time.perf_counter()
+    want = _multihost_reference_pages(qs)
+    _log(f"[multihost] one-device reference pages in {time.perf_counter() - t_ref:.1f} s")
+    libs = _built_libraries()
+    card = detect_device_bytes(device=dev)
+    # each host's device pool: a sixth of the card, so MH_HOSTS + 1 hosts
+    # and this process's resident main-path scans fit on it together
+    share = card // 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = DistributedQueryRunner(
+        workers=0, catalogs=(("tpch", "tpch", {"tpch.scale-factor": MAIN_SF}),),
+        properties={"result_cache": False, "cross_host_mesh": True,
+                    "query_max_memory_bytes": share, "node_gone_grace_s": 1.5},
+        startup_timeout=60.0, device=dev)
+    co = runner.coordinator.coordinator
+    try:
+        threads = [threading.Thread(target=runner.add_subprocess_worker, kwargs=dict(
+            startup_timeout=120.0, local_devices=MH_SHARDS, process_index=i,
+            device_memory_bytes=share)) for i in range(MH_HOSTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        hosts = [uri for _p, _n, uri in runner.subprocess_workers]
+        topo = co.cluster_topology
+        if len(hosts) != MH_HOSTS or topo.global_device_count() != MH_HOSTS * MH_SHARDS:
+            raise AssertionError(f"hosts {hosts}, topology {[vars(x) for x in topo.slices()]}")
+        _log(f"[multihost] coordinator and {MH_HOSTS} host processes up in "
+             f"{time.perf_counter() - t0:.1f} s: {topo.hosts()}, {MH_SHARDS} shards each "
+             f"({topo.global_device_count()} in the cluster), device pool {share} bytes "
+             f"a host of the card's {card}")
+        total = {h: dict.fromkeys(KERNEL_FNS, 0) for h in hosts}
+        peaks = dict.fromkeys(hosts, 0)
+        warm = {}
+        for label, (sql, props, want_k) in MH_STATEMENTS.items():
+            for k, v in {**SERVER_DEFAULTS, **props}.items():
+                runner.execute(f"set session {k} = '{v}'")
+            text = qs.get(sql, sql)
+            walls = []
+            for run in ("cold", "warm"):
+                wall, rows, tasks, _l, split = _server_run(runner, text, want[label])
+                walls.append(wall)
+                per = _by_host(tasks)
+                for h in hosts:
+                    if not per.get(h, {}).get("slices"):
+                        raise AssertionError(f"multihost {label}: host {h} ran no slice "
+                                             f"task ({per})")
+                    for k, n in per[h]["launches"].items():
+                        total[h][k] += n
+                    peaks[h] = max(peaks[h], per[h]["peak"])
+                got = {k: sum(p["launches"][k] for p in per.values()) for k in KERNEL_FNS}
+                for name, n in want_k.items():
+                    if got[name] < n:
+                        raise AssertionError(f"multihost {label} ({run}): {name} launched "
+                                             f"{got[name]} times in the slice tasks, want "
+                                             f">= {n}")
+                _log(f"[multihost] {label} ({run}): {wall * 1e3:.3f} ms on the client's "
+                     f"clock; {len(tasks)} tasks ("
+                     + "; ".join(f"host {h[-5:]}: {p['slices']} slice, {p['one']} one-device, "
+                                 f"slice launches {p['launches']}"
+                                 for h, p in per.items())
+                     + f"); {_fmt_split(split)}; {len(rows)} rows, page equal to the "
+                     f"one-device page")
+            warm[label] = walls[1]
+        launches = {k: sum(t[k] for t in total.values()) for k in KERNEL_FNS}
+        for name in ("grouped_count", "grouped_sum_i64", "direct_probe"):
+            if launches[name] == 0:
+                raise AssertionError(f"{name} never launched in a slice task ({total})")
+        MAIN["multihost_launches"] = launches
+        for h in hosts:
+            compiles, fetched = _host_metrics(h)
+            if compiles <= 0 or fetched <= 0:
+                raise AssertionError(f"host {h}: mesh-mode compiles {compiles}, cross-host "
+                                     f"fetch bytes {fetched}")
+            _log(f"[multihost] host {h}: slice-task launches {total[h]}; mesh-mode compile "
+                 f"events {compiles:g}; cross-host fetch bytes {fetched:g}; process device "
+                 f"peak {peaks[h] / 2**30:.2f} GiB")
+        _log(f"[multihost] slice launches summed over the hosts' tasks: {launches}; warm "
+             f"walls " + ", ".join(f"{k} {w * 1e3:.3f} ms" for k, w in warm.items())
+             + f"; this process's device peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+             f" GiB (the coordinator, with the main path's resident scans)")
+
+        # a third host, stalled before each task, killed with -9 mid-Q3
+        runner.execute("set session join_distribution_type = 'broadcast'")
+        t1 = time.perf_counter()
+        _p, victim_id, victim = runner.add_subprocess_worker(
+            startup_timeout=120.0, local_devices=MH_SHARDS, device_memory_bytes=share,
+            fault_injection={"task_stall": {"stall_s": MH_STALL_S}})
+        up = time.perf_counter() - t1
+        fired = []
+
+        def kill_when_busy():
+            deadline = time.time() + 120.0
+            while time.time() < deadline:
+                try:
+                    if _worker_info(victim, "status")["activeTasks"] >= 1:
+                        break
+                except Exception:  # noqa: BLE001 — dead already: kill below
+                    break
+                time.sleep(0.02)
+            runner.sigkill_subprocess_worker()
+            fired.append(time.perf_counter())
+
+        killer = threading.Thread(target=kill_when_busy, daemon=True)
+        killer.start()
+        fte = FaultTolerantScheduler(
+            runner.session.catalogs, co.node_manager,
+            properties={**co._task_properties(), "retry_policy": "task",
+                        "cross_host_mesh": True, "speculative_execution": False})
+        plan = runner.session._plan_stmt(parse(qs["Q3"]))
+        t2 = time.perf_counter()
+        page = fte.run(plan, "q_multihost_kill9")
+        wall = time.perf_counter() - t2
+        killer.join(timeout=120.0)
+        if not fired:
+            raise AssertionError("the victim host was never killed")
+        convert.assert_pages_identical(want["Q3"], page)
+        attempts = {}
+        for uri, task_id in fte._created_tasks:
+            _q, frag, idx, _att = task_id.rsplit(".", 3)
+            attempts.setdefault((frag, idx), []).append(uri)
+        retried = {k: v for k, v in attempts.items() if len(v) > 1}
+        single = [k for k, v in attempts.items() if len(v) == 1]
+        if not any(victim in v for v in retried.values()) or not single:
+            raise AssertionError(f"kill -9: attempts {attempts}")
+        deadline = time.time() + 30.0
+        while time.time() < deadline and not any(
+                e["eventType"] == journal.HOST_GONE and e.get("nodeId") == victim_id
+                for e in journal.get_journal().tail()):
+            time.sleep(0.1)
+        gone = [e for e in journal.get_journal().tail()
+                if e["eventType"] == journal.HOST_GONE and e.get("nodeId") == victim_id]
+        if not gone or topo.slice_for(victim_id) is not None:
+            raise AssertionError("the killed host was never journaled HOST_GONE")
+        _log(f"[multihost] kill -9: a third host (stalled {MH_STALL_S:g} s a task) up in "
+             f"{up:.1f} s, killed {fired[0] - t2:.2f} s into Q3 under retry_policy = "
+             f"task; Q3 answered in {wall:.2f} s, page equal to the one-device page; "
+             f"{len(retried)} task(s) re-run after an attempt on the dead host, "
+             f"{len(single)} ran once (committed spools reused); HOST_GONE "
+             f"{gone[-1].get('detail')}")
+        failed = [q.query_id for q in co.queries.values() if q.state == "FAILED"]
+        if failed:
+            raise AssertionError(f"failed queries: {failed}")
+    finally:
+        runner.stop()
+    now = _built_libraries()
+    if now != libs:
+        raise AssertionError(f"a host rebuilt the kernel libraries: {libs} -> {now}")
+    _log(f"[multihost] no host rebuilt the {len(libs)} kernel libraries (no nvcc run); "
+         f"0 failed queries")
 
 
 # ---------------------------------------------------------------------------
@@ -5425,7 +5700,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "gen", "session", "main", "ext", "ooc",
-                             "ds", "faults", "lake", "obs", "mesh", "server", "fte"],
+                             "ds", "faults", "lake", "obs", "mesh", "server", "fte",
+                             "multihost"],
                     help="run only the build and kernel phases, only the build "
                          "and the SF10 on-device generator against the host "
                          "generator, only the build and the SF1 session "
@@ -5444,7 +5720,9 @@ def main(argv=None) -> int:
                          "build and the server path (a coordinator and workers on the card, "
                          "through the statement client), or only the build and fault-"
                          "tolerant execution (retry_policy = task over the spool, seeded "
-                         "faults, coordinator recovery, the autoscaler)")
+                         "faults, coordinator recovery, the autoscaler), or only the "
+                         "build and the cross-host mesh (worker processes as hosts, each "
+                         "running slices over its own shards of the card)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm run of each SF10 query; in the fte phase, "
                          "also break down Q3 partitioned's spool read")
@@ -5493,6 +5771,8 @@ def main(argv=None) -> int:
         phases.append(("server", lambda: phase_server(dev)))
     elif args.phase == "fte":
         phases.append(("fte", lambda: phase_fte(dev, args.profile)))
+    elif args.phase == "multihost":
+        phases.append(("multihost", lambda: phase_multihost(dev)))
     else:
         phases.append(("kernels", lambda: phase_kernels(dev)))
     if args.phase == "all":
@@ -5507,6 +5787,7 @@ def main(argv=None) -> int:
             ("mesh", lambda: phase_mesh(dev, args.profile)),
             ("server", lambda: phase_server(dev)),
             ("fte", lambda: phase_fte(dev, args.profile)),
+            ("multihost", lambda: phase_multihost(dev)),
             ("ooc", lambda: phase_ooc(dev, args.profile)),
             ("ds", lambda: phase_ds(dev, args.profile)),
             ("faults", lambda: phase_faults(dev)),
@@ -5537,12 +5818,14 @@ def main(argv=None) -> int:
         return 1
     print(smi)
     if "kernels" in MAIN:
-        # the mesh, server and FTE paths' launches of each kernel beside the
-        # main path's
+        # the mesh, server, FTE and cross-host paths' launches of each
+        # kernel beside the main path's (multihost: summed over the hosts'
+        # slice tasks, counted in the host processes)
         for row in MAIN["kernels"]:
             row["mesh_launches"] = MAIN.get("mesh_launches", {}).get(row["name"])
             row["server_launches"] = MAIN.get("server_launches", {}).get(row["name"])
             row["fte_launches"] = MAIN.get("fte_launches", {}).get(row["name"])
+            row["multihost_launches"] = MAIN.get("multihost_launches", {}).get(row["name"])
         print(json.dumps({"kernels": MAIN["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,7 +75,7 @@ class _PortImports(ast.NodeTransformer):
     targets) to the port's modules."""
 
     def _rebind(self, node, names):
-        # a module the port does not have yet (the cross-host mesh) binds
+        # a name the port does not have (a module it left out) binds
         # placeholders: only the cases not replayed use it
         missing = "\n".join(f"    {n} = __missing__({n!r})" for n in names)
         guard = ast.parse(f"try:\n    pass\nexcept ImportError:\n{missing}").body[0]
@@ -221,7 +221,8 @@ def _exec_module(filename: str, port: bool):
 _BUILTIN_SPLIT = ("tmp_path",)
 
 
-def replay_module(filename: str, select=None, skip=(), target=None, distinct=()):
+def replay_module(filename: str, select=None, skip=(), target=None, distinct=(),
+                  jax=True):
     """Define, in the calling test module, one test per case of
     tests/<filename> (those named or at the lines in `select`, none in
     `skip`) that runs the JAX case and the port's replay of it and
@@ -230,17 +231,20 @@ def replay_module(filename: str, select=None, skip=(), target=None, distinct=())
     named or at a line in `distinct` runs closed-loop traffic whose
     number of statements follows the clock: its records are compared as
     sets of distinct records (every result either package saw, the other
-    saw too)."""
+    saw too).  With jax=False only the port's replay runs (the caller
+    compares it with the JAX package some other way), and only the
+    port_<module>_<name> fixtures are defined."""
     target = target if target is not None else sys._getframe(1).f_globals
     jns, jfix, jtests = _exec_module(filename, port=False)
     pns, _pfix, _ = _exec_module(filename, port=True)
     stem = filename[:-3]
+    sides = (("jax", jns), ("port", pns)) if jax else (("port", pns),)
 
     def arg_names(fn):
         return list(inspect.signature(fn).parameters)
 
     for name, info in jfix.items():
-        for side, ns in (("jax", jns), ("port", pns)):
+        for side, ns in sides:
             fn = ns[name]
             params = arg_names(fn)
             call_args = ", ".join(
@@ -269,7 +273,7 @@ def replay_module(filename: str, select=None, skip=(), target=None, distinct=())
         wparams = []
         for p in params:
             if p in jfix:
-                wparams += [f"jax_{stem}_{p}", f"port_{stem}_{p}"]
+                wparams += [f"{side}_{stem}_{p}" for side, _ns in sides]
             else:
                 wparams.append(p)
 
@@ -280,15 +284,18 @@ def replay_module(filename: str, select=None, skip=(), target=None, distinct=())
                 for p in params) + "}"
 
         by_set = name in distinct or line in distinct
+        call = (f"_run_pair(_jfn, {kwargs_src('jax')}, _pfn, {kwargs_src('port')},"
+                f" distinct={by_set})" if jax else
+                f"_run_port(_pfn, {kwargs_src('port')})")
         src = "".join(f"@{d}\n" for d in decorators) + (
-            f"def {name}({', '.join(wparams)}):\n"
-            f"    _run_pair(_jfn, {kwargs_src('jax')}, _pfn, {kwargs_src('port')},"
-            f" distinct={by_set})\n")
+            f"def {name}({', '.join(wparams)}):\n    {call}\n")
         env = dict(jns)
-        env.update({"_jfn": jfn, "_pfn": pfn, "_run_pair": run_pair, "_split": _split})
+        env.update({"_jfn": jfn, "_pfn": pfn, "_run_pair": run_pair,
+                    "_run_port": run_port, "_split": _split})
         exec(src, env)
         fn = env[name]
-        fn.__doc__ = f"tests/{filename}:{line} through both packages' servers."
+        fn.__doc__ = (f"tests/{filename}:{line} through both packages' servers."
+                      if jax else f"tests/{filename}:{line} through the port.")
         target[name] = fn
 
 
@@ -325,6 +332,12 @@ def _private_tmp():
         else:
             os.environ["TMPDIR"] = saved[1]
         shutil.rmtree(d, ignore_errors=True)
+
+
+def run_port(pfn, pkw):
+    """Run the port's replay of a case under a temp dir of its own."""
+    with _private_tmp():
+        pfn(**pkw)
 
 
 def run_pair(jfn, jkw, pfn, pkw, distinct=False):

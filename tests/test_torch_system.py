@@ -155,7 +155,7 @@ def test_session_properties_rows_match_jax(pair):
     assert set(port) <= {r[0] for r in js.execute(sql).to_pylist()}
     # each session has a history directory of its own
     assert port.pop("query_history_dir")[1] == jax.pop("query_history_dir")[1] == ""
-    assert len(port) == 73 and port == jax
+    assert len(port) == 74 and port == jax
     for name in ("query_history_max_bytes", "query_doctor",
                  "compile_cache", "compile_cache_dir", "compile_prewarm",
                  "compile_observatory_dir", "compile_census_max_families",
@@ -163,12 +163,12 @@ def test_session_properties_rows_match_jax(pair):
                  "resource_group_queue_deadline_s", "memory_admission_timeout_s",
                  "low_memory_killer_policy", "query_max_total_memory_bytes",
                  "exchange_retry_attempts", "exchange_retry_budget_s",
-                 "dynamic_filtering", "node_gone_grace_s") + A7:
+                 "dynamic_filtering", "node_gone_grace_s", "cross_host_mesh") + A7:
         assert name in port
-    # the JAX package's properties the port does not take: the cross-host
-    # mesh, the CPU re-run and the six of the eager-only executor
+    # the JAX package's properties the port does not take: the CPU re-run
+    # and the six of the eager-only executor
     missing = {r[0] for r in js.execute(sql).to_pylist()} - set(port) - {"query_history_dir"}
-    assert missing == {"cross_host_mesh", "device_cpu_fallback", "group_capacity",
+    assert missing == {"device_cpu_fallback", "group_capacity",
                        "jit_fragments", "padding_ladder", "padding_ladder_file",
                        "topn_initial_factor", "donate_pages"}, missing
 

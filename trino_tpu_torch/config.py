@@ -87,6 +87,13 @@ SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             int, 0,
         ),
         PropertyMetadata(
+            "cross_host_mesh",
+            "multi-host clusters: run eligible fragments as per-host "
+            "slices over each worker's local shards, with repartition and "
+            "partial-aggregate merges crossing the network exchange",
+            _bool, False,
+        ),
+        PropertyMetadata(
             "join_distribution_type",
             "automatic | broadcast | partitioned "
             "(DetermineJoinDistributionType analog)",

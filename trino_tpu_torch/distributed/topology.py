@@ -1,12 +1,18 @@
 """Cluster topology: who owns which slice of the cluster's devices.
 
-Counterpart of trino_tpu/distributed/topology.py without ``bootstrap``
-(the cross-host mesh's process-group set-up waits for the cross-host
-slice).  A cluster is a set of worker processes discovered via
-announcements, each owning its local CUDA cards:
+Counterpart of trino_tpu/distributed/topology.py.  A cluster is a set of
+worker processes discovered via announcements, each owning its local
+shards (``--local-devices``; by default its CUDA cards):
 
+  - ``bootstrap()`` places the process in the cluster.  Hosts exchange
+    rows through the HTTP and spool exchanges, never through a device
+    collective, so there is no global device list to join: without a
+    distributed coordinator address it returns the local topology, and
+    with one it raises (the JAX package's jax.distributed.initialize
+    has no counterpart here).
   - ``local_topology()`` is one process's announcement document; it
-    counts ``torch.cuda.device_count()`` cards (1 on the CPU).
+    counts ``torch.cuda.device_count()`` cards (1 on the CPU) unless told
+    its shard count.
   - ``ClusterTopology`` is the coordinator-side registry built from
     worker announcements: which node is which process, on which host,
     with how many local devices.  The HOST_GONE fault path reads the
@@ -15,6 +21,7 @@ announcements, each owning its local CUDA cards:
 from __future__ import annotations
 
 import dataclasses
+import os
 import socket
 import threading
 from typing import Dict, List, Optional
@@ -75,6 +82,26 @@ def local_topology(
         "globalDevices": local_devices,
         "processCount": 1,
     }
+
+
+def bootstrap(coordinator_address: Optional[str] = None) -> dict:
+    """This process's place in the cluster: its local topology document.
+
+    A distributed coordinator address (passed, or in
+    ``TRINO_TPU_DIST_COORDINATOR``) asks for one device list spanning
+    every host, which the port does not build: each host runs its
+    fragments over its own shards and rows cross hosts through the
+    exchanges.  Such an address raises rather than being ignored."""
+    addr = coordinator_address or os.environ.get("TRINO_TPU_DIST_COORDINATOR")
+    if addr:
+        raise RuntimeError(
+            f"bootstrap: a distributed coordinator address ({addr}) asks for "
+            "a device list spanning every host, which this package does not "
+            "build; its hosts exchange rows over HTTP and the spool.  Start "
+            "each host as a worker (worker_main --local-devices N) against "
+            "the cluster's coordinator instead"
+        )
+    return local_topology()
 
 
 class ClusterTopology:

@@ -45,9 +45,16 @@ a fault quarantines one shard, and the query re-runs over the healthy
 ones (_shrink_to_healthy).  When none is left, or the re-run faults
 again, DeviceFaultError is raised: the port has no CPU re-run (the JAX
 package's _run_cpu_fallback).  The mesh neither streams nor spills (as
-the JAX package's), and does not run the single-slice path of the
-cross-host executor (_SliceTraceCtx, CrossHostFragmentExecutor), which
-comes with the server.
+the JAX package's).
+
+One host's slice of a multi-host cluster (CrossHostFragmentExecutor,
+_SliceTraceCtx): a worker runs a slice-eligible fragment task over its
+own local shards, and rows move between hosts through the HTTP and
+spool exchanges, never a collective across processes.  The fetched
+remote pages are merged once and held once (replicated: a broadcast
+build side), and a PARTIAL aggregate stays partial on every shard, so
+the consumer fragment's FINAL step merges the shards' rows as it merges
+other tasks'.
 """
 from __future__ import annotations
 
@@ -57,6 +64,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..cache.compile_cache import fragment_family
+from ..exec.fragment_exec import FragmentExecutor
 from ..exec.local import (
     Batch,
     ExecutionError,
@@ -66,6 +75,7 @@ from ..exec.local import (
     merge_pages_to_arrays,
     timed_visit,
 )
+from ..obs import compile_observatory
 from ..ops import aggregation as agg_ops
 from ..ops import join as join_ops
 from ..ops import sketches
@@ -257,6 +267,7 @@ class MeshExecutor(LocalExecutor):
         scans, dicts, counts = self._load_sharded_scans(plan)
         self.scan_bytes = _scan_bytes(scans)
         self.mesh_timing["loadS"] = time.perf_counter() - t0
+        self._note_layout(plan, counts)
         t1 = time.perf_counter()
         page = self._run_plan(plan, scans, dicts, counts)
         tm = self.mesh_timing
@@ -266,6 +277,23 @@ class MeshExecutor(LocalExecutor):
         if self.config.get("collect_node_stats"):
             self._mesh_node_stats(plan, counts, time.perf_counter() - t0)
         return page
+
+    def _note_layout(self, plan: P.Output, counts) -> None:
+        """The first run of a fragment family over this many shards in the
+        process is the mesh's compile event (mode "mesh", the JAX
+        package's shard_map compile): nothing is built, the event marks
+        the plan laid out over the shards; a warm run records none."""
+        family = "mesh%d:%s" % (len(self.mesh), fragment_family(plan))
+        obs = compile_observatory.get_observatory()
+        if obs.knows(family):
+            return
+        compile_observatory.record_compile(
+            kernel="mesh:%d/fragment" % len(self.mesh), family=family,
+            mode="mesh", shapes={"shards": len(self.mesh)},
+            actual_rows=sum(int(c) for c in counts.values()),
+            query_id=self.query_id,
+            task_id=str(self.config.get("task_id") or ""), scan_rows=[],
+        )
 
     def _new_ctx(self, scans, counts) -> "_MeshTraceCtx":
         return _MeshTraceCtx(self, scans, counts)
@@ -298,9 +326,15 @@ class MeshExecutor(LocalExecutor):
         counts: Dict[tuple, int] = {}
         dicts: Dict[str, np.ndarray] = {}
 
+        # the preorder scan ordinal: FragmentExecutor._load_walk's key of
+        # a task's assigned splits, which the slice executor looks up
+        scan_idx = [0]
+
         def walk(node: P.PlanNode):
             if isinstance(node, P.TableScan):
-                splits = self._scan_splits(node, n)
+                idx = scan_idx[0]
+                scan_idx[0] += 1
+                splits = self._scan_splits(node, idx, n)
                 per_dicts = []
                 for s in range(n):
                     sc, dc, cc = {}, {}, {}
@@ -315,19 +349,26 @@ class MeshExecutor(LocalExecutor):
                 self._merge_split_dicts(node, per_dicts, dicts)
                 return
             if isinstance(node, P.RemoteSource):
-                raise ExecutionError("the mesh executor cannot read remote sources")
+                self._load_remote_source(node, scans, dicts, counts)
+                return
             for c in node.sources:
                 walk(c)
 
         walk(plan)
         return scans, dicts, counts
 
-    def _scan_splits(self, node: P.TableScan, n: int):
+    def _scan_splits(self, node: P.TableScan, idx: int, n: int):
         """All of a table's splits, asked for with the shard count as the
         desired parallelism (the NodeScheduler's split placement, shards
-        standing in for worker nodes)."""
+        standing in for worker nodes).  The slice executor narrows this
+        to the splits the coordinator assigned to its task."""
         conn = self.catalogs.get(node.catalog)
         return conn.split_manager().get_splits(node.table, n, node.constraint)
+
+    def _load_remote_source(self, node: P.RemoteSource, scans, dicts, counts):
+        # a plan over the whole mesh has no exchange inputs; only the
+        # slice executor's fragments read remote pages
+        raise ExecutionError("the mesh executor cannot read remote sources")
 
     def _empty_scan(self, node: P.TableScan, scans, dicts, counts):
         """A shard that holds none of the table's splits: zero rows."""
@@ -463,7 +504,7 @@ class _MeshTraceCtx(_TraceCtx):
     def visit(self, node: P.PlanNode) -> Sharded:
         ex = self.ex
         name = type(node).__name__
-        m = _EXCHANGES.get(name.lower())
+        m = self.exchanges.get(name.lower())
         if m is None:
             def run():
                 return self._local(node, [self.visit(c) for c in node.sources])
@@ -1010,6 +1051,155 @@ class _MeshTraceCtx(_TraceCtx):
         return Sharded(self._each(type(node).__name__, reduce))
 
 
-# the nodes whose mesh visitor is an exchange (or a leaf of the mesh)
-_EXCHANGES = {k[len("_visit_"):]: v for k, v in vars(_MeshTraceCtx).items()
-              if k.startswith("_visit_")}
+def _exchanges(cls) -> dict:
+    """The nodes whose mesh visitor is an exchange (or a leaf of the
+    mesh): the `_visit_*` methods of `cls` and its mesh bases."""
+    out = {}
+    for c in reversed(cls.__mro__[:cls.__mro__.index(_TraceCtx)]):
+        out.update({k[len("_visit_"):]: v for k, v in vars(c).items()
+                    if k.startswith("_visit_")})
+    return out
+
+
+_MeshTraceCtx.exchanges = _exchanges(_MeshTraceCtx)
+
+
+class _SliceTraceCtx(_MeshTraceCtx):
+    """One host's slice of a multi-host cluster.  The shards are this
+    worker's own; the exchange between hosts is the server's HTTP and
+    spool exchange, not a collective, so:
+
+      - a RemoteSource is a network input this host already fetched: its
+        pages are merged once and held once on the device, a replicated
+        batch (the broadcast build side of a FIXED_BROADCAST join);
+      - a PARTIAL aggregate stays partial: each shard emits its own
+        accumulator rows, and the root's gather ships n partial rows a
+        group to the consumer fragment, whose FINAL step merges them as
+        if they came from more tasks.  The mesh's fused and collective
+        paths finish the values, which the consumer would then merge a
+        second time.
+    """
+
+    def _visit_remotesource(self, node: P.RemoteSource) -> Sharded:
+        b = self._shard_step(0, "RemoteSource",
+                             lambda: _TraceCtx._visit_remotesource(self.shards[0], node),
+                             "loadS")
+        return Sharded([b], True)
+
+    def _visit_aggregate(self, node: P.Aggregate) -> Sharded:
+        if node.step == "partial":
+            # the one-device PARTIAL visitor on each shard (no fusion:
+            # _ShardCtx.allow_fusion), its accumulator rows not merged
+            return self._local(node, [self.visit(node.source)])
+        return _MeshTraceCtx._visit_aggregate(self, node)
+
+
+_SliceTraceCtx.exchanges = _exchanges(_SliceTraceCtx)
+
+# node types a host slice runs over its local shards.  Sort, Window,
+# SetOperation and the writers are left out: they need the whole input
+# ordered in one place or change external state, and their fragments
+# keep the one-device FragmentExecutor.
+_SLICE_NODES = (
+    P.Output, P.TableScan, P.RemoteSource, P.Filter, P.Project, P.Values,
+    P.Aggregate, P.Join, P.SemiJoin, P.ScalarJoin, P.TopN, P.Limit,
+    P.Distinct,
+)
+
+
+def slice_eligible(plan: P.PlanNode) -> bool:
+    """True when a fragment can run as one host's slice over its shards.
+
+    Exactly one TableScan: a SOURCE fragment, whose splits the
+    coordinator already dealt across hosts, and whose RemoteSource
+    inputs are then broadcast build sides (plan/fragment.py places
+    partitioned exchanges only between fragments).  Aggregates must be
+    PARTIAL: a final-step merge belongs to the consumer side of the
+    network exchange, where the rows of every host meet.
+    """
+    nscans = 0
+    stack = [plan]
+    while stack:
+        n = stack.pop()
+        if not isinstance(n, _SLICE_NODES):
+            return False
+        if isinstance(n, P.TableScan):
+            nscans += 1
+        elif isinstance(n, P.Aggregate) and n.step != "partial":
+            return False
+        stack.extend(n.sources)
+    return nscans == 1
+
+
+class CrossHostFragmentExecutor(MeshExecutor):
+    """One fragment task run as this host's slice of the cluster.
+
+    Takes FragmentExecutor's place on slice-eligible fragments, with its
+    constructor and stats surface.  The worker hands it the splits the
+    coordinator assigned to this task and the remote pages it already
+    pulled through the exchange client; the executor deals the splits
+    over its shards (`mesh`: the worker's device once a shard) and runs
+    the fragment on every shard.  Repartitions and partial -> final
+    merges across hosts happen where they always did, in the consumer
+    fragment fed through the HTTP or spool exchange, so a host killed
+    with -9 loses only its slice and fault-tolerant execution replays
+    its tasks from committed spools.
+    """
+
+    def __init__(self, catalogs, config: Optional[dict], splits_by_scan,
+                 remote_pages, dynamic_filters=None,
+                 mesh: Optional[List[torch.device]] = None):
+        super().__init__(catalogs, mesh=mesh, config=config)
+        self.splits_by_scan = splits_by_scan or {}
+        self.remote_pages = remote_pages or {}
+        # dynamic filters prune scan rows; the slice skips them (the
+        # probe side's join still drops every row they would have)
+        self.dynamic_filters = dynamic_filters or {}
+        self.df_rows_pruned = 0
+        # as FragmentExecutor: the remote pages held for the whole run
+        self.exchange_bytes = sum(
+            int(np.asarray(c.values).nbytes)
+            + (int(np.asarray(c.validity).nbytes) if c.validity is not None else 0)
+            for pages in self.remote_pages.values()
+            for p in pages
+            for c in p.columns
+        )
+
+    def _new_ctx(self, scans, counts) -> _SliceTraceCtx:
+        return _SliceTraceCtx(self, scans, counts)
+
+    def _scan_splits(self, node: P.TableScan, idx: int, n: int):
+        # only the splits the coordinator assigned to this task
+        return self.splits_by_scan.get(idx, [])
+
+    def _load_remote_source(self, node: P.RemoteSource, scans, dicts, counts):
+        """The fetched pages merged once (FragmentExecutor's merge, their
+        dictionaries unified), keyed as shard 0's: the slice context
+        reads them as one replicated batch."""
+        sc, cc = {}, {}
+        FragmentExecutor._load_remote(self, node, sc, dicts, cc, None)
+        scans[(0, id(node))] = sc[id(node)]
+        counts[(0, id(node))] = cc[id(node)]
+
+    def _run_plan(self, plan: P.Output, scans, dicts, counts):
+        """The run inside the worker's memory pool: the host tier holds
+        every shard's scan lanes and the exchange input (over the query's
+        limit it raises: the slice neither streams nor spills), the device
+        tier the same bytes, which the shards' lanes take on the card."""
+        self._account_memory(scans, self.config.get("memory_limit_bytes"))
+        manager = self.config.get("memory_manager")
+        self.device_bytes = 0
+        try:
+            if manager is not None:
+                t0 = time.perf_counter()
+                manager.reserve(
+                    self.query_id, self.scan_bytes, tier="device",
+                    timeout=float(self.config.get("memory_blocked_timeout_s") or 0.0))
+                self.blocked_memory_s += time.perf_counter() - t0
+                self.device_bytes = self.scan_bytes
+            return super()._run_plan(plan, scans, dicts, counts)
+        finally:
+            if manager is not None:
+                manager.free(self.query_id, self.scan_bytes, tier="host")
+                if self.device_bytes:
+                    manager.free(self.query_id, self.device_bytes, tier="device")

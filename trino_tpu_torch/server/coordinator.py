@@ -1017,6 +1017,9 @@ class Coordinator:
             "operator_stats": props.get("operator_stats"),
             "straggler_dispersion_factor":
                 props.get("straggler_dispersion_factor"),
+            # multi-host: workers with more than one local shard run
+            # eligible fragments as their host's slice
+            "cross_host_mesh": props.get("cross_host_mesh"),
         }
 
     def _run_fte(

@@ -6,10 +6,14 @@ worker runs on one device (``device``: CUDA unless the caller passes
 executors there.  It has no CPU fallback: a fragment that faults fails
 its task with DeviceFaultError (the error rides the task status and the
 exchange to the coordinator and its client), the card is quarantined
-and the node announces QUARANTINED until the canary passes.  Left out:
-the cross-host mesh executor.  Under fault-tolerant execution a task's
-output frames go to its spool directory (``spool_path``) instead of the
-worker's memory, and its inputs are read back from the producers' spools.
+and the node announces QUARANTINED until the canary passes.  A worker
+of a multi-host cluster has ``local_devices`` logical shards on its
+device: under ``cross_host_mesh`` a slice-eligible fragment runs over
+all of them (parallel/mesh_executor.CrossHostFragmentExecutor), through
+the same supervisor, memory pool and launch counts.  Under
+fault-tolerant execution a task's output frames go to its spool
+directory (``spool_path``) instead of the worker's memory, and its
+inputs are read back from the producers' spools.
 
 Reference parity:
   - POST /v1/task/{taskId} create-or-update with fragment+splits+buffers
@@ -32,8 +36,9 @@ Reference parity:
     one-shot semantics through the same harness.
 
 Execution: each task runs on its own thread; the fragment runs on the
-worker's device (exec/fragment_exec.py); output pages are hash/broadcast
-partitioned into buffers (exec/partitioner.py) and served as binary frames.
+worker's device (exec/fragment_exec.py) or over its shards; output pages
+are hash/broadcast partitioned into buffers (exec/partitioner.py) and
+served as binary frames.
 """
 from __future__ import annotations
 
@@ -46,6 +51,8 @@ import urllib.request
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
+
+import torch
 
 from .. import device as D
 from ..catalog import CatalogManager
@@ -94,9 +101,13 @@ class TaskManager:
         memory_manager=None,
         supervisor=None,
         device=None,
+        local_devices: int = 1,
     ):
         self.catalogs = catalogs
         self.device = D.resolve(device)
+        # logical shards on this worker's device: a slice-eligible
+        # fragment of a cross_host_mesh query runs over all of them
+        self.local_devices = int(local_devices)
         self.memory_manager = memory_manager
         # node-level device supervisor: every fragment on this worker
         # dispatches through it, so quarantine outlives any one task
@@ -192,9 +203,29 @@ class TaskManager:
         with t.lock:
             t.buffers = {}
 
-    def _make_executor(self, config, splits_by_scan, remote_pages, dfs):
-        """The fragment executor of one task, on this worker's device."""
+    def _make_executor(self, plan, config, splits_by_scan, remote_pages, dfs):
+        """The fragment executor of one task, on this worker's device.
+        When the session asks for the cross-host mesh (``cross_host_mesh``)
+        and this worker has more than one local shard, a slice-eligible
+        fragment runs as this host's slice over its shards; any other
+        fragment (final merges, Sort, Window, writers, ...) takes the
+        one-device FragmentExecutor, so a mixed plan is still one query.
+        A slice that fails fails the task: nothing re-runs it."""
         config["device"] = self.device
+        want = config.get("cross_host_mesh", False)
+        if isinstance(want, str):
+            want = want.strip().lower() not in ("false", "0", "no", "off", "")
+        if want and self.local_devices > 1:
+            from ..parallel.mesh_executor import (
+                CrossHostFragmentExecutor,
+                slice_eligible,
+            )
+
+            if slice_eligible(plan):
+                return CrossHostFragmentExecutor(
+                    self.catalogs, config, splits_by_scan, remote_pages, dfs,
+                    mesh=[self.device] * self.local_devices,
+                )
         return FragmentExecutor(
             self.catalogs, config, splits_by_scan, remote_pages, dfs
         )
@@ -299,7 +330,7 @@ class TaskManager:
                 # per-operator timeline: forces the eager (non-jitted)
                 # path so _TraceCtx can bracket every operator visit
                 config["collect_node_stats"] = True
-            ex = self._make_executor(config, splits_by_scan, remote_pages, dfs)
+            ex = self._make_executor(plan, config, splits_by_scan, remote_pages, dfs)
             # blocked-on-exchange: the wall this task spent pulling its
             # remote source pages before any operator could run
             ex.blocked_exchange_s = float(
@@ -351,6 +382,10 @@ class TaskManager:
                 "kernelProfile": getattr(ex, "kernel_profile", None),
                 # this task's CUDA kernel launches, by wrapper name
                 "kernelLaunches": dict(launches),
+                # this worker process's device peak so far (None on the CPU)
+                "devicePeakBytes": (
+                    int(torch.cuda.max_memory_allocated(self.device))
+                    if self.device.type == "cuda" else None),
                 # pipeline -> task OperatorStats rollup (frames only when
                 # operator_stats forced the instrumented eager path)
                 "operatorStats": op_rollup,
@@ -639,11 +674,18 @@ class WorkerServer:
         host: Optional[str] = None,
         process_index: Optional[int] = None,
         device=None,
+        local_devices: Optional[int] = None,
     ):
         from ..memory import LocalMemoryManager
         from ..memory.pools import detect_device_bytes
 
         self.device = D.resolve(device)
+        # logical shards on this worker's device (the cross-host mesh's
+        # slice width): by default one a visible card, one on the CPU
+        if local_devices is None:
+            local_devices = (max(int(torch.cuda.device_count()), 1)
+                             if self.device.type == "cuda" else 1)
+        self.local_devices = int(local_devices)
         self.node_id = f"worker-{uuid.uuid4().hex[:8]}"
         # multi-host identity is OPT-IN: only a worker explicitly placed
         # in a cluster topology (host id / process index from the
@@ -654,7 +696,8 @@ class WorkerServer:
             from ..distributed import local_topology
 
             self.topology = local_topology(
-                host=host, process_index=process_index
+                host=host, process_index=process_index,
+                local_devices=self.local_devices,
             )
         self.memory_manager = LocalMemoryManager(
             memory_bytes if memory_bytes is not None else (8 << 30),
@@ -674,6 +717,7 @@ class WorkerServer:
             memory_manager=self.memory_manager,
             supervisor=self.supervisor,
             device=self.device,
+            local_devices=self.local_devices,
         )
         if fault_injection:
             # operator-configured chaos (heartbeat drops etc.) rides the

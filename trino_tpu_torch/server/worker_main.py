@@ -64,6 +64,12 @@ def main(argv=None) -> int:
         "--process-index", type=int, default=None,
         help="process index within the cluster",
     )
+    p.add_argument(
+        "--local-devices", type=int, default=None,
+        help="logical shards on this worker's device, announced as its "
+             "localDevices (default: one a visible card, one on the CPU); "
+             "under cross_host_mesh an eligible fragment runs over all of them",
+    )
     args = p.parse_args(argv)
 
     from ..testing.runner import _build_catalogs
@@ -85,6 +91,7 @@ def main(argv=None) -> int:
         host=args.host,
         process_index=args.process_index,
         device=args.device,
+        local_devices=args.local_devices,
     ).start()
     print(json.dumps({"nodeId": w.node_id, "uri": w.uri}), flush=True)
 

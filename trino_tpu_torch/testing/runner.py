@@ -69,6 +69,7 @@ def spawn_subprocess_worker(
     coordinator_uri: str,
     catalog_spec: Sequence[Tuple[str, str, dict]],
     fault_injection: Optional[dict] = None,
+    local_devices: Optional[int] = None,
     process_index: Optional[int] = None,
     host: Optional[str] = None,
     device=None,
@@ -79,11 +80,12 @@ def spawn_subprocess_worker(
     uri).  Shared by the in-process runner and SubprocessCoordinator —
     the caller decides how to wait for discovery adoption.
 
-    ``process_index``/``host`` turn the child into a host-sized capacity
-    unit of a cluster: it announces a topology the coordinator tracks
-    (HOST_GONE on loss).  The child runs on ``device`` (CUDA unless
-    "cpu") and imports this package from its checkout whatever the
-    working directory."""
+    ``local_devices``/``process_index``/``host`` turn the child into a
+    host-sized capacity unit of a multi-host cluster: the process runs
+    ``local_devices`` logical shards on its device and announces a
+    topology the coordinator tracks (HOST_GONE on loss).  The child runs
+    on ``device`` (CUDA unless "cpu") and imports this package from its
+    checkout whatever the working directory."""
     dev = D.resolve(device)
     cmd = [
         sys.executable, "-m", "trino_tpu_torch.server.worker_main",
@@ -99,6 +101,8 @@ def spawn_subprocess_worker(
         cmd += ["--host", str(host)]
     if process_index is not None:
         cmd += ["--process-index", str(process_index)]
+    if local_devices is not None:
+        cmd += ["--local-devices", str(int(local_devices))]
     if device_memory_bytes is not None:
         cmd += ["--device-memory-bytes", str(int(device_memory_bytes))]
     env = dict(os.environ)
@@ -196,6 +200,7 @@ class DistributedQueryRunner:
         self,
         fault_injection: Optional[dict] = None,
         startup_timeout: float = 60.0,
+        local_devices: Optional[int] = None,
         process_index: Optional[int] = None,
         host: Optional[str] = None,
         device_memory_bytes: Optional[int] = None,
@@ -205,11 +210,15 @@ class DistributedQueryRunner:
         can be SIGKILLed for true kill -9 chaos: no drain, no goodbye,
         its sockets refuse instantly.  Returns (Popen, node_id, uri).
 
-        With a ``process_index`` (and optional ``host``) identity the
-        child joins as a host-sized capacity unit, announcing a topology
-        the coordinator's ClusterTopology tracks.  It runs on the
-        runner's device; ``device_memory_bytes`` is its device pool
-        (the card's memory when None)."""
+        With ``local_devices`` (and optional ``process_index``/``host``
+        identity) the child joins as a host-sized capacity unit: a
+        process running that many logical shards on the runner's
+        device, announcing a topology the coordinator's ClusterTopology
+        tracks.  ``local_devices`` without a process index takes the
+        next one (host ``host{i}``).  ``device_memory_bytes`` is its
+        device pool (the card's memory when None)."""
+        if local_devices is not None and process_index is None:
+            process_index = self._next_process_index
         if process_index is not None:
             self._next_process_index = max(
                 self._next_process_index, process_index + 1
@@ -218,7 +227,8 @@ class DistributedQueryRunner:
                 host = f"host{process_index}"
         proc, node_id, uri = spawn_subprocess_worker(
             self.coordinator.uri, self._catalog_spec, fault_injection,
-            process_index=process_index, host=host, device=self.device,
+            local_devices=local_devices, process_index=process_index,
+            host=host, device=self.device,
             device_memory_bytes=device_memory_bytes,
         )
         nm = self.coordinator.coordinator.node_manager
@@ -249,12 +259,17 @@ class DistributedQueryRunner:
         proc.wait()
         return entry
 
-    def enable_autoscaler(self, **overrides):
+    def enable_autoscaler(self, local_devices=None, **overrides):
         """Turn on the coordinator autoscaler with this runner's
         subprocess-worker spawner as the scale-out path: new capacity
         arrives as real child processes on the runner's device (late
         joiners, schedulable the moment they announce) and scale-in
         drains through the node lifecycle.  Returns the Autoscaler.
+
+        ``local_devices`` makes the capacity unit HOST-sized: every
+        admitted worker is a process running that many logical shards,
+        with a fresh process index (a scale-out admits a host, a
+        scale-in drains and retires one).
 
         The card's memory is shared out again first: the in-process
         workers and up to ``max_workers`` subprocess workers each get
@@ -272,7 +287,8 @@ class DistributedQueryRunner:
         self.autoscale_device_bytes = share
 
         def scale_out():
-            return self.add_subprocess_worker(device_memory_bytes=share)
+            return self.add_subprocess_worker(local_devices=local_devices,
+                                              device_memory_bytes=share)
 
         return co.enable_autoscaler(scale_out=scale_out, **overrides)
 
