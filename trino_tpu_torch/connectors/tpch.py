@@ -48,6 +48,7 @@ from ..spi import (
     TableSchema,
     TableStatistics,
 )
+from ..utils.tracing import TRACER
 
 M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -862,7 +863,13 @@ class TpchConnector(Connector):
         ranges = []
         for a, b in runs:
             lo, hi = (nb * a) // tot, (nb * b) // tot
-            n = tpch_device.lineitem_count(lo, hi) if table == "lineitem" else hi - lo
+            if table == "lineitem":
+                # the host's count of a range's line rows: one span each
+                with TRACER.span("scan_count", orders_lo=lo, orders_hi=hi) as span:
+                    n = tpch_device.lineitem_count(lo, hi)
+                    span.attributes["rows"] = n
+            else:
+                n = hi - lo
             ranges.append((lo, hi, n))
         types = dict(SCHEMAS[table])
         dicts = {

@@ -67,7 +67,10 @@ Every operator visit, kernel launch and device->host sync crosses the
 session's device supervisor (runtime/supervisor.py): a lost or wedged
 card raises DeviceFaultError naming the culprit kernel and quarantines
 the device.  Nothing re-runs the query elsewhere (the JAX package
-re-runs it on the CPU; the port has no such path on purpose).
+re-runs it on the CPU; the port has no such path on purpose).  The
+supervisor spans each of those steps (utils/tracing.TRACER); this module
+spans each scan load (`scan_load`), on-device scan generation
+(`scan_generate`) and rung of the retry ladder (`plan_run`).
 
 `distributed = true` runs the plan over a mesh of shards instead
 (parallel/mesh_executor.py, whose shards run these visitors).
@@ -97,6 +100,7 @@ from ..page import Column, Page
 from ..plan import nodes as P
 from ..runtime import supervisor as rt
 from ..runtime.supervisor import Breadcrumb, DeviceFaultError
+from ..utils.tracing import TRACER
 
 
 class DeviceScanCache:
@@ -727,32 +731,36 @@ class LocalExecutor:
         self.force_no_direct = set(hint[3]) if hint else set()
         self.group_salt = 0  # the grouping hash's salt
         for attempt in range(7):
-            if self.bandwidth_ledger is not None:
-                self._sync()  # the ledger times this run's device work only
-                self._devgen_temp_bytes = 0
-            t0 = time.perf_counter()
-            ctx = self._new_ctx(scans, counts)
-            out_lanes, sel = self._run(plan, ctx)
-            if self.bandwidth_ledger is not None:
-                self._ledger_record(out_lanes, sel, "eager-%d" % attempt, plan,
-                                    scans, t0)
-            checks = self._device_get(lambda: _read_checks(ctx), "runtime checks")
-            self._record_kernel(
-                "eager-%d" % attempt, time.perf_counter() - t0, False,
-                mode="eager",
-            )
-            if attempt:
-                # each re-run of the ladder is a compile of the plan's
-                # family with new parameters (the observatory's ladder_rung)
-                compile_observatory.record_compile(
-                    kernel="eager-%d" % attempt, family=fragment_family(plan),
-                    mode="eager", actual_rows=sum(int(c) for c in counts.values()),
-                    compile_wall_s=time.perf_counter() - t0,
-                    query_id=self.query_id,
-                    task_id=str(self.config.get("task_id") or ""),
-                    ladder_attempt=attempt, scan_rows=[],
+            with TRACER.span("plan_run", attempt=attempt) as span:
+                if self.bandwidth_ledger is not None:
+                    self._sync()  # the ledger times this run's device work only
+                    self._devgen_temp_bytes = 0
+                t0 = time.perf_counter()
+                ctx = self._new_ctx(scans, counts)
+                out_lanes, sel = self._run(plan, ctx)
+                if self.bandwidth_ledger is not None:
+                    self._ledger_record(out_lanes, sel, "eager-%d" % attempt, plan,
+                                        scans, t0)
+                checks = self._device_get(lambda: _read_checks(ctx), "runtime checks")
+                self._record_kernel(
+                    "eager-%d" % attempt, time.perf_counter() - t0, False,
+                    mode="eager",
                 )
-            if not self._retry_needed(ctx, checks):
+                if attempt:
+                    # each re-run of the ladder is a compile of the plan's
+                    # family with new parameters (the observatory's ladder_rung)
+                    compile_observatory.record_compile(
+                        kernel="eager-%d" % attempt, family=fragment_family(plan),
+                        mode="eager", actual_rows=sum(int(c) for c in counts.values()),
+                        compile_wall_s=time.perf_counter() - t0,
+                        query_id=self.query_id,
+                        task_id=str(self.config.get("task_id") or ""),
+                        ladder_attempt=attempt, scan_rows=[],
+                    )
+                rerun = self._retry_needed(ctx, checks)
+                if rerun:
+                    span.attributes["rerun"] = rerun
+            if not rerun:
                 break
         else:
             raise ExecutionError("the executor's retry ladder did not settle")
@@ -880,12 +888,13 @@ class LocalExecutor:
             result = written
         return _rows_page(result)
 
-    def _retry_needed(self, ctx: "_TraceCtx", checks) -> bool:
+    def _retry_needed(self, ctx: "_TraceCtx", checks) -> str:
         """Act on the run's runtime checks (_read_checks): arm the next
-        rung of the retry ladder and return True when the run must be
-        repeated."""
+        rung of the retry ladder and name what the re-run changes
+        (`no_direct`, `expansion`, `salt`, `wide_mul`, joined by commas
+        where more than one fired), or "" when the run settled."""
         wide_fired, dups, collisions, overflows = checks
-        fell_back = False
+        reasons = []
         for (join_node, _), dup in zip(ctx.dup_checks, dups):
             if dup > 0:
                 if (join_node.direct_domain is not None
@@ -893,28 +902,29 @@ class LocalExecutor:
                     # direct-table domain/dup proof failed: retry on the
                     # sorted unique kernel first
                     self.force_no_direct.add(id(join_node))
+                    reasons.append("no_direct")
                 else:
                     # duplicate build keys: the many-to-many expansion
                     self.force_expansion.add(id(join_node))
-                fell_back = True
+                    reasons.append("expansion")
         for cv in collisions:
             if cv > 0:
                 # locator hash collision in grouping: a fresh salt
                 self.group_salt += 1
-                fell_back = True
+                reasons.append("salt")
         if wide_fired and not self.force_wide_mul:
             # decimal product/quotient or decimal(38) sum near the int64
             # range: re-run with the 128-bit kernels
             self.force_wide_mul = True
-            fell_back = True
-        if fell_back:
-            return True
+            reasons.append("wide_mul")
+        if reasons:
+            return ",".join(dict.fromkeys(reasons))
         # only a settled run may raise: a retried run piles unrelated
         # groups into one segment, making the shadow flag spurious
         for sv in overflows:
             if sv > 0:
                 raise ExecutionError("sum overflows the bigint accumulator")
-        return False
+        return ""
 
     # ------------------------------------------------------------------
     def _load_scans(self, node: P.PlanNode, scans, dicts, counts):
@@ -944,12 +954,21 @@ class LocalExecutor:
 
     def _load_one_scan(self, node: P.TableScan, splits, scans, dicts, counts):
         """Load the splits of one scan into host arrays, merging per-split
-        dictionaries; cached across queries for versioned connectors."""
+        dictionaries; cached across queries for versioned connectors.
+        One `scan_load` span: its `table`, its `rows`, and `cache` (hit,
+        miss, or uncached where no cache or key applies)."""
+        with TRACER.span("scan_load", table=node.table, cache="uncached") as span:
+            self._read_scan(node, splits, scans, dicts, counts, span.attributes)
+            span.attributes["rows"] = int(counts[id(node)])
+
+    def _read_scan(self, node: P.TableScan, splits, scans, dicts, counts, attrs):
         cache: Optional[DeviceScanCache] = self.config.get("scan_cache")
         key = self._scan_cache_key(node, splits)
         self._scan_keys[id(node)] = key
         if cache is not None and key is not None:
             hit = cache.get(key)
+            # the lookup that counts the hit or miss names it
+            attrs["cache"] = "miss" if hit is None else "hit"
             if hit is not None:
                 sym_of = {c: self._sym_for(node, c) for _, c in node.assignments}
                 scans[id(node)] = {
@@ -1066,21 +1085,23 @@ class LocalExecutor:
 
         cols = [sym_to_col.get(s, s) for s in syms]
         self._devgen_temp_bytes += int(spec["count"]) * 8 * DEVGEN_TEMP_LANES
-        parts = [
-            tpch_device.device_lanes(
-                spec["table"], cols, int(lo), int(hi), float(spec["sf"]),
-                int(n), self.device,
-            )
-            for lo, hi, n in spec["ranges"]
-        ]
-        if len(parts) == 1:
-            lanes = parts[0]
-        else:  # the splits' contiguous runs, in split order
-            lanes = {
-                c: (torch.cat([p[c][0] for p in parts]),
-                    torch.cat([p[c][1] for p in parts]))
-                for c in cols
-            }
+        with TRACER.span("scan_generate", table=spec["table"],
+                         rows=int(spec["count"]), columns=",".join(cols)):
+            parts = [
+                tpch_device.device_lanes(
+                    spec["table"], cols, int(lo), int(hi), float(spec["sf"]),
+                    int(n), self.device,
+                )
+                for lo, hi, n in spec["ranges"]
+            ]
+            if len(parts) == 1:
+                lanes = parts[0]
+            else:  # the splits' contiguous runs, in split order
+                lanes = {
+                    c: (torch.cat([p[c][0] for p in parts]),
+                        torch.cat([p[c][1] for p in parts]))
+                    for c in cols
+                }
         return {s: lanes[c] for s, c in zip(syms, cols)}
 
     def _device_lanes(self, node: P.TableScan, arrays, count):

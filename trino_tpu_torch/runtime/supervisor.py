@@ -19,6 +19,11 @@ boundary sits in three places:
 - every device->host sync the executor makes (``device_get``, mode
   "sync"): where asynchronous faults surface.
 
+Each of the three is a span of utils/tracing.TRACER (``operator`` with
+the node's type as ``op``, ``launch`` with its ``kernel``, ``sync`` with
+its ``what``), whose two clock reads also give the flight recorder's
+wall; no span reads the device.
+
 A launch is asynchronous, and so is its fault: an injected fault at a
 launch is held pending and raised at the next supervised sync, as CUDA
 reports an illegal address.  The DeviceFaultError then names the launch
@@ -60,6 +65,7 @@ import torch
 
 from ..obs.flight_recorder import device_memory_watermark
 from ..utils.metrics import REGISTRY, counter
+from ..utils.tracing import TRACER
 
 # device health (per device)
 ACTIVE = "ACTIVE"
@@ -259,7 +265,6 @@ class DeviceSupervisor:
         self._lock = threading.RLock()
         self._devices: Dict[int, _DeviceHealth] = {0: _DeviceHealth(0)}
         self.last_breadcrumb: Optional[Breadcrumb] = None
-        self.breadcrumbs: deque = deque(maxlen=32)
         self._pending: Optional[_Pending] = None
         # the allocator's peak at the last supervised sync
         self._watermark = 0
@@ -372,7 +377,6 @@ class DeviceSupervisor:
         bc.node_id = bc.node_id or self.node_id
         with self._lock:
             self.last_breadcrumb = bc
-            self.breadcrumbs.append(bc)
         with _GLOBAL_LOCK:
             _LAST_BREADCRUMB = bc
 
@@ -555,30 +559,37 @@ class DeviceSupervisor:
             elif inj.fires("device_loss", key=bc.kernel):
                 with self._lock:
                     self._pending = _Pending("device_loss", bc, seq, 0.0)
-        if bc.mode == "launch":
+        if bc.mode == "operator":
+            # the node's type is an attribute, not the span's name: one
+            # name a type would crowd the scan spans out of a trace's
+            # top idle-gap names
+            span = TRACER.span("operator", op=bc.kernel.rpartition("op:")[2])
+        else:
             with self._lock:
                 self._unsettled.append(bc)
                 del self._unsettled[:-16]
-        start = time.time()
-        try:
-            out = thunk()
-        except DeviceFaultError:
-            raise
-        except Exception as e:
-            if _is_device_loss(e):
+            span = TRACER.span("launch", kernel=bc.kernel)
+        with span as sp:
+            try:
+                out = thunk()
+            except DeviceFaultError:
+                raise
+            except Exception as e:
+                if _is_device_loss(e):
+                    if rec is not None:
+                        rec.record_fault(seq, bc, "device_loss", str(e))
+                    raise self._fault(bc, "device_loss", e, device_id) from e
                 if rec is not None:
-                    rec.record_fault(seq, bc, "device_loss", str(e))
-                raise self._fault(bc, "device_loss", e, device_id) from e
-            if rec is not None:
-                # not a device fault: still attributed — the ring shows
-                # which step the error surfaced under
-                rec.record_fault(seq, bc, "error", str(e))
-            raise
+                    # not a device fault: still attributed — the ring shows
+                    # which step the error surfaced under
+                    rec.record_fault(seq, bc, "error", str(e))
+                raise
         if rec is not None:
             # a launch or an operator carries the allocator's peak as the
             # last sync read it: a reading builds the allocator's whole
-            # statistics, and a query makes a dozen of these steps
-            rec.record_complete(seq, bc, time.time() - start, self._watermark)
+            # statistics, and a query makes a dozen of these steps; its
+            # wall is the span's, off the same two clock reads
+            rec.record_complete(seq, bc, sp.end - sp.start, self._watermark)
         return out
 
     def device_get(self, fn: Callable, bc: Breadcrumb, device=None,
@@ -595,50 +606,50 @@ class DeviceSupervisor:
         with self._lock:
             pending, self._pending = self._pending, None
             suspects = list(self._unsettled)
-        start = time.time()
-        try:
-            self._settle(pending, device)
-            if pending is not None and pending.kind == "device_loss":
-                raise _SimulatedDeviceLoss(
-                    "an illegal memory access was encountered "
-                    f"(injected device_loss at kernel {pending.bc.kernel})"
-                )
-            out = fn()
-        except _WedgeTimeout as e:
-            culprit = pending.bc if pending is not None else bc
-            if rec is not None:
-                # the culprit's record last: the ring's tail names it
-                rec.record_fault(seq, bc, "device_wedge", str(e))
-                if pending is not None:
-                    rec.record_fault(pending.seq, culprit, "device_wedge", str(e))
-            raise self._fault(culprit, "device_wedge", e, device_id,
-                              surfaced_at=bc) from None
-        except DeviceFaultError:
-            raise
-        except Exception as e:
-            if _is_device_loss(e):
-                if pending is not None:
-                    culprit = pending.bc
-                else:
-                    culprit = suspects[-1] if suspects else bc
+        with TRACER.span("sync", what=bc.kernel) as sp:
+            try:
+                self._settle(pending, device)
+                if pending is not None and pending.kind == "device_loss":
+                    raise _SimulatedDeviceLoss(
+                        "an illegal memory access was encountered "
+                        f"(injected device_loss at kernel {pending.bc.kernel})"
+                    )
+                out = fn()
+            except _WedgeTimeout as e:
+                culprit = pending.bc if pending is not None else bc
                 if rec is not None:
-                    rec.record_fault(seq, bc, "device_loss", str(e))
-                    if culprit is not bc:
-                        rec.record_fault(pending.seq if pending else seq,
-                                         culprit, "device_loss", str(e))
-                err = self._fault(culprit, "device_loss", e, device_id,
-                                  surfaced_at=bc)
-                if pending is None and len(suspects) > 1:
-                    err.suspects = [s.kernel for s in suspects]
-                raise err from e
-            if rec is not None:
-                rec.record_fault(seq, bc, "error", str(e))
-            raise
+                    # the culprit's record last: the ring's tail names it
+                    rec.record_fault(seq, bc, "device_wedge", str(e))
+                    if pending is not None:
+                        rec.record_fault(pending.seq, culprit, "device_wedge", str(e))
+                raise self._fault(culprit, "device_wedge", e, device_id,
+                                  surfaced_at=bc) from None
+            except DeviceFaultError:
+                raise
+            except Exception as e:
+                if _is_device_loss(e):
+                    if pending is not None:
+                        culprit = pending.bc
+                    else:
+                        culprit = suspects[-1] if suspects else bc
+                    if rec is not None:
+                        rec.record_fault(seq, bc, "device_loss", str(e))
+                        if culprit is not bc:
+                            rec.record_fault(pending.seq if pending else seq,
+                                             culprit, "device_loss", str(e))
+                    err = self._fault(culprit, "device_loss", e, device_id,
+                                      surfaced_at=bc)
+                    if pending is None and len(suspects) > 1:
+                        err.suspects = [s.kernel for s in suspects]
+                    raise err from e
+                if rec is not None:
+                    rec.record_fault(seq, bc, "error", str(e))
+                raise
         with self._lock:
             self._unsettled = []
         if rec is not None:
             self._watermark = device_memory_watermark()
-            rec.record_complete(seq, bc, time.time() - start, self._watermark)
+            rec.record_complete(seq, bc, sp.end - sp.start, self._watermark)
         return out
 
     def _settle(self, pending: Optional[_Pending], device) -> None:

@@ -13,6 +13,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import os
+import random
 import threading
 import time
 import uuid
@@ -28,10 +30,6 @@ class Span:
     start: float
     end: Optional[float] = None
     attributes: Dict[str, Any] = dataclasses.field(default_factory=dict)
-
-    @property
-    def duration_ms(self) -> float:
-        return ((self.end or time.time()) - self.start) * 1000
 
     @property
     def traceparent(self) -> str:
@@ -67,6 +65,13 @@ def parse_traceparent(header: Optional[str]) -> Optional[Dict[str, str]]:
     return {"trace_id": trace_id, "parent_id": span_id}
 
 
+# span ids: W3C ids need only be unique, so a private generator seeded
+# from the OS spares each span a uuid4's read of os.urandom (reseeded in
+# a forked child, which would otherwise repeat its parent's ids)
+_IDS = random.Random()
+os.register_at_fork(after_in_child=_IDS.seed)
+
+
 class Tracer:
     """Per-process tracer with thread-local span stacks.
 
@@ -93,7 +98,12 @@ class Tracer:
     def span(self, name: str, traceparent: Optional[str] = None, **attributes):
         """Open a span.  A remote `traceparent` joins that trace when the
         calling thread has no local parent (the Dapper cross-process link:
-        coordinator->worker dispatch, exchange fetch threads)."""
+        coordinator->worker dispatch, exchange fetch threads).
+
+        Start and end are epoch seconds read from ``time.time_ns()``, the
+        clock torch.profiler's events are on, so a device trace's idle
+        gaps can be put down to the span open at the time.  The yielded
+        span's ``attributes`` may be added to before it closes."""
         stack = self._stack()
         parent = stack[-1] if stack else None
         if parent is not None:
@@ -107,16 +117,16 @@ class Tracer:
         s = Span(
             name=name,
             trace_id=trace_id,
-            span_id=uuid.uuid4().hex[:16],
+            span_id="%016x" % _IDS.getrandbits(64),
             parent_id=parent_id,
-            start=time.time(),
-            attributes=dict(attributes),
+            start=time.time_ns() / 1e9,
+            attributes=attributes,
         )
         stack.append(s)
         try:
             yield s
         finally:
-            s.end = time.time()
+            s.end = time.time_ns() / 1e9
             stack.pop()
             with self._lock:
                 self.spans.append(s)
@@ -128,10 +138,6 @@ class Tracer:
     def current_traceparent(self) -> Optional[str]:
         s = self.current_span()
         return s.traceparent if s is not None else None
-
-    def for_trace(self, trace_id: str) -> List[Span]:
-        with self._lock:
-            return [s for s in self.spans if s.trace_id == trace_id]
 
     def clear(self):
         with self._lock:
@@ -212,8 +218,6 @@ TRACER = Tracer()
 
 # TRINO_TPU_OTLP_FILE wires the process tracer to a file exporter at
 # import (the etc/config.properties tracing.* binding analog)
-import os as _os
-
-_otlp = _os.environ.get("TRINO_TPU_OTLP_FILE")
+_otlp = os.environ.get("TRINO_TPU_OTLP_FILE")
 if _otlp:
     TRACER.attach_exporter(OtlpFileExporter(_otlp))
