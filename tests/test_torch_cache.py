@@ -303,3 +303,144 @@ def test_result_cache_budget_follows_the_property():
     s.execute("select n_name, n_regionkey from nation")  # > 50 bytes: rejected
     assert s.caches.result_cache.max_bytes == 100
     assert s.caches.result_cache.rejected == 1
+
+
+# --- the scan cache: keyed by the data a scan reads, lanes by column ------
+
+SCAN_SF = 0.01
+
+Q3_AT = """select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+o_orderdate, o_shippriority from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey and l_orderkey = o_orderkey
+and o_orderdate < date '{date}' and l_shipdate > date '{date}'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate limit 10"""
+
+
+@pytest.fixture(scope="module")
+def uncached():
+    """The answers of a session that caches no scan."""
+    s = tpch_session(SCAN_SF, result_cache=False, scan_cache_enabled=False)
+    return lambda sql: s.execute(sql)
+
+
+def _scan_session():
+    s = tpch_session(SCAN_SF, result_cache=False)
+    s.tracer.clear()
+    return s
+
+
+def _spans(s, name):
+    return [sp for sp in s.tracer.spans if sp.name == name]
+
+
+def _entries(s, table):
+    return {k: e for k, e in s._scan_cache.entries.items() if k[1] == table}
+
+
+def _resident_bytes(cache):
+    from trino_tpu_torch.exec.local import _lane_bytes
+
+    return sum(_lane_bytes(e["merged"]) for e in cache.entries.values())
+
+
+def test_another_q3_date_hits_every_scan(uncached):
+    s = _scan_session()
+    s.execute(Q3_AT.format(date="1995-03-15"))
+    h0, m0 = s._scan_cache.hits, s._scan_cache.misses
+    page = s.execute(Q3_AT.format(date="1995-03-22"))
+    assert (s._scan_cache.hits - h0, s._scan_cache.misses - m0) == (3, 0)
+    loads = _spans(s, "scan_load")[-3:]
+    assert [sp.attributes["cache"] for sp in loads] == ["hit"] * 3
+    convert.assert_pages_identical(uncached(Q3_AT.format(date="1995-03-22")), page)
+
+
+def test_q6_q3_q1_share_one_lineitem_entry(uncached):
+    """Q3 and Q1 make only the lineitem columns Q6 did not: one entry,
+    one line count per lineitem range, and every answer exact."""
+    from tpch_sql import QUERIES
+
+    s = _scan_session()
+    sqls = [QUERIES[6][0], Q3_AT.format(date="1995-03-15"), QUERIES[1][0]]
+    pages = []
+    for i, sql in enumerate(sqls):
+        gens = len(_spans(s, "scan_generate"))
+        pages.append(s.execute(sql))
+        if i == 1:
+            li = [g for g in _spans(s, "scan_generate")[gens:]
+                  if g.attributes["table"] == "lineitem"]
+            assert [g.attributes["columns"] for g in li] == ["l_orderkey"]
+    (entry,) = _entries(s, "lineitem").values()
+    assert set(entry["merged"]) == {
+        "l_quantity", "l_extendedprice", "l_discount", "l_shipdate", "l_orderkey",
+        "l_returnflag", "l_linestatus", "l_tax"}
+    assert len(_spans(s, "scan_count")) == len(entry["devgen"]["ranges"]) == 1
+    # l_orderkey for Q3; l_returnflag, l_linestatus and l_tax for Q1
+    assert s._scan_cache.stats()["column_fills"] == 4
+    filled = [sp.attributes.get("filled") for sp in _spans(s, "scan_load")
+              if sp.attributes["table"] == "lineitem"]
+    assert filled == [None, 1, 3]
+    for sql, page in zip(sqls, pages):
+        convert.assert_pages_identical(uncached(sql), page)
+    assert s._scan_cache.bytes == _resident_bytes(s._scan_cache)
+
+
+def test_extending_an_entry_evicts_the_others_oldest_first(uncached):
+    s = _scan_session()
+    cache = s._scan_cache
+    for sql in ("select sum(l_quantity) from lineitem",
+                "select sum(o_totalprice) from orders",
+                "select sum(c_acctbal) from customer"):
+        s.execute(sql)
+    (li,), (orders,), (customer,) = (list(_entries(s, t)) for t in
+                                     ("lineitem", "orders", "customer"))
+    assert list(cache.entries) == [li, orders, customer]
+    # room for l_extendedprice once orders (the oldest but lineitem) goes
+    rows = cache.entries[li]["total"]
+    cache.max_bytes = cache.bytes + 8 * rows - cache.entries[orders]["nbytes"]
+    sql = "select sum(l_quantity), sum(l_extendedprice) from lineitem"
+    page = s.execute(sql)
+    assert list(cache.entries) == [li, customer] and cache.evictions == 1
+    assert cache.bytes == _resident_bytes(cache) <= cache.max_bytes
+    convert.assert_pages_identical(uncached(sql), page)
+    # a budget nothing fits: every other entry goes, never the one extended
+    cache.max_bytes = 1
+    sql = "select sum(l_discount) from lineitem"
+    page = s.execute(sql)
+    assert list(cache.entries) == [li] and cache.evictions == 2
+    assert cache.bytes == _resident_bytes(cache) == cache.entries[li]["nbytes"]
+    assert cache.stats()["column_fills"] == 2
+    convert.assert_pages_identical(uncached(sql), page)
+
+
+def test_a_column_only_the_host_makes_replaces_a_generated_entry(uncached):
+    """o_clerk is formatted on the host: an orders entry generated on the
+    device is read anew on the host for it, and later columns are then
+    read on the host into that entry."""
+    s = _scan_session()
+    sqls = ["select sum(o_totalprice) from orders",
+            "select count(*), min(o_clerk) from orders",
+            "select max(o_clerk), sum(o_totalprice) from orders"]
+    pages = [s.execute(sql) for sql in sqls[:2]]
+    (entry,) = _entries(s, "orders").values()
+    assert entry["devgen"] is None and set(entry["merged"]) == {"o_clerk"}
+    assert s.last_kernel_profile["hostGeneratedScans"] == 1
+    pages.append(s.execute(sqls[2]))
+    (entry,) = _entries(s, "orders").values()
+    assert set(entry["merged"]) == {"o_clerk", "o_totalprice"}
+    assert [sp.attributes["cache"] for sp in _spans(s, "scan_load")] == ["miss"] * 3
+    assert s._scan_cache.stats()["column_fills"] == 1
+    for sql, page in zip(sqls, pages):
+        convert.assert_pages_identical(uncached(sql), page)
+    assert s._scan_cache.bytes == _resident_bytes(s._scan_cache)
+
+
+def test_a_host_read_entry_grows_by_column():
+    s = _mem_session(result_cache=False)
+    assert s.execute("select sum(x) from mem.t").to_pylist() == [(6,)]
+    assert s.execute("select sum(y), max(x) from mem.t").to_pylist() == [(60, 3)]
+    (entry,) = [e for k, e in s._scan_cache.entries.items() if k[:2] == ("mem", "t")]
+    assert set(entry["merged"]) == {"x", "y"} and entry["devgen"] is None
+    assert s._scan_cache.stats()["column_fills"] == 1
+    assert s.execute("select sum(x + y) from mem.t").to_pylist() == [(66,)]
+    assert s._scan_cache.hits == 1

@@ -121,6 +121,36 @@ def test_row_group_pruning_via_constraint(pair):
     assert both(pair, "select count(*) from events where id >= 2500") == [(1500,)]
 
 
+def test_pruned_split_lists_are_scan_cache_entries_of_their_own(warehouse):
+    """The scan cache keys by the splits a scan reads, not by its
+    constraint: constraints that prune different row groups are two
+    entries, and one that prunes nothing shares the unconstrained scan's."""
+    cached = tsession.Session(device="cpu", config={"result_cache": False})
+    plain = tsession.Session(device="cpu", config={"result_cache": False,
+                                                   "scan_cache_enabled": False})
+    for s in (cached, plain):
+        s.create_catalog("hive", "hive", {"hive.warehouse-dir": warehouse})
+    cache = cached._scan_cache
+
+    def run(where):
+        sql = f"select count(*), sum(amount), min(id) from events {where}"
+        page = cached.execute(sql)
+        convert.assert_pages_identical(plain.execute(sql), page)
+        return page.to_pylist()
+
+    def entries():
+        return [k for k in cache.entries if k[:2] == ("hive", "events")]
+
+    assert run("where id >= 2500")[0][0] == 1500
+    assert run("where id < 1500")[0][0] == 1500
+    assert len(entries()) == 2
+    assert run("")[0][0] == N
+    assert len(entries()) == 3
+    hits = cache.hits
+    assert run("where id >= 0")[0][0] == N
+    assert cache.hits == hits + 1 and len(entries()) == 3
+
+
 def test_date_filter_pruning_correctness(pair):
     rows = both(pair, "select count(*) from events where ts_day >= date '1995-06-01' "
                       "and ts_day < date '1995-07-01'")

@@ -134,7 +134,10 @@ def test_session_device_generation_end_to_end(sessions, i):
 
 @pytest.mark.parametrize("q", [1, 3, 6])
 def test_tpch_queries_match_jax_with_device_generation(sessions, q):
-    js, ts, _host = sessions
+    """A session of its own: the module's would hold an earlier query's
+    columns, which a scan reads from the scan cache."""
+    js = sessions[0]
+    ts = torch_session(SF)
     page = ts.execute(QUERIES[q][0])
     convert.assert_pages_identical(js.execute(QUERIES[q][0]), page)
     prof = ts.last_kernel_profile
@@ -159,8 +162,10 @@ def test_streamed_q1_matches_jax_with_device_generation():
 
 def test_host_formatted_columns_take_the_host_generator(sessions):
     """o_clerk is formatted per row on the host: that scan (only) takes
-    the host generator, and the profile counts it."""
-    js, ts, _host = sessions
+    the host generator, and the profile counts it (a session of its own,
+    whose scan cache holds neither table)."""
+    js = sessions[0]
+    ts = torch_session(SF)
     sql = ("select count(*), min(o_clerk) from orders join lineitem "
            "on o_orderkey = l_orderkey where l_quantity < 5")
     page = ts.execute(sql)

@@ -836,18 +836,44 @@ class TpchConnector(Connector):
     def page_source_provider(self):
         return TpchPageSourceProvider(self.sf)
 
-    def device_generation(self, table: str, cols, splits) -> Optional[dict]:
+    def device_generation(self, table: str, cols, splits,
+                          ranges=None) -> Optional[dict]:
         """On-device generation spec for a set of splits, or None when any
         requested column needs host formatting (connectors/tpch_device.py,
         the in-process row generation of TpchPageSourceProvider made on
         the device).  Splits that are not contiguous (a worker's
         round-robin share) generate one range per contiguous run, in
-        split order: ``ranges`` is [(lo, hi, count)].  Its dictionaries
-        are the host path's vocabularies."""
+        split order: ``ranges`` is [(lo, hi, count)].  The ``ranges`` of
+        an earlier spec over the same splits are reused as given, so
+        lineitem's lines are counted once.  Its dictionaries are the host
+        path's vocabularies."""
         from . import tpch_device
 
         if not splits or not tpch_device.supports(table, cols):
             return None
+        if ranges is None:
+            ranges = self._device_ranges(table, splits)
+        if ranges is None:
+            return None
+        types = dict(SCHEMAS[table])
+        dicts = {
+            c: _VOCABS[c]
+            for c in cols
+            if types[c].is_dictionary and c in _VOCABS
+        }
+        widths = {c: 4 if types[c].is_dictionary or types[c].name == "date"
+                  else 8 for c in cols}
+        return {
+            "table": table, "ranges": ranges, "sf": self.sf,
+            "count": sum(n for _lo, _hi, n in ranges),
+            "dicts": dicts, "widths": widths,
+        }
+
+    def _device_ranges(self, table: str, splits):
+        """[(lo, hi, rows)] of the splits' contiguous runs, or None when
+        the splits do not share one total."""
+        from . import tpch_device
+
         tot = splits[0].total
         if any(s.total != tot for s in splits):
             return None
@@ -871,19 +897,7 @@ class TpchConnector(Connector):
             else:
                 n = hi - lo
             ranges.append((lo, hi, n))
-        types = dict(SCHEMAS[table])
-        dicts = {
-            c: _VOCABS[c]
-            for c in cols
-            if types[c].is_dictionary and c in _VOCABS
-        }
-        widths = {c: 4 if types[c].is_dictionary or types[c].name == "date"
-                  else 8 for c in cols}
-        return {
-            "table": table, "ranges": ranges, "sf": self.sf,
-            "count": sum(n for _lo, _hi, n in ranges),
-            "dicts": dicts, "widths": widths,
-        }
+        return ranges
 
 
 class TpchConnectorFactory(ConnectorFactory):

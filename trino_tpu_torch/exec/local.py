@@ -104,14 +104,20 @@ from ..utils.tracing import TRACER
 
 
 class DeviceScanCache:
-    """Cross-query scan cache: host merged arrays + device lanes.
+    """Cross-query scan cache: host merged arrays + device lanes, by column.
 
-    Repeated scans of an unchanged (connector-versioned) table reuse the
-    uploaded device tensors.  Entries evict in insertion order once the
-    byte budget is exceeded: by default a quarter of the card's memory on
-    CUDA (the lanes stay resident there beside the queries' working
-    memory), 6 GiB of host arrays on the CPU.  Its hits, misses, puts
-    and evictions are system.runtime.caches' scan_cache row."""
+    An entry is the data one scan reads: its key is (catalog, table,
+    splits, the connector's data version, device), never the constraint
+    pushed into the scan nor its columns (pushdown reaches a cacheable
+    connector's rows only through its splits).  It holds lanes by column
+    and grows as later scans ask for more: a lookup hits only when every
+    requested column is resident, and an entry's missing columns are
+    made into it (`extend`, counted in `column_fills`) without reloading
+    the others.  Entries evict in insertion order once the byte budget
+    is exceeded: by default a quarter of the card's memory on CUDA (the
+    lanes stay resident there beside the queries' working memory), 6 GiB
+    of host arrays on the CPU.  Its hits, misses, puts and evictions are
+    system.runtime.caches' scan_cache row."""
 
     def __init__(self, max_bytes: Optional[int] = None,
                  device: Optional[torch.device] = None):
@@ -126,6 +132,7 @@ class DeviceScanCache:
         self.misses = 0
         self.puts = 0
         self.evictions = 0
+        self.column_fills = 0
 
     def drop_all(self) -> int:
         """Evict everything; returns the bytes freed (the session's
@@ -136,26 +143,53 @@ class DeviceScanCache:
         self.bytes = 0
         return freed
 
-    def get(self, key: tuple, record: bool = True):
-        """record=False for a second lookup of an entry already counted
+    def get(self, key: tuple, record: bool = True, columns=()):
+        """The entry of `key` or None.  A hit only when the entry holds
+        every one of `columns`: an entry that lacks some is returned all
+        the same, counted as a miss, for the caller to `extend`.
+        record=False for a second lookup of an entry already counted
         (the device-lane bind re-reads what the scan load found)."""
         entry = self.entries.get(key)
         if record:
-            if entry is not None:
+            if entry is not None and all(c in entry["merged"] for c in columns):
                 self.hits += 1
             else:
                 self.misses += 1
         return entry
 
-    def put(self, key: tuple, entry: dict, nbytes: int):
-        while self.bytes + nbytes > self.max_bytes and self.entries:
-            oldest = next(iter(self.entries))
+    def _make_room(self, nbytes: int, keep=None) -> None:
+        """Evict the oldest entries but `keep` until `nbytes` more fit."""
+        while self.bytes + nbytes > self.max_bytes:
+            oldest = next((k for k in self.entries if k != keep), None)
+            if oldest is None:
+                return
             self.bytes -= self.entries.pop(oldest).get("nbytes", 0)
             self.evictions += 1
+
+    def put(self, key: tuple, entry: dict, nbytes: int):
+        """Insert (or replace) the entry of `key`."""
+        old = self.entries.pop(key, None)
+        if old is not None:
+            self.bytes -= old.get("nbytes", 0)
+        self._make_room(nbytes)
         entry["nbytes"] = nbytes
         self.entries[key] = entry
         self.bytes += nbytes
         self.puts += 1
+
+    def extend(self, key: tuple, entry: dict, lanes: dict, dicts: dict,
+               nbytes: int) -> None:
+        """Add columns (`lanes` and their `dicts`, by column name) to the
+        entry `get` returned for `key`, evicting other entries, oldest
+        first, to keep within the budget: never the entry itself."""
+        entry["merged"].update(lanes)
+        entry["dicts"].update(dicts)
+        self.column_fills += len(lanes)
+        if self.entries.get(key) is not entry:  # evicted meanwhile
+            return
+        self._make_room(nbytes, keep=key)
+        entry["nbytes"] += nbytes
+        self.bytes += nbytes
 
     def stats(self) -> Dict[str, int]:
         return {
@@ -164,6 +198,7 @@ class DeviceScanCache:
             "misses": self.misses,
             "puts": self.puts,
             "evictions": self.evictions,
+            "column_fills": self.column_fills,
             "entries": len(self.entries),
             "bytes": self.bytes,
             "max_bytes": self.max_bytes,
@@ -461,11 +496,16 @@ def _tensor_bytes(t) -> int:
     return 0 if t is None else t.numel() * t.element_size()
 
 
-def _scan_bytes(scans) -> int:
-    """Bytes of the scan lanes a run reads: host arrays, device-generated
-    lanes by their size, validity lanes included."""
+def _lane_bytes(lanes) -> int:
+    """Bytes of one scan's lanes: host arrays, device-generated lanes by
+    their size, validity lanes included."""
     return sum(int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
-               for arrays in scans.values() for v, ok in arrays.values())
+               for v, ok in lanes.values())
+
+
+def _scan_bytes(scans) -> int:
+    """Bytes of the scan lanes a run reads."""
+    return sum(_lane_bytes(arrays) for arrays in scans.values())
 
 
 def _valid_of(col: Column, n: int) -> np.ndarray:
@@ -939,14 +979,17 @@ class LocalExecutor:
             self._load_scans(s, scans, dicts, counts)
 
     def _scan_cache_key(self, node: P.TableScan, splits):
+        """The identity of the data a scan reads.  Neither its columns (an
+        entry holds lanes by column) nor its pushed-down constraint: a
+        cacheable connector's rows depend on that only through `splits`,
+        whose reprs tell a pruned split list, and a worker's or a shard's
+        share, apart.  `evict_table` matches the first two elements."""
         conn = self.catalogs.get(node.catalog)
         if not getattr(conn, "cacheable", False):
             return None
         return (
             node.catalog,
             node.table,
-            tuple(c for _, c in node.assignments),
-            node.constraint,
             tuple(repr(sp) for sp in splits),
             conn.data_version(node.table),
             str(self.device),
@@ -955,8 +998,9 @@ class LocalExecutor:
     def _load_one_scan(self, node: P.TableScan, splits, scans, dicts, counts):
         """Load the splits of one scan into host arrays, merging per-split
         dictionaries; cached across queries for versioned connectors.
-        One `scan_load` span: its `table`, its `rows`, and `cache` (hit,
-        miss, or uncached where no cache or key applies)."""
+        One `scan_load` span: its `table`, its `rows`, `cache` (hit,
+        miss, or uncached where no cache or key applies) and, where the
+        columns a cached entry lacked were made into it, `filled`."""
         with TRACER.span("scan_load", table=node.table, cache="uncached") as span:
             self._read_scan(node, splits, scans, dicts, counts, span.attributes)
             span.attributes["rows"] = int(counts[id(node)])
@@ -965,116 +1009,110 @@ class LocalExecutor:
         cache: Optional[DeviceScanCache] = self.config.get("scan_cache")
         key = self._scan_cache_key(node, splits)
         self._scan_keys[id(node)] = key
-        if cache is not None and key is not None:
-            hit = cache.get(key)
-            # the lookup that counts the hit or miss names it
-            attrs["cache"] = "miss" if hit is None else "hit"
-            if hit is not None:
-                sym_of = {c: self._sym_for(node, c) for _, c in node.assignments}
-                scans[id(node)] = {
-                    sym_of[col]: lane for col, lane in hit["merged"].items()
-                }
-                for col, d in hit["dicts"].items():
-                    dicts[sym_of[col]] = d
-                counts[id(node)] = hit["total"]
-                if hit.get("devgen") is not None:
-                    self._devgen[id(node)] = hit["devgen"]
-                return
-        conn = self.catalogs.get(node.catalog)
-        cols = [c for _, c in node.assignments]
-        if self._try_device_generation(conn, node, cols, splits, key, cache,
-                                       scans, dicts, counts):
+        cols = list(dict.fromkeys(c for _, c in node.assignments))
+        if cache is None or key is None:
+            self._bind_scan(node, self._load_columns(node, splits, cols),
+                            scans, dicts, counts)
             return
-        provider = conn.page_source_provider()
+        entry = cache.get(key, columns=cols)
+        missing = [c for c in cols if entry is None or c not in entry["merged"]]
+        # the lookup that counts the hit or miss names it
+        attrs["cache"] = "miss" if missing else "hit"
+        loaded = None
+        if entry is not None and missing:
+            # the missing columns, made the way the entry's others were:
+            # on the device from its counted ranges, or read on the host
+            spec = entry.get("devgen")
+            fill = (self._host_columns(node, splits, missing) if spec is None
+                    else self._device_columns(node, splits, missing, spec["ranges"]))
+            if fill is not None and fill[2] == entry["total"]:
+                cache.extend(key, entry, fill[0], fill[1], _lane_bytes(fill[0]))
+                attrs["filled"] = len(missing)
+            else:
+                # the entry's way cannot make them (generated on the
+                # device, a column only the host formats): the host reads
+                # the scan anew, and that replaces the entry
+                entry, loaded = None, self._host_columns(node, splits, cols)
+        if entry is None:
+            lanes, ldicts, total, spec = loaded or self._load_columns(node, splits, cols)
+            entry = {"merged": lanes, "dicts": ldicts, "total": total, "dev": {},
+                     "devgen": spec}
+            cache.put(key, entry, _lane_bytes(lanes))
+        self._bind_scan(node, (entry["merged"], entry["dicts"], entry["total"],
+                               entry.get("devgen")), scans, dicts, counts)
+
+    def _bind_scan(self, node: P.TableScan, loaded, scans, dicts, counts):
+        """Bind the scan's own columns of `loaded` (lanes and dictionaries
+        by column name, a row count, a device generation spec or None) to
+        its symbols, in a fresh dict of lanes: dynamic filters prune that,
+        never a cached entry."""
+        lanes, ldicts, total, spec = loaded
         tmap = dict(node.types)
-        sym_of = {c: self._sym_for(node, c) for c in cols}
+        sym_of = {c: self._sym_for(node, c) for _, c in node.assignments}
+        scans[id(node)] = {s: lanes[c] for c, s in sym_of.items()}
+        for c, s in sym_of.items():
+            if c in ldicts:
+                dicts[s] = ldicts[c]
+            elif tmap[s].is_dictionary and s not in dicts:
+                dicts[s] = np.array([], dtype=object)
+        counts[id(node)] = total
+        if spec is not None:
+            self._devgen[id(node)] = spec
+
+    def _load_columns(self, node: P.TableScan, splits, cols):
+        """(lanes, dictionaries, row count, device generation spec or
+        None) of a scan's columns: generated on the device where the
+        connector can, else read on the host."""
+        return (self._device_columns(node, splits, cols)
+                or self._host_columns(node, splits, cols))
+
+    def _host_columns(self, node: P.TableScan, splits, cols):
+        """Read columns from the connector's page sources into host arrays
+        by column name, merging per-split dictionaries."""
+        provider = self.catalogs.get(node.catalog).page_source_provider()
+        tmap = dict(node.types)
         pages: List[Page] = []
         for sp in splits:
             src = provider.create_page_source(sp, cols)
             for page in src.pages():
                 src_dicts = src.dictionaries()
-                new_cols = []
-                for c, col in zip(page.names, page.columns):
-                    d = (
-                        col.dictionary
-                        if col.dictionary is not None
-                        else src_dicts.get(c)
-                    )
-                    new_cols.append(Column(col.type, col.values, col.validity, d))
-                pages.append(
-                    Page(new_cols, page.count, [sym_of[c] for c in page.names])
-                )
-        symbols = [sym_of[c] for c in cols]
-        types = [(s, tmap[s]) for s in symbols]
-        merged, total = merge_pages_to_arrays(pages, symbols, types, dicts)
-        for s, t in types:
-            if t.is_dictionary and s not in dicts:
-                dicts[s] = np.array([], dtype=object)
-        scans[id(node)] = merged
-        counts[id(node)] = total
-        nbytes = sum(
-            int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
-            for v, ok in merged.values()
-        )
-        if cache is not None and key is not None:
-            col_of = {s: c for s, c in node.assignments}
-            cache.put(
-                key,
-                {
-                    "merged": {col_of[s]: lane for s, lane in merged.items()},
-                    "dicts": {
-                        col_of[s]: dicts[s] for s, _ in node.assignments
-                        if s in dicts
-                    },
-                    "total": total, "dev": {},
-                },
-                nbytes,
-            )
+                new_cols = [
+                    Column(col.type, col.values, col.validity,
+                           col.dictionary if col.dictionary is not None
+                           else src_dicts.get(c))
+                    for c, col in zip(page.names, page.columns)
+                ]
+                pages.append(Page(new_cols, page.count, list(page.names)))
+        types = [(c, tmap[self._sym_for(node, c)]) for c in cols]
+        ldicts: Dict[str, np.ndarray] = {}
+        merged, total = merge_pages_to_arrays(pages, cols, types, ldicts)
+        for c, t in types:
+            if t.is_dictionary and c not in ldicts:
+                ldicts[c] = np.array([], dtype=object)
+        return merged, ldicts, total, None
 
-    def _try_device_generation(self, conn, node, cols, splits, key, cache,
-                               scans, dicts, counts) -> bool:
+    def _device_columns(self, node: P.TableScan, splits, cols, ranges=None):
         """On-device scan materialization: when the connector makes every
         requested column as a pure function of the row index
-        (connectors/tpch_device.py), no host array is made; _device_lanes
-        generates the lanes on the device.  A scan that reads a column the
-        generator cannot make takes the host generator (the connector's
-        `supports`), counted as hostGeneratedScans; a generator that fails
-        raises."""
-        devgen_fn = getattr(conn, "device_generation", None)
+        (connectors/tpch_device.py), no host array is made; each column
+        is a placeholder that _device_lanes generates on the device.
+        `ranges` (a cached spec's) spares the connector counting rows
+        again.  None where generation is off or the connector cannot make
+        a column (its `supports`): that scan takes the host generator,
+        counted as hostGeneratedScans.  A generator that fails raises."""
+        devgen_fn = getattr(self.catalogs.get(node.catalog), "device_generation", None)
         if devgen_fn is None or not self.config.get("device_generation", True):
-            return False
-        spec = devgen_fn(node.table, cols, splits)
+            return None
+        spec = devgen_fn(node.table, cols, splits, ranges=ranges)
         prof = self.kernel_profile
         if spec is None:
             prof["hostGeneratedScans"] = prof.get("hostGeneratedScans", 0) + 1
-            return False
+            return None
         prof["deviceGeneratedScans"] = prof.get("deviceGeneratedScans", 0) + 1
-        sym_of = {c: self._sym_for(node, c) for c in cols}
         count = int(spec["count"])
-        merged = {
-            sym_of[c]: (_LazyDeviceLane(count * spec["widths"].get(c, 8)), None)
-            for c in cols
-        }
-        tmap = dict(node.types)
-        for c, d in spec["dicts"].items():
-            dicts[sym_of[c]] = d
-        for c in cols:
-            s = sym_of[c]
-            if tmap[s].is_dictionary and s not in dicts:
-                dicts[s] = np.array([], dtype=object)
-        scans[id(node)] = merged
-        counts[id(node)] = count
-        self._devgen[id(node)] = spec
-        if cache is not None and key is not None:
-            col_of = {s: c for s, c in node.assignments}
-            cache.put(
-                key,
-                {"merged": {col_of[s]: merged[s] for s in merged},
-                 "dicts": dict(spec["dicts"]), "total": count, "dev": {},
-                 "devgen": spec},
-                sum(lane[0].nbytes for lane in merged.values()),
-            )
-        return True
+        lanes = {c: (_LazyDeviceLane(count * spec["widths"].get(c, 8)), None)
+                 for c in cols}
+        return lanes, dict(spec["dicts"]), count, spec
 
     def _generate_device_scan(self, spec: dict, syms, sym_to_col):
         """Run the connector's on-device generator for one scan; returns

@@ -175,7 +175,10 @@ class Connector:
     name: str
     # deterministic sources (generators, immutable tables) may be cached
     # across queries; mutable/live sources must set this False or bump
-    # data_version() on every change
+    # data_version() on every change.  A cacheable connector's loaded rows
+    # are a function of (splits, columns, data_version): pushdown reaches
+    # them only through get_splits (the scan cache keys by the splits,
+    # never by the constraint, and holds lanes by column)
     cacheable: bool = True
 
     def data_version(self, table: Optional[str] = None) -> int:
