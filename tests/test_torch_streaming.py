@@ -388,3 +388,77 @@ def test_prefetch_threads_share_one_run_cache(monkeypatch):
     remote = [k for k in puts if k[0] == "__remote__"]
     assert remote and len(remote) == len(set(remote)), remote
     assert max(ts.last_kernel_profile["streamedTiles"].values()) >= 10
+
+
+# ---------------------------------------------------------------------------
+# a worker's streamed PARTIAL fragment on a cluster
+
+
+CLUSTER_LIMIT = 300_000
+# a wide sum whose partial state spans several tiles of each worker: a
+# product of up to about 5.5e17 units a row, the column's sum past the
+# int64 range, so the high limbs of the accumulator carry
+WIDE_GLOBAL = ("select sum(l_extendedprice * l_extendedprice * l_quantity) as s, "
+               "avg(l_extendedprice) as a, count(*) as n from lineitem")
+CLUSTER_STATEMENTS = {"q1": Q[1], "q3": Q[3], "q6": Q[6], "wide_global_sum": WIDE_GLOBAL}
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    with DistributedQueryRunner(workers=2, device="cpu",
+                                properties={"query_max_memory_bytes": CLUSTER_LIMIT}) as r:
+        yield r
+
+
+@pytest.fixture(scope="module")
+def oracle_db():
+    import sqlite3
+
+    from oracle import load_tpch
+
+    conn = sqlite3.connect(":memory:")
+    load_tpch(conn, 0.01, ["customer", "orders", "lineitem"])
+    return conn
+
+
+def _exact(rows, page):
+    """Rows with each decimal column's value as the Decimal it states."""
+    from decimal import Decimal
+
+    dec = [c.type.is_decimal for c in page.columns]
+    return [tuple(Decimal(str(v)) if d and v is not None else v for v, d in zip(r, dec))
+            for r in rows]
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_STATEMENTS))
+def test_a_cluster_streams_worker_partials_to_the_one_node_answer(
+        cluster, oracle_db, monkeypatch, name):
+    """Under a 300,000-byte limit each worker streams its PARTIAL
+    fragment in tiles (its own splits, cut finer), the tiles merge into
+    one partial state with every accumulator lane the FINAL step reads
+    (Q1's wide sums and averages included), and the answer is the
+    one-node session's, exactly, and the sqlite oracle's (to the
+    oracle's floating point)."""
+    import collections
+
+    from oracle import assert_rows_match
+    from tpch_sql import oracle_dialect
+    from trino_tpu_torch.utils.tracing import TRACER
+
+    sql = CLUSTER_STATEMENTS[name]
+    monkeypatch.setattr(TRACER, "spans", collections.deque(maxlen=1 << 20))
+    rows = cluster.rows(sql)
+    tiles = [s for s in TRACER.spans if s.name == "stream_tile"]
+    by_task = collections.Counter(s.parent_id for s in tiles)
+    assert len(by_task) >= 2 and min(by_task.values()) >= 2, by_task
+    assert all(s.attributes["rows"] > 0 for s in tiles)
+    page = torch_session(0.01).execute(sql)
+    assert _exact(rows, page) == _exact(page.to_pylist(), page)
+    if name == "wide_global_sum":
+        assert page.to_pylist()[0][0] * 10 ** 6 > 2 ** 63
+    # sqlite sums in binary floating point, and both sides are rounded
+    # to 4 places before the comparison: one unit of the 4th place apart
+    expected = oracle_db.execute(oracle_dialect(sql)).fetchall()
+    assert_rows_match(rows, expected, tol=1e-4 + 1e-12, ordered=True)

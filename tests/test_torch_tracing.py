@@ -275,3 +275,59 @@ def test_the_clock_script_finds_every_kernel_inside_its_span():
     assert res["spans"] == 50 and res["device"] == "cpu"
     assert res["outside_us"] <= 100.0
     assert res["span_us"] > 0
+
+
+def test_a_cluster_query_spans_its_schedule_serde_and_streamed_tiles(monkeypatch):
+    """Under a cluster query that streams its workers' fragments: the
+    coordinator's `schedule`, the workers' `stream_tile`s, the pages'
+    `serde_encode` and `serde_decode` and the exchange's `exchange_fetch`
+    and `exchange_transfer` open with their attributes, and the workers'
+    spans join the coordinator's trace."""
+    import collections
+
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    monkeypatch.setattr(TRACER, "spans", collections.deque(maxlen=1 << 20))
+    with DistributedQueryRunner(workers=2, device="cpu",
+                                properties={"query_max_memory_bytes": 300_000}) as r:
+        TRACER.clear()
+        r.rows("select sum(l_extendedprice * l_discount) from lineitem")
+    spans = list(TRACER.spans)
+    (query,) = [s for s in spans if s.name == "query"]
+    by = collections.defaultdict(list)
+    for s in spans:
+        by[s.name].append(s)
+    (sched,) = by["schedule"]
+    assert sched.attributes["fragments"] == 2 and sched.attributes["tasks"] == 3
+    assert len(by["stream_tile"]) >= 4
+    for s in by["stream_tile"]:
+        assert {"fragment", "tile", "rows"} <= set(s.attributes) and s.attributes["rows"] > 0
+    for name in ("serde_encode", "serde_decode", "exchange_fetch"):
+        assert by[name] and all(s.attributes["bytes"] > 0 for s in by[name])
+    for name in ("serde_encode", "serde_decode"):
+        assert all(s.attributes["pages"] == 1 and s.attributes["rows"] >= 1
+                   for s in by[name])
+    # every page written is read once
+    assert (sorted(s.attributes["bytes"] for s in by["serde_encode"])
+            == sorted(s.attributes["bytes"] for s in by["serde_decode"]))
+    assert sum(s.attributes["bytes"] for s in by["exchange_fetch"]) == sum(
+        s.attributes["bytes"] for s in by["serde_decode"])
+    # a transfer is one answered request's body, inside its pull: every
+    # frame's bytes, and no time of the producer's wait or the decode
+    fetches = {s.span_id: s for s in by["exchange_fetch"]}
+    assert sorted(s.attributes["bytes"] for s in by["exchange_transfer"]
+                  if s.attributes["bytes"]) == sorted(
+        s.attributes["bytes"] for s in by["serde_decode"])
+    for s in by["exchange_transfer"]:
+        assert s.parent_id in fetches and s.attributes["task"] == fetches[
+            s.parent_id].attributes["task"]
+    for d in by["serde_decode"]:
+        assert not any(t.start < d.end and d.start < t.end for t in by["exchange_transfer"]
+                       if t.parent_id == d.parent_id)
+    assert sum(s.end - s.start for s in by["exchange_transfer"]) < sum(
+        s.end - s.start for s in by["exchange_fetch"])
+    for name in ("schedule", "stream_tile", "serde_encode", "serde_decode", "exchange_fetch",
+                 "exchange_transfer", "fragment_execute"):
+        assert {s.trace_id for s in by[name]} == {query.trace_id}, name
+    # the tasks parent onto the query, not onto `schedule`
+    assert by["task"] and all(t.parent_id == query.span_id for t in by["task"])

@@ -772,6 +772,16 @@ class TpchSplitManager(SplitManager):
         k = max(1, min(desired, (n + rows - 1) // rows))
         return [Split(table, i, k, {"sf": self.sf}) for i in range(k)]
 
+    def subdivide(self, split: Split, parts: int) -> List[Split]:
+        # split i of k reads base rows [n*i//k, n*(i+1)//k); split i*m+j of
+        # k*m reads the j-th of m runs of it, its first and last bounds
+        # the same (a lineitem split reads whole orders either way)
+        n = _counts(self.sf)["orders" if split.table == "lineitem" else split.table]
+        lo, hi = (n * split.ordinal) // split.total, (n * (split.ordinal + 1)) // split.total
+        m = max(1, min(int(parts), hi - lo))
+        return [Split(split.table, split.ordinal * m + j, split.total * m, dict(split.info))
+                for j in range(m)]
+
 
 class TpchPageSource(PageSource):
     def __init__(self, sf, split: Split, columns: Sequence[str]):

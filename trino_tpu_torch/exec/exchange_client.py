@@ -3,8 +3,12 @@
 Counterpart of trino_tpu/exec/exchange_client.py.  A location is a live
 task buffer (pipelined) or a committed spool file (fault-tolerant
 execution); both count their frame bytes and decode seconds, and a spool
-read also its wall.  A spool read never falls back to HTTP: a damaged
-file raises SpoolCorruptionError and the FTE scheduler heals it.
+read also its wall.  A live buffer's pull is an `exchange_fetch` span
+with the frame bytes it read: its polls for the producer, its transfers
+and its decoding.  Inside it, an `exchange_transfer` span reads one
+answered request's body, the frame's bytes on the wire alone.  A spool
+read never falls back to HTTP: a damaged file raises SpoolCorruptionError
+and the FTE scheduler heals it.
 
 Reference parity: operator/DirectExchangeClient.java:56 (addLocation:154,
 pollPage:221) and HttpPageBufferClient.java:98 — async long-poll GET of
@@ -136,7 +140,11 @@ def _fetch_buffer(
                 refused = 0
                 state = resp.headers.get("X-Task-State", "RUNNING")
                 if resp.status == 200:
-                    body = resp.read()
+                    # the frame's bytes on the wire: after the producer's
+                    # wait (the response's headers), before the decode
+                    with TRACER.span("exchange_transfer", task=task) as span:
+                        body = resp.read()
+                        span.attributes["bytes"] = len(body)
                     if body:
                         fetch_bytes.inc(len(body))
                         if x_bytes is not None:
@@ -297,7 +305,7 @@ class ExchangeClient:
                 traceparent=self.traceparent,
                 uri=loc["uri"],
                 task=loc["task"],
-            ):
+            ) as span:
                 pages = _fetch_buffer(
                     loc["uri"], loc["task"], int(loc["buffer"]), self.timeout,
                     self.retries, self.retry_budget_s, self.fault_injector,
@@ -307,6 +315,7 @@ class ExchangeClient:
                     ),
                     stats=st,
                 )
+                span.attributes["bytes"] = st["bytes"]
             fetch_seconds.observe(time.time() - start)
             return pages
 

@@ -25,6 +25,16 @@ onto its padding ladder (scan_cap_override), so every tile reuses one
 compiled program; eager execution pads nothing and compiles nothing, so
 that step is left out.
 
+On a worker the streamed fragment is the task's own (exec/fragment_exec.py):
+its tiles read only the splits the task was given, each cut by its
+connector where the task holds fewer splits than tiles
+(SplitManager.subdivide), and its RemoteSources are read whole by every
+tile from the pages the task fetched.  A fragment whose root is already
+a PARTIAL aggregate streams as PARTIAL tiles merged by an INTERMEDIATE
+step (plan/fragment.py), so the task emits every accumulator lane its
+consumer reads, wide-decimal limbs included.  Each tile's run is a
+`stream_tile` span (fragment, tile, rows read).
+
 Tiles run double-buffered: while tile i runs on the card, up to
 `double_buffer_depth` later tiles load on a prefetch thread and put
 their scan lanes on the device on a side CUDA stream
@@ -45,6 +55,7 @@ import torch
 from ..page import Page
 from ..plan import nodes as P
 from ..plan.fragment import fragment_plan
+from ..utils.tracing import TRACER
 
 # a tile's scan working set is bounded to limit/SAFETY so scan arrays,
 # operator temporaries and partial state fit together
@@ -75,17 +86,21 @@ def _est_scan_bytes(executor, catalog: str, table: str, node) -> float:
     return float(stats.row_count) * _scan_row_bytes(node)
 
 
-def _find_scan_nodes(root: P.PlanNode) -> List[P.TableScan]:
-    out: List[P.TableScan] = []
+def _find_nodes(root: P.PlanNode, kind) -> list:
+    out = []
 
     def walk(n: P.PlanNode):
-        if isinstance(n, P.TableScan):
+        if isinstance(n, kind):
             out.append(n)
         for s in n.sources:
             walk(s)
 
     walk(root)
     return out
+
+
+def _find_scan_nodes(root: P.PlanNode) -> List[P.TableScan]:
+    return _find_nodes(root, P.TableScan)
 
 
 def estimate_plan_scan_bytes(executor, plan: P.PlanNode) -> float:
@@ -210,7 +225,9 @@ def plan_streaming(executor, plan: P.Output, memory_limit: int,
         return None if value is False else value
 
     try:
-        frags = fragment_plan(plan)
+        # a task's plan reads upstream fragments: number the new ones after
+        first = 1 + max((n.fragment_id for n in _find_nodes(plan, P.RemoteSource)), default=0)
+        frags = fragment_plan(plan, first_id=first)
     except NotImplementedError:
         return _remember(False)
     if len(frags) < 2:
@@ -257,6 +274,30 @@ def tile_counts(executor, frags, memory_limit: int) -> Dict[int, int]:
     return out
 
 
+def _task_splits(executor, plan: P.PlanNode):
+    """A task's assigned splits by id(scan node) (the fragmenter keeps the
+    scan nodes), or None on one node, which reads every split."""
+    assigned = getattr(executor, "splits_by_scan", None)
+    if assigned is None:
+        return None
+    return {id(sc): assigned.get(i, []) for i, sc in enumerate(_find_scan_nodes(plan))}
+
+
+def _splits(executor, task_splits, scan_table, node: P.TableScan, want: int) -> list:
+    """The splits a fragment's scan reads, at least `want` where they can
+    be had: the connector's on one node, the task's own (cut by the
+    connector when fewer) on a worker."""
+    cat, tab, cons = scan_table
+    sm = executor.catalogs.get(cat).split_manager()
+    if task_splits is None:
+        return sm.get_splits(tab, want, cons)
+    splits = task_splits.get(id(node), [])
+    if len(splits) >= want:
+        return splits
+    parts = math.ceil(want / max(len(splits), 1))
+    return [p for s in splits for p in sm.subdivide(s, parts)]
+
+
 def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Page:
     """Run the fragment DAG locally, tiling SOURCE fragments' splits."""
     from .fragment_exec import FragmentExecutor
@@ -264,7 +305,10 @@ def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Pag
 
     by_id = {f.id: f for f in frags}
     ntiles_of = tile_counts(executor, frags, memory_limit)
-    pages_by_fragment: Dict[int, List[Page]] = {}
+    task_splits = _task_splits(executor, plan)
+    # a task's upstream pages, fetched already, under their fragment ids
+    pages_by_fragment: Dict[int, List[Page]] = dict(
+        getattr(executor, "remote_pages", None) or {})
     # device residency for remote inputs across tiles, scoped to this run
     # (tiles must not thrash the session's scan cache)
     run_cache = DeviceScanCache(device=executor.device)
@@ -291,19 +335,20 @@ def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Pag
         for src in f.source_fragments:
             run_fragment(src)
         remote = {src: pages_by_fragment[src] for src in f.source_fragments}
+        scans = _find_scan_nodes(f.root)
         if f.partitioning != "source":
             splits_by_scan = {
-                idx: executor.catalogs.get(cat).split_manager().get_splits(tab, 1, cons)
-                for idx, (cat, tab, cons) in f.scan_tables.items()
+                idx: _splits(executor, task_splits, st, scans[idx], 1)
+                for idx, st in f.scan_tables.items()
             }
             fe = FragmentExecutor(executor.catalogs, tile_config(), splits_by_scan, remote)
             fe._streaming_cache, fe._streaming_lock = run_cache, run_lock
             pages_by_fragment[fid] = [fe.execute(f.root)]
             _merge_tile_counters(executor, fe)
             return
-        (idx, (cat, tab, cons)), = f.scan_tables.items()
+        (idx, st), = f.scan_tables.items()
         ntiles = ntiles_of[fid]
-        splits = executor.catalogs.get(cat).split_manager().get_splits(tab, ntiles, cons)
+        splits = _splits(executor, task_splits, st, scans[idx], ntiles)
         per = max(1, math.ceil(len(splits) / ntiles))
         tile_starts = list(range(0, len(splits), per))
         executor.kernel_profile["streamedTiles"][fid] = len(tile_starts)
@@ -329,14 +374,17 @@ def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Pag
             pending = deque(prefetch.submit(make_loaded, i)
                             for i in tile_starts[:depth])
             nexti = depth
-            while pending:
+            for tile in range(len(tile_starts)):
                 t0 = time.perf_counter()
                 fe = pending.popleft().result()  # a prefetch failure raises here
                 t1 = time.perf_counter()
                 if nexti < len(tile_starts):
                     pending.append(prefetch.submit(make_loaded, tile_starts[nexti]))
                     nexti += 1
-                out.append(fe.execute(f.root))
+                with TRACER.span("stream_tile", fragment=fid, tile=tile) as span:
+                    out.append(fe.execute(f.root))
+                    span.attributes["rows"] = int(
+                        fe.kernel_profile.get("summary", {}).get("actualRows", 0))
                 prof = fe.kernel_profile
                 prof["streamWaitS"] = t1 - t0
                 prof["streamRunS"] = time.perf_counter() - t1

@@ -22,6 +22,12 @@ Distribution policy (v1, mirroring the reference's defaults for this scale):
     build side is broadcast (replicated to every probe task)
   - sort/window/set-ops/merge phases gather to a SINGLE stage
   - TopN/Limit: partial in the distributed stage, final after the gather
+
+A worker that streams its own fragment (exec/streaming.py) cuts that
+fragment again: an aggregate already split keeps its step across the
+new cut (a PARTIAL becomes PARTIAL under INTERMEDIATE, a FINAL becomes
+INTERMEDIATE under FINAL), the fragment's RemoteSources stay where they
+are as whole inputs, and the new fragments are numbered after theirs.
 """
 from __future__ import annotations
 
@@ -85,8 +91,9 @@ class Fragmenter:
     cutting child fragments (exchange placement and fragmentation fused —
     the ExchangeNode is implied by the PlanFragment/RemoteSource pair)."""
 
-    def __init__(self):
+    def __init__(self, first_id: int = 1):
         self.fragments: List[PlanFragment] = []
+        self.first_id = first_id  # 0 is reserved for the root
 
     def _cut(
         self,
@@ -96,7 +103,7 @@ class Fragmenter:
         output_partitioning: str,
         output_keys: Tuple[str, ...] = (),
     ) -> P.RemoteSource:
-        fid = len(self.fragments) + 1  # 0 is reserved for the root
+        fid = self.first_id + len(self.fragments)
         frag = PlanFragment(
             fid,
             _wrap_output(subtree),
@@ -155,6 +162,10 @@ class Fragmenter:
         return node, SOURCE, ()
 
     def _do_values(self, node: P.Values):
+        return node, SINGLE, ()
+
+    def _do_remotesource(self, node: P.RemoteSource):
+        # an exchange already placed: each reader reads its whole input
         return node, SINGLE, ()
 
     # -- streaming unary (keep partitioning) -----------------------------
@@ -235,7 +246,7 @@ class Fragmenter:
     def _do_aggregate(self, node: P.Aggregate):
         src, part, keys = self._rewrite(node.source)
         if part == SINGLE:
-            return P.Aggregate(src, node.keys, node.aggs, "single"), SINGLE, ()
+            return dataclasses.replace(node, source=src), SINGLE, ()
         if not all(a.partializable for a in node.aggs):
             # e.g. count(DISTINCT): raw rows must be colocated by group key
             if node.keys:
@@ -247,22 +258,26 @@ class Fragmenter:
                 )
             rs = self._cut(src, part, keys, SINGLE)
             return P.Aggregate(rs, node.keys, node.aggs, "single"), SINGLE, ()
-        partial = P.Aggregate(src, node.keys, node.aggs, "partial")
+        # the steps either side of the cut: an aggregate already split
+        # keeps what it reads and what it emits
+        lower, upper = _SPLIT_STEPS[node.step]
+        partial = P.Aggregate(src, node.keys, node.aggs, lower)
         if node.keys:
             rs = self._cut(partial, part, keys, HASH, tuple(node.keys))
             return (
-                P.Aggregate(rs, node.keys, node.aggs, "final"),
+                P.Aggregate(rs, node.keys, node.aggs, upper),
                 HASH,
                 tuple(node.keys),
             )
         rs = self._cut(partial, part, keys, SINGLE)
-        return P.Aggregate(rs, node.keys, node.aggs, "final"), SINGLE, ()
+        return P.Aggregate(rs, node.keys, node.aggs, upper), SINGLE, ()
 
     # -- joins ------------------------------------------------------------
     def _broadcast(self, node, part, keys, probe_single: bool) -> P.PlanNode:
         """Build/filtering sides: replicate to every probe task (the
-        all-gather slot; FIXED_BROADCAST_DISTRIBUTION)."""
-        if probe_single:
+        all-gather slot; FIXED_BROADCAST_DISTRIBUTION).  A RemoteSource
+        is read whole by every task already."""
+        if probe_single or isinstance(node, P.RemoteSource):
             return self._gather(node, part, keys)
         return self._cut(node, part, keys, BROADCAST)
 
@@ -370,6 +385,16 @@ class Fragmenter:
         return P.Output(src, node.names, node.symbols), SINGLE, ()
 
 
-def fragment_plan(plan: P.Output) -> List[PlanFragment]:
-    """Optimized plan -> list of fragments, root first (id 0)."""
-    return Fragmenter().fragment(plan)
+# an aggregate's step -> the steps below and above a cut through it
+_SPLIT_STEPS = {
+    "single": ("partial", "final"),
+    "partial": ("partial", "intermediate"),
+    "intermediate": ("intermediate", "intermediate"),
+    "final": ("intermediate", "final"),
+}
+
+
+def fragment_plan(plan: P.Output, first_id: int = 1) -> List[PlanFragment]:
+    """Optimized plan -> list of fragments, root first (id 0); the cut
+    fragments are numbered from `first_id`."""
+    return Fragmenter(first_id).fragment(plan)

@@ -22,7 +22,8 @@ where the payload is blockCount + per-block encodings.  Compression
 (PageSerializer.java:100).  `TPG2` frames carry a CRC32 of the header
 fields and body, and `deserialize_page` raises a typed
 `PageIntegrityError` on any mismatch.  Column payloads are raw little-endian
-numpy buffers.
+numpy buffers.  Each page written is a `serde_encode` span, each frame read
+a `serde_decode` span, with the frame's bytes, the page's rows and pages=1.
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ from .ops.sort import SortKey
 from .page import Column, Page
 from .plan import nodes as P
 from .spi import Split
+from .utils.tracing import TRACER
 
 MAGIC = b"TPG2"  # checksummed frames (CRC32 of header fields + body)
 MARKER_COMPRESSED = 1
@@ -134,7 +136,15 @@ def _host_lanes(page: Page) -> List[Tuple[np.ndarray, Any]]:
 
 
 def serialize_page(page: Page) -> bytes:
-    """Page -> one wire frame (only the first ``count`` rows are shipped)."""
+    """Page -> one wire frame (only the first ``count`` rows are shipped),
+    in a `serde_encode` span (bytes, rows, pages)."""
+    with TRACER.span("serde_encode", rows=page.count, pages=1) as span:
+        frame = _serialize_page(page)
+        span.attributes["bytes"] = len(frame)
+    return frame
+
+
+def _serialize_page(page: Page) -> bytes:
     n = page.count
     payload = io.BytesIO()
     payload.write(struct.pack("<I", page.num_columns))
@@ -176,6 +186,15 @@ def serialize_page(page: Page) -> bytes:
 
 
 def deserialize_page(frame: bytes) -> Page:
+    """One wire frame -> Page, in a `serde_decode` span (bytes, rows,
+    pages)."""
+    with TRACER.span("serde_decode", bytes=len(frame), pages=1) as span:
+        page = _deserialize_page(frame)
+        span.attributes["rows"] = page.count
+    return page
+
+
+def _deserialize_page(frame: bytes) -> Page:
     magic = bytes(frame[:4])
     if magic == MAGIC:
         if len(frame) < HEADER_V2:

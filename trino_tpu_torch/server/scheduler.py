@@ -57,11 +57,12 @@ class TaskHandle:
         self.uri = uri
 
 
-def _post_json(url: str, doc: dict, timeout: float = 30.0):
+def _post_json(url: str, doc: dict, timeout: float = 30.0,
+               traceparent: Optional[str] = None):
     headers = {"Content-Type": "application/json"}
     # propagate the caller's trace context (W3C Trace Context): the worker
     # parents its task span under the coordinator's query span
-    tp = TRACER.current_traceparent()
+    tp = traceparent or TRACER.current_traceparent()
     if tp:
         headers["traceparent"] = tp
     req = urllib.request.Request(
@@ -238,49 +239,22 @@ class DistributedScheduler:
     # ------------------------------------------------------------------
     def run(self, plan: P.Output, query_id: Optional[str] = None) -> Page:
         query_id = query_id or f"q_{uuid.uuid4().hex[:12]}"
-        fragments = fragment_plan(plan)
-        by_id = {f.id: f for f in fragments}
-        consumer: Dict[int, int] = {}
-        for f in fragments:
-            for sf in f.source_fragments:
-                consumer[sf] = f.id
-
-        # task placement (stage width)
-        ntasks: Dict[int, int] = {}
-        placement: Dict[int, List[Tuple[str, str]]] = {}
-        for f in fragments:
-            if f.partitioning in (SOURCE, HASH, ARBITRARY):
-                placement[f.id] = self._schedulable_workers()
-            else:  # SINGLE; memory-aware pick, hash spread as fallback
-                placement[f.id] = [self._pick_single_worker(query_id)]
-            ntasks[f.id] = len(placement[f.id])
-
-        # buffer counts: hash output -> one buffer per consumer task
-        nbuffers: Dict[int, int] = {}
-        for f in fragments:
-            if f.output_partitioning in (HASH, ARBITRARY):
-                nbuffers[f.id] = ntasks[consumer[f.id]]
-            else:
-                nbuffers[f.id] = 1
-
         tasks: Dict[int, List[TaskHandle]] = {}
         created: List[TaskHandle] = []
         # host walls of this run: dispatching the tasks, pulling and
         # decoding the root's frames, reading the tasks' stats
         self.timings = {"scheduleS": 0.0, "rootFetchS": 0.0, "rootBytes": 0,
                         "rootDeserializeS": 0.0, "taskStatsS": 0.0}
-        t0 = time.perf_counter()
+        # the tasks join the caller's span (the query's), not `schedule`
+        traceparent = TRACER.current_traceparent()
         try:
-            # children before consumers: cuts happen bottom-up, so source
-            # fragments always have smaller ids; root (0) is scheduled last
-            order = sorted((f for f in fragments if f.id != 0),
-                           key=lambda f: f.id) + [by_id[0]]
-            for f in order:
-                tasks[f.id] = self._schedule_fragment(
-                    query_id, f, placement[f.id], nbuffers[f.id], tasks,
-                    by_id,
-                )
-                created.extend(tasks[f.id])
+            # the `schedule` span: from the fragmented plan to every task placed
+            with TRACER.span("schedule", query_id=query_id) as span:
+                fragments = fragment_plan(plan)
+                by_id = {f.id: f for f in fragments}
+                t0 = time.perf_counter()
+                self._place(query_id, fragments, by_id, tasks, created, traceparent)
+                span.attributes.update(fragments=len(fragments), tasks=len(created))
             root_task = tasks[0][0]
             self.timings["scheduleS"] = time.perf_counter() - t0
             client = ExchangeClient(traceparent=TRACER.current_traceparent())
@@ -321,6 +295,45 @@ class DistributedScheduler:
                 except Exception:
                     pass
 
+    def _place(self, query_id: str, fragments: List[PlanFragment],
+               by_id: Dict[int, PlanFragment], tasks: Dict[int, List[TaskHandle]],
+               created: List[TaskHandle], traceparent: Optional[str]) -> None:
+        """Place every fragment's tasks: stage widths, output buffer
+        counts, then one task POST each, children before consumers."""
+        consumer: Dict[int, int] = {}
+        for f in fragments:
+            for sf in f.source_fragments:
+                consumer[sf] = f.id
+
+        # task placement (stage width)
+        ntasks: Dict[int, int] = {}
+        placement: Dict[int, List[Tuple[str, str]]] = {}
+        for f in fragments:
+            if f.partitioning in (SOURCE, HASH, ARBITRARY):
+                placement[f.id] = self._schedulable_workers()
+            else:  # SINGLE; memory-aware pick, hash spread as fallback
+                placement[f.id] = [self._pick_single_worker(query_id)]
+            ntasks[f.id] = len(placement[f.id])
+
+        # buffer counts: hash output -> one buffer per consumer task
+        nbuffers: Dict[int, int] = {}
+        for f in fragments:
+            if f.output_partitioning in (HASH, ARBITRARY):
+                nbuffers[f.id] = ntasks[consumer[f.id]]
+            else:
+                nbuffers[f.id] = 1
+
+        # children before consumers: cuts happen bottom-up, so source
+        # fragments always have smaller ids; root (0) is scheduled last
+        order = sorted((f for f in fragments if f.id != 0),
+                       key=lambda f: f.id) + [by_id[0]]
+        for f in order:
+            tasks[f.id] = self._schedule_fragment(
+                query_id, f, placement[f.id], nbuffers[f.id], tasks, by_id,
+                traceparent,
+            )
+            created.extend(tasks[f.id])
+
     # ------------------------------------------------------------------
     def _schedule_fragment(
         self,
@@ -330,6 +343,7 @@ class DistributedScheduler:
         out_buffers: int,
         tasks: Dict[int, List[TaskHandle]],
         by_id: Dict[int, PlanFragment],
+        traceparent: Optional[str] = None,
     ) -> List[TaskHandle]:
         n = len(workers)
         splits_per_task = assign_splits(self.catalogs, f, n)
@@ -364,7 +378,7 @@ class DistributedScheduler:
                 "sources": sources,
                 "properties": self.properties,
             }
-            _post_json(f"{uri}/v1/task/{task_id}", doc)
+            _post_json(f"{uri}/v1/task/{task_id}", doc, traceparent=traceparent)
             REGISTRY.counter(
                 "trino_tpu_scheduler_dispatch_total",
                 "Remote task creations dispatched to workers",

@@ -126,6 +126,12 @@ class SplitManager:
         (TupleDomain pushdown) — connectors MAY prune splits with it."""
         raise NotImplementedError
 
+    def subdivide(self, split: Split, parts: int) -> List[Split]:
+        """`split` cut into at most `parts` splits that together read what
+        it reads (a streamed task's tiles of its own splits).  A connector
+        that cannot cut a split returns it whole."""
+        return [split]
+
 
 class PageSource:
     """Streaming page iterator (ConnectorPageSource.getNextPage)."""
