@@ -192,7 +192,7 @@ Phases (any failure exits non-zero and prints no result line):
      control that loads no scan and launches nothing; two subprocesses on
      one fresh compile_cache_dir, the first running four nvcc builds
      (first_compile), the second none (four persistent_load, its program
-     prewarmed from the index); a subprocess running Q1 at SF10 killed
+     prewarmed from the index); a subprocess running Q3 at SF10 killed
      with SIGKILL mid-query, whose RUNNING history record the doctor finds
      and diagnoses from disk; and the observatories' cost on warm Q6, Q1
      and Q3, on and off in turns.
@@ -1448,11 +1448,12 @@ SF1_WANT.update({
     ("Q6", "off"): (_GS,), ("Q1", "off"): (_GC, _GS),
 })
 KERNEL_FNS = ("fused_agg_sums", "grouped_count", "grouped_sum_i64", "direct_probe")
-# launches each main-path run must make, per kernel (Q1 does not fuse at
-# SF10: see PERF.md; Q3 probes both of its joins)
+# launches each main-path run must make, per kernel (Q1 fuses at SF10:
+# its charge sum is proven term by term and rebuilt in 128-bit chunks;
+# Q3 probes both of its joins)
 MAIN_WANT = {
     ("Q6", "auto"): {"fused_agg_sums": 1},
-    ("Q1", "auto"): {"grouped_count": 1, "grouped_sum_i64": 1},
+    ("Q1", "auto"): {"fused_agg_sums": 1},
     ("Q1", "off"): {"grouped_count": 1, "grouped_sum_i64": 1},
     ("Q3", "auto"): {"direct_probe": 2},
 }
@@ -2939,7 +2940,7 @@ def phase_timing(dev):
     _log(f"[timing] grouped_count cap {cap}, {n} rows: {json.dumps(row)}; "
          f"back to back: {queued} ms")
     rows.append(row)
-    line = [rows[-2], rows[-1]]
+    line = [rows[0], rows[-1]]
     values, gid, cap = rec["sum"]
     row = _time_sum(dev, values, gid, cap, launches)
     queued = _time_queued_ms(lambda: kn.grouped_sum_i64(values, gid, cap))
@@ -2975,8 +2976,10 @@ def phase_timing(dev):
     if bad:
         raise AssertionError(f"kernels disagree with plain at main-path shapes: {bad}")
     # one row per kernel in the result line.  The fused row is Q6's SF10
-    # call (3 terms x 1 group): at SF10 Q1 is refused by the fusion proof
-    # (SUM_GATE) and runs unfused, so Q1's fused shape is timed at SF1 only.
+    # call (3 terms x 1 group), the first of the fused keys; Q1 fuses at
+    # SF10 too (its charge sum is proven term by term and rebuilt in
+    # 128-bit chunks), and its call (11 terms x 12 groups) is timed and
+    # logged above.
     # The direct_probe row is Q3's orderkey join, the larger of its two
     MAIN["kernels"] = line
 
@@ -5239,10 +5242,11 @@ print(json.dumps({"events": co.get_observatory().tail(), "boot": boot,
                  default=str))
 """
 
-# a subprocess that runs Q1 at SF10 on the card (in memory, as the main
-# path) with the history, journal and observatory directories set; the
-# unfused path's first grouped sum announces itself and stalls, so the
-# parent's SIGKILL lands mid-query
+# a subprocess that runs Q3 at SF10 on the card (in memory, as the main
+# path) with the history, journal and observatory directories set; its
+# aggregate's fusion reject is journaled before its joins run, and its
+# first probe announces itself and stalls, so the parent's SIGKILL lands
+# mid-query.  (Q1 journals nothing before it ends: it fuses at SF10.)
 _KILL_CHILD = r"""
 import sys, time
 sys.path.insert(0, sys.argv[1])
@@ -5253,13 +5257,13 @@ s = tpch_session(float(sys.argv[2]), result_cache=False, query_history_dir=sys.a
                  event_journal_dir=sys.argv[4], compile_observatory_dir=sys.argv[5],
                  query_max_memory_bytes=detect_device_bytes())
 s.execute("select count(*) from nation")  # a finished query before the crash
-real = kn.grouped_sum_i64
+real = kn.direct_probe
 def stalled(*args):
     out = real(*args)
     print("MID-QUERY", flush=True)
     time.sleep(300)
     return out
-kn.grouped_sum_i64 = stalled
+kn.direct_probe = stalled
 s.execute(sys.argv[6])
 """
 
@@ -5431,8 +5435,8 @@ def _obs_children():
          f"prewarm {second['prewarm']}, {second['wall']:.1f} s")
 
 
-def _obs_sigkill(q1):
-    """Q1 at SF10 in a subprocess killed mid-query: the history shows its
+def _obs_sigkill(q3):
+    """Q3 at SF10 in a subprocess killed mid-query: the history shows its
     RUNNING record, and the doctor finds and diagnoses it from disk."""
     import signal
     import shutil
@@ -5445,13 +5449,13 @@ def _obs_sigkill(q1):
     hd, jd, cd = (os.path.join(root, k) for k in ("history", "journal", "compiles"))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-c", _KILL_CHILD, here, str(OBS_SF), hd, jd, cd, q1],
+        [sys.executable, "-c", _KILL_CHILD, here, str(OBS_SF), hd, jd, cd, q3],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         line = proc.stdout.readline()
         if line.strip() != "MID-QUERY":
             proc.kill()
-            raise AssertionError(f"the child never reached Q1's kernels:\n"
+            raise AssertionError(f"the child never reached Q3's probe:\n"
                                  f"{proc.stderr.read()[-3000:]}")
         os.kill(proc.pid, signal.SIGKILL)
     finally:
@@ -5462,7 +5466,7 @@ def _obs_sigkill(q1):
         for r in records:
             latest[r["queryId"]] = r
         running = [r for r in latest.values() if r["state"] == "RUNNING"]
-        if len(running) != 1 or running[0]["sql"] != q1:
+        if len(running) != 1 or running[0]["sql"] != q3:
             raise AssertionError(f"history after the kill: {latest}")
         qid = running[0]["queryId"]
         events = journal.read_journal_dir(jd)
@@ -5659,7 +5663,7 @@ def phase_obs(dev):
     torch.cuda.empty_cache()
     _log(f"[obs] the session's part in {time.perf_counter() - t_phase:.1f} s")
     _obs_children()
-    _obs_sigkill(qs["Q1"])
+    _obs_sigkill(qs["Q3"])
     journal._reset_journal()
     co._reset_observatory()
     shutil.rmtree(root, ignore_errors=True)

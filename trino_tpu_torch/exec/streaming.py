@@ -184,8 +184,8 @@ def estimate_program_bytes(executor, plan: P.PlanNode) -> float:
 _TILE_COUNTERS = ("preuploads", "preupload_bytes", "pregenerated_bytes",
                   "deviceGeneratedScans",
                   "hostGeneratedScans", "fusedAggregates",
-                  "fusedTerms", "fusionRejects", "streamLoadS", "streamWaitS",
-                  "streamRunS")
+                  "fusedTerms", "fusedWideSums", "fusionRejects",
+                  "streamLoadS", "streamWaitS", "streamRunS")
 
 
 def _merge_tile_counters(executor, fe) -> None:

@@ -660,8 +660,9 @@ class _MeshTraceCtx(_TraceCtx):
 
     def _merge_fused_sums(self, parts: List[torch.Tensor]) -> torch.Tensor:
         """The shards' fused (term, group) int64 partials all_gathered and
-        summed.  Exact: the megakernel's SUM_GATE proves the table-wide
-        sum fits int64, so no partial sum can wrap."""
+        summed.  Exact: the megakernel proves each term's table-wide sum
+        below SUM_GATE (the whole sum's where it fits, else term by term
+        for a wide output rebuilt in chunks), so no partial sum can wrap."""
         g = C.all_gather(parts, self.home)
         return g.reshape((len(parts),) + tuple(parts[0].shape)).sum(0)
 

@@ -832,6 +832,9 @@ class Session:
         if prof.get("fusedAggregates"):
             text += (f"\n  fused aggregates: {prof['fusedAggregates']} "
                      f"({prof.get('fusedTerms', 0)} terms)")
+            if prof.get("fusedWideSums"):
+                text += (f", {prof['fusedWideSums']} wide sums rebuilt "
+                         "in 128-bit chunks")
         # the compile observatory's causes: nvcc builds and program encodes
         # (first_compile, persistent_load, shape_miss) and retry-ladder
         # re-runs (ladder_rung); none on a warm run
