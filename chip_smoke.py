@@ -995,12 +995,11 @@ def _scan_host_columns(session, needed, table="lineitem"):
     has no host arrays, so its lanes are copied back (the gen phase holds
     them byte for byte to the host generator)."""
     for key, entry in session._scan_cache.entries.items():
-        if key[1] == table and set(needed) <= set(entry["merged"]):
-            if entry.get("devgen") is not None:
-                return ({c: v.cpu().numpy() for c, (v, _ok) in entry["dev"].items()},
-                        entry["dicts"])
-            return ({c: v for c, (v, _ok) in entry["merged"].items()},
-                    entry["dicts"])
+        if key[1] == table and set(needed) <= set(entry.columns):
+            if entry.spec is not None:
+                return ({c: v.cpu().numpy() for c, (v, _ok) in entry.lanes.items()},
+                        entry.dicts)
+            return ({c: v for c, (v, _ok) in entry.columns.items()}, entry.dicts)
     raise AssertionError(f"no cached {table} scan with columns {needed}")
 
 
@@ -1556,8 +1555,8 @@ def phase_sf1(dev, sf=1.0):
     check_q3_page(s, pages["Q3"])
     _log("[sf1] Q6, Q1 and Q3 agree exactly with the numpy references")
     gen = [e for k, e in s._scan_cache.entries.items() if k[0] == "tpch"]
-    _log(f"[sf1] scans in the cache: {sum(e.get('devgen') is not None for e in gen)} "
-         f"generated on the card, {sum(e.get('devgen') is None for e in gen)} by the "
+    _log(f"[sf1] scans in the cache: {sum(e.spec is not None for e in gen)} "
+         f"generated on the card, {sum(e.spec is None for e in gen)} by the "
          f"host (columns the generator cannot make)")
     # the fifth way: every TPC-H query over the host generator's scans
     host = _card_session(tpch_session, sf, device_generation=False)
@@ -2476,6 +2475,10 @@ def phase_ooc(dev, do_profile=False):
                     *_scan_host_columns(ref, ["l_tax", "l_returnflag", "l_shipdate"]))
     check_reference({"Q6": pages[("Q6", 1 << 30)], "Q1": pages[("Q1", 8 << 30)]},
                     *_scan_host_columns(ref, ["l_tax", "l_returnflag", "l_shipdate"]))
+    # OOC-CLERK's o_clerk, formatted on the host only, made ref read orders
+    # anew on the host, and that entry replaced the one Q3 left in the
+    # scan cache: Q3 again puts its columns back for its reference
+    ref.execute(_tpch_sql()["Q3"])
     check_q3_page(ref, pages[("Q3", 1 << 30)])
     check_ooc_approx(ref, pages[("OOC-APPROX", 1 << 30)], pages["OOC-APPROX-EXACT"])
     check_ooc_distinct(ref, pages[("OOC-DISTINCT", 256 << 20)])
@@ -4999,7 +5002,7 @@ def phase_lake(dev):
     from trino_tpu_torch.connectors import hive as hive_mod
     from trino_tpu_torch.connectors import lakehouse
     from trino_tpu_torch.connectors.hive import write_parquet_table
-    from trino_tpu_torch.exec.local import LocalExecutor
+    from trino_tpu_torch.exec.scan import LoadedScan
     from trino_tpu_torch.ops import kernels as kn
     from trino_tpu_torch.session import tpch_session
 
@@ -5017,7 +5020,7 @@ def phase_lake(dev):
     secs = {}
     undo = [_timed(lakehouse, "_decode_data_file", secs),
             _timed(lakehouse, "_encode_data_file", secs),
-            _timed(LocalExecutor, "_device_lanes", secs)]
+            _timed(LoadedScan, "lanes", secs)]
     try:
         torch.cuda.reset_peak_memory_stats()
         writes = (
@@ -5112,12 +5115,12 @@ def phase_lake(dev):
     _log(f"[lake] launches {launches}; peak device memory {peak / 2**30:.2f} GiB "
          f"(writes and queries); the writes' seconds in np.savez (_encode_data_file) "
          f"{write_secs.get('_encode_data_file', 0):.3f}, np.load (_decode_data_file) "
-         f"{write_secs.get('_decode_data_file', 0):.3f}, upload (_device_lanes) "
-         f"{write_secs.get('_device_lanes', 0):.3f}; the queries' cold pass np.load "
+         f"{write_secs.get('_decode_data_file', 0):.3f}, upload (LoadedScan.lanes) "
+         f"{write_secs.get('lanes', 0):.3f}; the queries' cold pass np.load "
          f"{cold_secs.get('_decode_data_file', 0):.3f}, upload "
-         f"{cold_secs.get('_device_lanes', 0):.3f}; all three passes np.load "
+         f"{cold_secs.get('lanes', 0):.3f}; all three passes np.load "
          f"{secs.get('_decode_data_file', 0):.3f}, upload "
-         f"{secs.get('_device_lanes', 0):.3f}")
+         f"{secs.get('lanes', 0):.3f}")
     _log("[lake] Q6 at every snapshot, Q1 at the last and Q3 agree exactly with the "
          "numpy references")
     # maintenance

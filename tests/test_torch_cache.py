@@ -339,9 +339,9 @@ def _entries(s, table):
 
 
 def _resident_bytes(cache):
-    from trino_tpu_torch.exec.local import _lane_bytes
+    from trino_tpu_torch.exec.scan import lane_bytes
 
-    return sum(_lane_bytes(e["merged"]) for e in cache.entries.values())
+    return sum(lane_bytes(e.columns) for e in cache.entries.values())
 
 
 def test_another_q3_date_hits_every_scan(uncached):
@@ -371,10 +371,10 @@ def test_q6_q3_q1_share_one_lineitem_entry(uncached):
                   if g.attributes["table"] == "lineitem"]
             assert [g.attributes["columns"] for g in li] == ["l_orderkey"]
     (entry,) = _entries(s, "lineitem").values()
-    assert set(entry["merged"]) == {
+    assert set(entry.columns) == {
         "l_quantity", "l_extendedprice", "l_discount", "l_shipdate", "l_orderkey",
         "l_returnflag", "l_linestatus", "l_tax"}
-    assert len(_spans(s, "scan_count")) == len(entry["devgen"]["ranges"]) == 1
+    assert len(_spans(s, "scan_count")) == len(entry.spec["ranges"]) == 1
     # l_orderkey for Q3; l_returnflag, l_linestatus and l_tax for Q1
     assert s._scan_cache.stats()["column_fills"] == 4
     filled = [sp.attributes.get("filled") for sp in _spans(s, "scan_load")
@@ -396,8 +396,8 @@ def test_extending_an_entry_evicts_the_others_oldest_first(uncached):
                                      ("lineitem", "orders", "customer"))
     assert list(cache.entries) == [li, orders, customer]
     # room for l_extendedprice once orders (the oldest but lineitem) goes
-    rows = cache.entries[li]["total"]
-    cache.max_bytes = cache.bytes + 8 * rows - cache.entries[orders]["nbytes"]
+    rows = cache.entries[li].rows
+    cache.max_bytes = cache.bytes + 8 * rows - cache.entries[orders].nbytes
     sql = "select sum(l_quantity), sum(l_extendedprice) from lineitem"
     page = s.execute(sql)
     assert list(cache.entries) == [li, customer] and cache.evictions == 1
@@ -408,7 +408,7 @@ def test_extending_an_entry_evicts_the_others_oldest_first(uncached):
     sql = "select sum(l_discount) from lineitem"
     page = s.execute(sql)
     assert list(cache.entries) == [li] and cache.evictions == 2
-    assert cache.bytes == _resident_bytes(cache) == cache.entries[li]["nbytes"]
+    assert cache.bytes == _resident_bytes(cache) == cache.entries[li].nbytes
     assert cache.stats()["column_fills"] == 2
     convert.assert_pages_identical(uncached(sql), page)
 
@@ -423,11 +423,11 @@ def test_a_column_only_the_host_makes_replaces_a_generated_entry(uncached):
             "select max(o_clerk), sum(o_totalprice) from orders"]
     pages = [s.execute(sql) for sql in sqls[:2]]
     (entry,) = _entries(s, "orders").values()
-    assert entry["devgen"] is None and set(entry["merged"]) == {"o_clerk"}
+    assert entry.spec is None and set(entry.columns) == {"o_clerk"}
     assert s.last_kernel_profile["hostGeneratedScans"] == 1
     pages.append(s.execute(sqls[2]))
     (entry,) = _entries(s, "orders").values()
-    assert set(entry["merged"]) == {"o_clerk", "o_totalprice"}
+    assert set(entry.columns) == {"o_clerk", "o_totalprice"}
     assert [sp.attributes["cache"] for sp in _spans(s, "scan_load")] == ["miss"] * 3
     assert s._scan_cache.stats()["column_fills"] == 1
     for sql, page in zip(sqls, pages):
@@ -440,7 +440,7 @@ def test_a_host_read_entry_grows_by_column():
     assert s.execute("select sum(x) from mem.t").to_pylist() == [(6,)]
     assert s.execute("select sum(y), max(x) from mem.t").to_pylist() == [(60, 3)]
     (entry,) = [e for k, e in s._scan_cache.entries.items() if k[:2] == ("mem", "t")]
-    assert set(entry["merged"]) == {"x", "y"} and entry["devgen"] is None
+    assert set(entry.columns) == {"x", "y"} and entry.spec is None
     assert s._scan_cache.stats()["column_fills"] == 1
     assert s.execute("select sum(x + y) from mem.t").to_pylist() == [(66,)]
     assert s._scan_cache.hits == 1

@@ -87,8 +87,8 @@ def test_a_wide_sum_past_the_gate_fuses_and_rebuilds_exactly(
     keys = KEYS[name]
     s = _session(megakernels="on")
     got = s.execute(_sql(keys))
-    # sum and avg of X share its terms, each output rebuilt in chunks;
-    # sum(l_extendedprice) stays under the gate and its int64 rebuild
+    # sum and avg of X share its terms, each fused past the gate;
+    # sum(l_extendedprice) stays under it, so it is not counted
     assert _profile(s) == (1, 2, None)
     convert.assert_pages_identical(want[name], got)
     rows = got.to_pylist()
@@ -130,16 +130,37 @@ def test_a_mesh_merges_term_partials_before_the_rebuild(want, name):
     convert.assert_pages_identical(want[name], got)
 
 
-@pytest.mark.parametrize("shifts",
-                         [(0, 16, 16, 32), (31, 63), (1, 33, 47, 62)])
-def test_wide_chunks_rebuild_shifted_term_sums(shifts):
+# Q6 at SF30 (179,996,449 lineitem rows): sum(l_extendedprice *
+# l_discount) fuses as the price's two 16-bit limbs, each times the
+# discount (at most 10), at shifts 0 and 16, beside the count (term 0)
+Q6_ROWS = 179_996_449
+Q6_TERMS = ((0, 0xFFFF * 10), (16, (10_494_950 >> 16) * 10))
+
+
+@pytest.mark.parametrize("shifts,bounds", [
+    pytest.param((0, 16, 16, 32), None, id="shifts0"),
+    pytest.param((31, 63), None, id="shifts1"),
+    pytest.param((1, 33, 47, 62), None, id="shifts2"),
+    pytest.param(tuple(sh for sh, _ in Q6_TERMS),
+                 tuple(Q6_ROWS * hi for _, hi in Q6_TERMS), id="q6-under-the-gate"),
+])
+def test_wide_chunks_rebuild_shifted_term_sums(shifts, bounds):
     """Term sums up to 2^62 - 1 at any shift below 64 give the canonical
-    chunks of the 128-bit total, as Python's integers add them."""
+    chunks of the 128-bit total, as Python's integers add them.  Term
+    sums under their bounds whose total fits one int64 (Q6's, under the
+    table-wide gate) give the lanes of the int64 rebuild."""
     import torch
+
+    from trino_tpu_torch.ops import wide_decimal as wd
 
     g = torch.Generator().manual_seed(len(shifts))
     sums = torch.randint(0, 2 ** 62, (len(shifts) + 1, 5), generator=g)
-    sums[1:, 0] = 2 ** 62 - 1
+    if bounds is None:
+        sums[1:, 0] = 2 ** 62 - 1
+    else:
+        top = torch.tensor(bounds).reshape(-1, 1)
+        sums[1:] %= top + 1
+        sums[1:, 0] = top[:, 0]
     sums[1:, 1] = 0
     slots = [(i + 1, sh) for i, sh in enumerate(shifts)]
     cs = MK._wide_chunks(sums, slots)
@@ -148,6 +169,13 @@ def test_wide_chunks_rebuild_shifted_term_sums(shifts):
         got = [int(c[grp]) for c in cs]
         assert all(0 <= c < 2 ** 32 for c in got[:3])
         assert sum(c << (32 * j) for j, c in enumerate(got)) == total
+    if bounds is not None:
+        val = MK._int64_sum(sums, slots)
+        zero = torch.zeros_like(val)
+        want = wd.normalize_chunks([val & 0xFFFFFFFF, val >> 32, zero, zero])
+        assert len(cs) == len(want) == 4
+        for c, w in zip(cs, want):
+            assert torch.equal(c, w)
 
 
 def _exact(rows, page):

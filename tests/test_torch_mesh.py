@@ -700,11 +700,11 @@ def test_shard_scans_generated_on_the_device_equal_the_host_splits():
     for gen in (True, False):
         me = MX.MeshExecutor(s.catalogs, MX.default_mesh(8, "cpu"),
                              {"device_generation": gen})
-        scans, dicts, counts = me._load_sharded_scans(plan)
-        me.dicts = dicts
-        ctx = me._new_ctx(scans, counts)
+        scans = me._load_sharded_scans(plan)
+        me.dicts = scans.dicts
+        ctx = me._new_ctx(scans)
         lanes[gen] = ([_TraceCtx._visit_tablescan(c, scan).lanes for c in ctx.shards],
-                      dicts, me.kernel_profile)
+                      scans.dicts, me.kernel_profile)
     assert lanes[True][2].get("deviceGeneratedScans") == 8
     assert lanes[False][2].get("deviceGeneratedScans") is None
     for d in lanes[True][1]:

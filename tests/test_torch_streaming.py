@@ -25,6 +25,7 @@ from trino_tpu.session import tpch_session as _jax_session
 from trino_tpu.utils.memory import ExceededMemoryLimitError as JaxLimitError
 from trino_tpu_torch import convert
 from trino_tpu_torch.exec import local as torch_local
+from trino_tpu_torch.exec import scan
 from trino_tpu_torch.exec import spill as torch_spill
 from trino_tpu_torch.exec import streaming as torch_streaming
 from trino_tpu_torch.session import tpch_session as _torch_session
@@ -368,14 +369,14 @@ def test_prefetch_threads_share_one_run_cache(monkeypatch):
     import sys
 
     ref = torch_session(0.05).execute(Q[3])
-    puts = []
-    real_put = torch_local.DeviceScanCache.put
+    merged = []
+    real_merge = scan._merge_remote
 
-    def put(self, key, entry, nbytes):
-        puts.append(key)
-        return real_put(self, key, entry, nbytes)
+    def merge(node, pages):
+        merged.append(node.fragment_id)
+        return real_merge(node, pages)
 
-    monkeypatch.setattr(torch_local.DeviceScanCache, "put", put)
+    monkeypatch.setattr(scan, "_merge_remote", merge)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -385,8 +386,7 @@ def test_prefetch_threads_share_one_run_cache(monkeypatch):
     finally:
         sys.setswitchinterval(old)
     convert.assert_pages_identical(ref, page)
-    remote = [k for k in puts if k[0] == "__remote__"]
-    assert remote and len(remote) == len(set(remote)), remote
+    assert merged and len(merged) == len(set(merged)), merged
     assert max(ts.last_kernel_profile["streamedTiles"].values()) >= 10
 
 

@@ -10,7 +10,7 @@ Counterpart of trino_tpu/cache/__init__.py:
                  disk under ``compile_cache_dir``, the nvcc-built kernel
                  libraries with an index of the programs
 
-The session-owned DeviceScanCache (exec/local.py) is the fourth tier;
+The session-owned DeviceScanCache (exec/scan.py) is the fourth tier;
 CacheManager adopts it for stats, so ``system.runtime.caches`` reports
 every tier in one place.  The result cache's hits, misses and evictions
 flow to utils.events listeners as CacheEvents.

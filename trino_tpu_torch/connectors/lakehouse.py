@@ -31,7 +31,7 @@ stats sidecars invalidate per-snapshot for free.
 Data files are numpy ``.npz`` objects (no parquet dependency): per
 column the value array (2-D for wide decimals), optional validity, and
 optional varchar dictionary.  The engine merges divergent per-split
-dictionaries already (exec/local._load_one_scan), so each file keeps the
+dictionaries already (exec/scan.host_columns), so each file keeps the
 dictionary it was written with.
 
 Chaos composes: the store underneath carries the ``objstore_*`` fault

@@ -27,6 +27,7 @@ import numpy as np
 from ..expr import ir
 from ..page import Page
 from ..plan import nodes as P
+from .scan import table_scans
 
 MAX_DISCRETE_VALUES = 100_000
 
@@ -117,18 +118,7 @@ def collect_dynamic_filters(
     """Walk a fragment plan; returns {(scan_preorder_index, scan_symbol):
     [domains]} for probe keys whose build side is a RemoteSource with
     fetched pages."""
-    # preorder scan indexing must match FragmentExecutor._load_walk
-    scan_index: Dict[int, int] = {}
-    counter = [0]
-
-    def index_scans(n: P.PlanNode):
-        if isinstance(n, P.TableScan):
-            scan_index[id(n)] = counter[0]
-            counter[0] += 1
-        for s in n.sources:
-            index_scans(s)
-
-    index_scans(plan)
+    scan_index = {id(n): i for i, n in enumerate(table_scans(plan))}
 
     out: Dict[Tuple[int, str], List[Domain]] = {}
 

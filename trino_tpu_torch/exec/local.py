@@ -7,27 +7,23 @@ MATCH_RECOGNIZE, TABLESAMPLE and the writes reach.  Where the JAX
 package traces a whole fragment into one jitted XLA program over padded
 lanes, this executor walks the plan and runs each operator eagerly on
 the executor's device:
-  1. loads splits on the host (numpy), merging per-split dictionaries,
-     unless the connector generates the scan on the device
-     (`device_generation`: connectors/tpch_device.py makes the lanes from
-     a row range, and no host array exists),
-  2. uploads scan columns through page-locked memory (or generates them
-     on the device) and keeps them there across queries
-     (DeviceScanCache),
-  3. runs the operators (filter / project / sample / join / cross join /
+  1. loads its scans and puts their columns on the device, generated
+     there where the connector can, kept there across queries in the
+     session's scan cache (exec/scan.py, the scan layer),
+  2. runs the operators (filter / project / sample / join / cross join /
      semi join (IN, EXISTS and, under a NOT filter, their negations) /
      scalar join / GROUPING SETS row expansion / aggregate, DISTINCT
      aggregates included — first trying the fused megakernel, then
      direct or hash-sort grouping — / distinct / union, intersect,
      except / window / unnest / match_recognize / sort / top-N / limit),
-  4. re-runs the plan when a runtime check fails (the JAX package's
+  3. re-runs the plan when a runtime check fails (the JAX package's
      retry ladder): a direct-address join whose build keys break the
      planner's domain/uniqueness proof retries on the sorted unique
      kernel, a duplicate build key then on the expansion join, a
      grouping hash collision under a new salt, and a decimal overflow
      flag with the 128-bit kernels; then copies the selected output rows
      back to the host,
-  5. hands a write's host page to the connector's PageSink
+  4. hands a write's host page to the connector's PageSink
      (_execute_write: INSERT, CREATE TABLE AS, DELETE, UPDATE, MERGE).
 
 Queries larger than their memory budget (`memory_limit_bytes`, the
@@ -69,8 +65,8 @@ card raises DeviceFaultError naming the culprit kernel and quarantines
 the device.  Nothing re-runs the query elsewhere (the JAX package
 re-runs it on the CPU; the port has no such path on purpose).  The
 supervisor spans each of those steps (utils/tracing.TRACER); this module
-spans each scan load (`scan_load`), on-device scan generation
-(`scan_generate`) and rung of the retry ladder (`plan_run`).
+spans each rung of the retry ladder (`plan_run`), exec/scan.py each scan
+load (`scan_load`) and on-device scan generation (`scan_generate`).
 
 `distributed = true` runs the plan over a mesh of shards instead
 (parallel/mesh_executor.py, whose shards run these visitors).
@@ -101,116 +97,7 @@ from ..plan import nodes as P
 from ..runtime import supervisor as rt
 from ..runtime.supervisor import Breadcrumb, DeviceFaultError
 from ..utils.tracing import TRACER
-
-
-class DeviceScanCache:
-    """Cross-query scan cache: host merged arrays + device lanes, by column.
-
-    An entry is the data one scan reads: its key is (catalog, table,
-    splits, the connector's data version, device), never the constraint
-    pushed into the scan nor its columns (pushdown reaches a cacheable
-    connector's rows only through its splits).  It holds lanes by column
-    and grows as later scans ask for more: a lookup hits only when every
-    requested column is resident, and an entry's missing columns are
-    made into it (`extend`, counted in `column_fills`) without reloading
-    the others.  Entries evict in insertion order once the byte budget
-    is exceeded: by default a quarter of the card's memory on CUDA (the
-    lanes stay resident there beside the queries' working memory), 6 GiB
-    of host arrays on the CPU.  Its hits, misses, puts and evictions are
-    system.runtime.caches' scan_cache row."""
-
-    def __init__(self, max_bytes: Optional[int] = None,
-                 device: Optional[torch.device] = None):
-        if max_bytes is None:
-            max_bytes = 6 << 30
-            if device is not None and device.type == "cuda":
-                max_bytes = torch.cuda.get_device_properties(device).total_memory // 4
-        self.max_bytes = max_bytes
-        self.entries: Dict[tuple, dict] = {}
-        self.bytes = 0
-        self.hits = 0
-        self.misses = 0
-        self.puts = 0
-        self.evictions = 0
-        self.column_fills = 0
-
-    def drop_all(self) -> int:
-        """Evict everything; returns the bytes freed (the session's
-        revocable listener: the scan cache goes first under pressure)."""
-        freed = self.bytes
-        self.evictions += len(self.entries)
-        self.entries.clear()
-        self.bytes = 0
-        return freed
-
-    def get(self, key: tuple, record: bool = True, columns=()):
-        """The entry of `key` or None.  A hit only when the entry holds
-        every one of `columns`: an entry that lacks some is returned all
-        the same, counted as a miss, for the caller to `extend`.
-        record=False for a second lookup of an entry already counted
-        (the device-lane bind re-reads what the scan load found)."""
-        entry = self.entries.get(key)
-        if record:
-            if entry is not None and all(c in entry["merged"] for c in columns):
-                self.hits += 1
-            else:
-                self.misses += 1
-        return entry
-
-    def _make_room(self, nbytes: int, keep=None) -> None:
-        """Evict the oldest entries but `keep` until `nbytes` more fit."""
-        while self.bytes + nbytes > self.max_bytes:
-            oldest = next((k for k in self.entries if k != keep), None)
-            if oldest is None:
-                return
-            self.bytes -= self.entries.pop(oldest).get("nbytes", 0)
-            self.evictions += 1
-
-    def put(self, key: tuple, entry: dict, nbytes: int):
-        """Insert (or replace) the entry of `key`."""
-        old = self.entries.pop(key, None)
-        if old is not None:
-            self.bytes -= old.get("nbytes", 0)
-        self._make_room(nbytes)
-        entry["nbytes"] = nbytes
-        self.entries[key] = entry
-        self.bytes += nbytes
-        self.puts += 1
-
-    def extend(self, key: tuple, entry: dict, lanes: dict, dicts: dict,
-               nbytes: int) -> None:
-        """Add columns (`lanes` and their `dicts`, by column name) to the
-        entry `get` returned for `key`, evicting other entries, oldest
-        first, to keep within the budget: never the entry itself."""
-        entry["merged"].update(lanes)
-        entry["dicts"].update(dicts)
-        self.column_fills += len(lanes)
-        if self.entries.get(key) is not entry:  # evicted meanwhile
-            return
-        self._make_room(nbytes, keep=key)
-        entry["nbytes"] += nbytes
-        self.bytes += nbytes
-
-    def stats(self) -> Dict[str, int]:
-        return {
-            "name": "scan_cache",
-            "hits": self.hits,
-            "misses": self.misses,
-            "puts": self.puts,
-            "evictions": self.evictions,
-            "column_fills": self.column_fills,
-            "entries": len(self.entries),
-            "bytes": self.bytes,
-            "max_bytes": self.max_bytes,
-            "heals": 0,
-            "invalidations": 0,
-        }
-
-    def evict_table(self, catalog: str, table: str) -> None:
-        """Drop every scan of one table (after a write: its entries are
-        keyed by the old data version and would only hold memory)."""
-        for key in [k for k in self.entries if k[:2] == (catalog, table)]:
-            self.bytes -= self.entries.pop(key).get("nbytes", 0)
+from .scan import LoadedScans, load_table_scan, plan_leaves
 
 
 class ExecutionError(RuntimeError):
@@ -236,86 +123,6 @@ def _single_row_plan(n: P.PlanNode) -> bool:
     if isinstance(n, (P.Project, P.Filter)):
         return _single_row_plan(n.sources[0])
     return False
-
-
-class _LazyDeviceLane:
-    """Placeholder for a scan column that will be generated on the device
-    (no host array exists).  Carries the byte size of the lane it becomes
-    so memory accounting sees the device footprint."""
-
-    __slots__ = ("nbytes",)
-
-    def __init__(self, nbytes: int):
-        self.nbytes = int(nbytes)
-
-
-def merge_pages_to_arrays(pages, symbols, types, dicts):
-    """Concatenate pages column-wise into host arrays; varchar
-    dictionaries from different splits are merged with codes remapped.
-    Fast path: pages sharing one dictionary pass codes through."""
-    tmap = dict(types)
-    merged = {}
-    total = sum(p.count for p in pages)
-    for sym in symbols:
-        t = tmap[sym]
-        vals_parts: List[np.ndarray] = []
-        ok_parts: List[np.ndarray] = []
-        live = [p for p in pages if p.count > 0]
-        if t.is_dictionary:
-            page_dicts = []
-            for p in live:
-                d = p.by_name(sym).dictionary
-                if d is None:
-                    raise ExecutionError(f"varchar column {sym} without dict")
-                page_dicts.append(d)
-            shared = all(
-                d is page_dicts[0] or np.array_equal(page_dicts[0], d)
-                for d in page_dicts[1:]
-            )
-            if shared:
-                dicts[sym] = (
-                    page_dicts[0] if page_dicts else np.array([], dtype=object)
-                )
-                for p in live:
-                    col = p.by_name(sym)
-                    vals_parts.append(
-                        np.asarray(col.values)[: p.count].astype(np.int32)
-                    )
-                    ok_parts.append(_valid_of(col, p.count))
-            else:
-                index: Dict[str, int] = {}
-                entries: List[str] = []
-                for p, d in zip(live, page_dicts):
-                    col = p.by_name(sym)
-                    codes = np.asarray(col.values)[: p.count]
-                    # an all-NULL page's dictionary is empty: its codes
-                    # map to no entry (-1)
-                    remap = np.full(max(len(d), 1), -1, dtype=np.int32)
-                    for i, s in enumerate(d):
-                        s = str(s)
-                        if s not in index:
-                            index[s] = len(entries)
-                            entries.append(s)
-                        remap[i] = index[s]
-                    safe = np.clip(codes, 0, max(len(d) - 1, 0))
-                    vals_parts.append(
-                        np.where(codes >= 0, remap[safe], -1).astype(np.int32)
-                    )
-                    ok_parts.append(_valid_of(col, p.count))
-                dicts[sym] = np.array(entries, dtype=object)
-        else:
-            for p in live:
-                col = p.by_name(sym)
-                vals_parts.append(np.asarray(col.values)[: p.count])
-                ok_parts.append(_valid_of(col, p.count))
-        if vals_parts:
-            vals = np.concatenate(vals_parts)
-            ok = np.concatenate(ok_parts)
-        else:
-            vals = np.zeros(0, dtype=t.np_dtype)
-            ok = np.zeros(0, dtype=bool)
-        merged[sym] = (vals, None if ok.all() else ok)
-    return merged, total
 
 
 def _read_checks(ctx: "_TraceCtx"):
@@ -496,26 +303,6 @@ def _tensor_bytes(t) -> int:
     return 0 if t is None else t.numel() * t.element_size()
 
 
-def _lane_bytes(lanes) -> int:
-    """Bytes of one scan's lanes: host arrays, device-generated lanes by
-    their size, validity lanes included."""
-    return sum(int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
-               for v, ok in lanes.values())
-
-
-def _scan_bytes(scans) -> int:
-    """Bytes of the scan lanes a run reads."""
-    return sum(_lane_bytes(arrays) for arrays in scans.values())
-
-
-def _valid_of(col: Column, n: int) -> np.ndarray:
-    return (
-        np.ones(n, bool)
-        if col.validity is None
-        else np.asarray(col.validity)[:n]
-    )
-
-
 class LocalExecutor:
     """Executes an optimized logical plan on one device."""
 
@@ -525,16 +312,11 @@ class LocalExecutor:
         self.config = config or {}
         self.device = D.resolve(self.config.get("device"))
         self.kernel_profile: Dict[str, object] = {"kernels": [], "summary": {}}
-        self._scan_keys: Dict[int, tuple] = {}
-        # id(scan node) -> the connector's on-device generation spec
-        self._devgen: Dict[int, dict] = {}
         self.dicts: Dict[str, np.ndarray] = {}
         self.force_wide_mul = False
         self.query_id = str(self.config.get("query_id", "query"))
         self.scan_bytes = 0  # the host reservation (scan working set)
         self.device_bytes = 0  # the device-tier reservation
-        # (plan, scans, dicts, counts) a streaming prefetcher loaded
-        self._preloaded = None
         # EXPLAIN ANALYZE / operator_stats: id(plan node) -> {rows, bytes,
         # wall_s, device_wall_s, calls} (OperatorStats), filled when
         # collect_node_stats is set; obs/opstats.frames_from_plan turns
@@ -562,7 +344,9 @@ class LocalExecutor:
             self.compile_cache = shared_compile_cache()
 
     # ------------------------------------------------------------------
-    def execute(self, plan: P.PlanNode) -> Page:
+    def execute(self, plan: P.PlanNode, scans: Optional[LoadedScans] = None) -> Page:
+        """Run the plan; `scans`: its leaves loaded ahead (a streaming
+        tile's, FragmentExecutor.preload)."""
         assert isinstance(plan, P.Output)
         if isinstance(plan.source, P.TableWriter):
             return self._execute_write(plan.source)
@@ -572,9 +356,9 @@ class LocalExecutor:
             # the device is already out: refuse with the structured error
             bc = self._crumb("pre-dispatch", "gate")
             raise DeviceFaultError("device_" + sup.device_state().lower(), bc)
-        return self._execute_supervised(plan)
+        return self._execute_supervised(plan, scans)
 
-    def _execute_supervised(self, plan: P.Output) -> Page:
+    def _execute_supervised(self, plan: P.Output, scans=None) -> Page:
         """One run of the plan inside the supervisor's scope, with the
         compiles it made counted by cause."""
         sup = self.supervisor
@@ -583,7 +367,7 @@ class LocalExecutor:
             with rt.supervising(sup, self.query_id,
                                 str(self.config.get("task_id") or ""),
                                 lambda: self.device_bytes):
-                page = self._execute_inner(plan)
+                page = self._execute_inner(plan, scans)
         except DeviceFaultError as fault:
             self.kernel_profile["last_breadcrumb"] = fault.breadcrumb.to_dict()
             raise
@@ -613,7 +397,7 @@ class LocalExecutor:
         return self.supervisor.device_get(
             fn, self._crumb(what, "sync", shapes), device=self.device)
 
-    def _execute_inner(self, plan: P.Output) -> Page:
+    def _execute_inner(self, plan: P.Output, scans=None) -> Page:
         limit = self.config.get("memory_limit_bytes")
         if limit and self.config.get("spill_enabled", True):
             from . import spill, streaming
@@ -642,13 +426,8 @@ class LocalExecutor:
                 if sp is not None:
                     self.kernel_profile["outOfCore"] = path
                     return runner(self, plan, *sp)
-        pre = self._preloaded
-        if pre is not None and pre[0] is plan:
-            _, scans, dicts, counts = pre
-            self._preloaded = None
-        else:
-            scans, dicts, counts = {}, {}, {}
-            self._load_scans(plan, scans, dicts, counts)
+        if scans is None:
+            scans = self._load_scans(plan)
         self._account_memory(scans, limit)
         manager = self.config.get("memory_manager")
         self.device_bytes = 0
@@ -680,7 +459,7 @@ class LocalExecutor:
                 raise
         try:
             try:
-                return self._run_plan(plan, scans, dicts, counts)
+                return self._run_plan(plan, scans)
             except torch.OutOfMemoryError as exc:
                 # leave the handler first: its traceback holds the failed
                 # run's tensors, which the streamed run needs freed
@@ -727,17 +506,14 @@ class LocalExecutor:
                      fragments=len(frags) if hasattr(frags, "__len__") else 0)
         return out
 
-    def _account_memory(self, scans, limit):
+    def _account_memory(self, scans: LoadedScans, limit):
         """Reserve the scan working set against the session's manager and
         enforce the per-query limit (ExceededMemoryLimitException).
         Scan arrays dominate the footprint; operator temporaries are
         proportional and covered by the limit's headroom."""
         from ..utils.memory import ExceededMemoryLimitError
 
-        scan_total = 0
-        for arrays in scans.values():
-            for v, ok in arrays.values():
-                scan_total += int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
+        scan_total = scans.nbytes()
         # fragment tasks also hold the exchange pages they read: counted
         # toward the host reservation, not against the device limit
         total = scan_total + int(getattr(self, "exchange_bytes", 0))
@@ -756,10 +532,10 @@ class LocalExecutor:
             )
             self.blocked_memory_s += time.perf_counter() - t_blk
 
-    def _run_plan(self, plan: P.Output, scans, dicts, counts) -> Page:
+    def _run_plan(self, plan: P.Output, scans: LoadedScans) -> Page:
         """Run the operators over loaded scans through the retry ladder
         and copy the selected output rows to the host."""
-        self.dicts = dicts
+        self.dicts = scans.dicts
         hints = self.config.get("capacity_hints")
         hint = hints.get(id(plan)) if hints is not None else None
         # start where the last run of this plan landed, so warm repeats
@@ -776,7 +552,7 @@ class LocalExecutor:
                     self._sync()  # the ledger times this run's device work only
                     self._devgen_temp_bytes = 0
                 t0 = time.perf_counter()
-                ctx = self._new_ctx(scans, counts)
+                ctx = self._new_ctx(scans)
                 out_lanes, sel = self._run(plan, ctx)
                 if self.bandwidth_ledger is not None:
                     self._ledger_record(out_lanes, sel, "eager-%d" % attempt, plan,
@@ -791,7 +567,7 @@ class LocalExecutor:
                     # family with new parameters (the observatory's ladder_rung)
                     compile_observatory.record_compile(
                         kernel="eager-%d" % attempt, family=fragment_family(plan),
-                        mode="eager", actual_rows=sum(int(c) for c in counts.values()),
+                        mode="eager", actual_rows=scans.rows(),
                         compile_wall_s=time.perf_counter() - t0,
                         query_id=self.query_id,
                         task_id=str(self.config.get("task_id") or ""),
@@ -828,7 +604,7 @@ class LocalExecutor:
             copy_out, "output copy",
             rt.shape_summary({"sel": sel, **{s: out_lanes[s][0]
                                              for s in plan.symbols}}))
-        self._finalize_kernel_profile(scans, counts, host_lanes)
+        self._finalize_kernel_profile(scans, host_lanes)
         return self._materialize_host(plan, host_lanes)
 
     def _sync(self) -> None:
@@ -852,24 +628,21 @@ class LocalExecutor:
         out = sel.numel() + sum(_tensor_bytes(v) + _tensor_bytes(ok)
                                 for v, ok in out_lanes.values())
         self.bandwidth_ledger.record(
-            digest, "eager", input_bytes=_scan_bytes(scans),
+            digest, "eager", input_bytes=scans.nbytes(),
             output_bytes=out, intermediate_bytes=inter, wall_s=wall,
         )
 
-    def _finalize_kernel_profile(self, scans, counts, host_lanes) -> None:
+    def _finalize_kernel_profile(self, scans: LoadedScans, host_lanes) -> None:
         """The profile's summary once the run settles: the runs made, the
         rows scanned, the bytes copied to the device (host scan arrays;
         device-generated lanes copy nothing) and back."""
         kernels: List[dict] = self.kernel_profile["kernels"]  # type: ignore[assignment]
-        h2d = sum(int(v.nbytes) + (int(ok.nbytes) if ok is not None else 0)
-                  for arrays in scans.values() for v, ok in arrays.values()
-                  if not isinstance(v, _LazyDeviceLane))
         d2h = sum(int(v.nbytes) + int(ok.nbytes) for v, ok in host_lanes.values())
         summary = {
             "kernels": len(kernels),
             "executions": sum(k["executions"] for k in kernels),
-            "actualRows": sum(int(c) for c in counts.values()),
-            "h2dBytes": h2d,
+            "actualRows": scans.rows(),
+            "h2dBytes": scans.upload_bytes(),
             "d2hBytes": d2h,
         }
         led = self.bandwidth_ledger
@@ -966,241 +739,15 @@ class LocalExecutor:
                 raise ExecutionError("sum overflows the bigint accumulator")
         return ""
 
-    # ------------------------------------------------------------------
-    def _load_scans(self, node: P.PlanNode, scans, dicts, counts):
-        if isinstance(node, P.TableScan):
-            conn = self.catalogs.get(node.catalog)
-            splits = conn.split_manager().get_splits(
-                node.table, 1, node.constraint
-            )
-            self._load_one_scan(node, splits, scans, dicts, counts)
-            return
-        for s in node.sources:
-            self._load_scans(s, scans, dicts, counts)
-
-    def _scan_cache_key(self, node: P.TableScan, splits):
-        """The identity of the data a scan reads.  Neither its columns (an
-        entry holds lanes by column) nor its pushed-down constraint: a
-        cacheable connector's rows depend on that only through `splits`,
-        whose reprs tell a pruned split list, and a worker's or a shard's
-        share, apart.  `evict_table` matches the first two elements."""
-        conn = self.catalogs.get(node.catalog)
-        if not getattr(conn, "cacheable", False):
-            return None
-        return (
-            node.catalog,
-            node.table,
-            tuple(repr(sp) for sp in splits),
-            conn.data_version(node.table),
-            str(self.device),
-        )
-
-    def _load_one_scan(self, node: P.TableScan, splits, scans, dicts, counts):
-        """Load the splits of one scan into host arrays, merging per-split
-        dictionaries; cached across queries for versioned connectors.
-        One `scan_load` span: its `table`, its `rows`, `cache` (hit,
-        miss, or uncached where no cache or key applies) and, where the
-        columns a cached entry lacked were made into it, `filled`."""
-        with TRACER.span("scan_load", table=node.table, cache="uncached") as span:
-            self._read_scan(node, splits, scans, dicts, counts, span.attributes)
-            span.attributes["rows"] = int(counts[id(node)])
-
-    def _read_scan(self, node: P.TableScan, splits, scans, dicts, counts, attrs):
-        cache: Optional[DeviceScanCache] = self.config.get("scan_cache")
-        key = self._scan_cache_key(node, splits)
-        self._scan_keys[id(node)] = key
-        cols = list(dict.fromkeys(c for _, c in node.assignments))
-        if cache is None or key is None:
-            self._bind_scan(node, self._load_columns(node, splits, cols),
-                            scans, dicts, counts)
-            return
-        entry = cache.get(key, columns=cols)
-        missing = [c for c in cols if entry is None or c not in entry["merged"]]
-        # the lookup that counts the hit or miss names it
-        attrs["cache"] = "miss" if missing else "hit"
-        loaded = None
-        if entry is not None and missing:
-            # the missing columns, made the way the entry's others were:
-            # on the device from its counted ranges, or read on the host
-            spec = entry.get("devgen")
-            fill = (self._host_columns(node, splits, missing) if spec is None
-                    else self._device_columns(node, splits, missing, spec["ranges"]))
-            if fill is not None and fill[2] == entry["total"]:
-                cache.extend(key, entry, fill[0], fill[1], _lane_bytes(fill[0]))
-                attrs["filled"] = len(missing)
-            else:
-                # the entry's way cannot make them (generated on the
-                # device, a column only the host formats): the host reads
-                # the scan anew, and that replaces the entry
-                entry, loaded = None, self._host_columns(node, splits, cols)
-        if entry is None:
-            lanes, ldicts, total, spec = loaded or self._load_columns(node, splits, cols)
-            entry = {"merged": lanes, "dicts": ldicts, "total": total, "dev": {},
-                     "devgen": spec}
-            cache.put(key, entry, _lane_bytes(lanes))
-        self._bind_scan(node, (entry["merged"], entry["dicts"], entry["total"],
-                               entry.get("devgen")), scans, dicts, counts)
-
-    def _bind_scan(self, node: P.TableScan, loaded, scans, dicts, counts):
-        """Bind the scan's own columns of `loaded` (lanes and dictionaries
-        by column name, a row count, a device generation spec or None) to
-        its symbols, in a fresh dict of lanes: dynamic filters prune that,
-        never a cached entry."""
-        lanes, ldicts, total, spec = loaded
-        tmap = dict(node.types)
-        sym_of = {c: self._sym_for(node, c) for _, c in node.assignments}
-        scans[id(node)] = {s: lanes[c] for c, s in sym_of.items()}
-        for c, s in sym_of.items():
-            if c in ldicts:
-                dicts[s] = ldicts[c]
-            elif tmap[s].is_dictionary and s not in dicts:
-                dicts[s] = np.array([], dtype=object)
-        counts[id(node)] = total
-        if spec is not None:
-            self._devgen[id(node)] = spec
-
-    def _load_columns(self, node: P.TableScan, splits, cols):
-        """(lanes, dictionaries, row count, device generation spec or
-        None) of a scan's columns: generated on the device where the
-        connector can, else read on the host."""
-        return (self._device_columns(node, splits, cols)
-                or self._host_columns(node, splits, cols))
-
-    def _host_columns(self, node: P.TableScan, splits, cols):
-        """Read columns from the connector's page sources into host arrays
-        by column name, merging per-split dictionaries."""
-        provider = self.catalogs.get(node.catalog).page_source_provider()
-        tmap = dict(node.types)
-        pages: List[Page] = []
-        for sp in splits:
-            src = provider.create_page_source(sp, cols)
-            for page in src.pages():
-                src_dicts = src.dictionaries()
-                new_cols = [
-                    Column(col.type, col.values, col.validity,
-                           col.dictionary if col.dictionary is not None
-                           else src_dicts.get(c))
-                    for c, col in zip(page.names, page.columns)
-                ]
-                pages.append(Page(new_cols, page.count, list(page.names)))
-        types = [(c, tmap[self._sym_for(node, c)]) for c in cols]
-        ldicts: Dict[str, np.ndarray] = {}
-        merged, total = merge_pages_to_arrays(pages, cols, types, ldicts)
-        for c, t in types:
-            if t.is_dictionary and c not in ldicts:
-                ldicts[c] = np.array([], dtype=object)
-        return merged, ldicts, total, None
-
-    def _device_columns(self, node: P.TableScan, splits, cols, ranges=None):
-        """On-device scan materialization: when the connector makes every
-        requested column as a pure function of the row index
-        (connectors/tpch_device.py), no host array is made; each column
-        is a placeholder that _device_lanes generates on the device.
-        `ranges` (a cached spec's) spares the connector counting rows
-        again.  None where generation is off or the connector cannot make
-        a column (its `supports`): that scan takes the host generator,
-        counted as hostGeneratedScans.  A generator that fails raises."""
-        devgen_fn = getattr(self.catalogs.get(node.catalog), "device_generation", None)
-        if devgen_fn is None or not self.config.get("device_generation", True):
-            return None
-        spec = devgen_fn(node.table, cols, splits, ranges=ranges)
-        prof = self.kernel_profile
-        if spec is None:
-            prof["hostGeneratedScans"] = prof.get("hostGeneratedScans", 0) + 1
-            return None
-        prof["deviceGeneratedScans"] = prof.get("deviceGeneratedScans", 0) + 1
-        count = int(spec["count"])
-        lanes = {c: (_LazyDeviceLane(count * spec["widths"].get(c, 8)), None)
-                 for c in cols}
-        return lanes, dict(spec["dicts"]), count, spec
-
-    def _generate_device_scan(self, spec: dict, syms, sym_to_col):
-        """Run the connector's on-device generator for one scan; returns
-        {symbol: (values, ok)} on this executor's device."""
-        from ..connectors import tpch_device
-
-        from .streaming import DEVGEN_TEMP_LANES
-
-        cols = [sym_to_col.get(s, s) for s in syms]
-        self._devgen_temp_bytes += int(spec["count"]) * 8 * DEVGEN_TEMP_LANES
-        with TRACER.span("scan_generate", table=spec["table"],
-                         rows=int(spec["count"]), columns=",".join(cols)):
-            parts = [
-                tpch_device.device_lanes(
-                    spec["table"], cols, int(lo), int(hi), float(spec["sf"]),
-                    int(n), self.device,
-                )
-                for lo, hi, n in spec["ranges"]
-            ]
-            if len(parts) == 1:
-                lanes = parts[0]
-            else:  # the splits' contiguous runs, in split order
-                lanes = {
-                    c: (torch.cat([p[c][0] for p in parts]),
-                        torch.cat([p[c][1] for p in parts]))
-                    for c in cols
-                }
-        return {s: lanes[c] for s, c in zip(syms, cols)}
-
-    def _device_lanes(self, node: P.TableScan, arrays, count):
-        """Upload one scan's host arrays to device lanes (page-locked
-        copies on CUDA), reusing device tensors cached by an earlier
-        query of the same versioned scan."""
-        staged = getattr(self, "_preuploaded", None)
-        if staged and id(node) in staged:
-            # copied ahead on the prefetch thread's stream: order this
-            # stream after the copies, and tell the caching allocator the
-            # tensors are used here
-            lanes, event = staged.pop(id(node))
-            if event is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(event)
-                for v, ok in lanes.values():
-                    v.record_stream(stream)
-                    ok.record_stream(stream)
-            return lanes
-        cache: Optional[DeviceScanCache] = (
-            self.config.get("scan_cache") or getattr(self, "_streaming_cache", None)
-        )
-        key = self._scan_keys.get(id(node))
-        entry = cache.get(key, record=False) if (cache is not None and key) else None
-        sym_to_col = dict(getattr(node, "assignments", ()))
-        dev = self.device
-        lanes = {}
-        generated = None
-        for sym, (arr, valid) in arrays.items():
-            col = sym_to_col.get(sym, sym)
-            if entry is not None and col in entry["dev"]:
-                lanes[sym] = entry["dev"][col]
-                continue
-            if isinstance(arr, _LazyDeviceLane):
-                if generated is None:  # every missing lane in one pass
-                    lazy = [s for s, (a, _v) in arrays.items()
-                            if isinstance(a, _LazyDeviceLane)
-                            and not (entry is not None
-                                     and sym_to_col.get(s, s) in entry["dev"])]
-                    generated = self._generate_device_scan(
-                        self._devgen[id(node)], lazy, sym_to_col)
-                lanes[sym] = generated[sym]
-                if entry is not None:
-                    entry["dev"][col] = generated[sym]
-                continue
-            v = D.to_device(arr, dev, pin=True)
-            if valid is None:
-                ok = torch.ones(count, dtype=torch.bool, device=dev)
-            else:
-                ok = D.to_device(valid, dev, pin=True)
-            lanes[sym] = (v, ok)
-            if entry is not None:
-                entry["dev"][col] = (v, ok)
-        return lanes
-
-    @staticmethod
-    def _sym_for(scan: P.TableScan, col: str) -> str:
-        for s, c in scan.assignments:
-            if c == col:
-                return s
-        raise KeyError(col)
+    def _load_scans(self, plan: P.PlanNode) -> LoadedScans:
+        """Every TableScan of the plan loaded over its connector's splits."""
+        scans = LoadedScans()
+        for node in plan_leaves(plan):
+            if isinstance(node, P.TableScan):
+                splits = self.catalogs.get(node.catalog).split_manager().get_splits(
+                    node.table, 1, node.constraint)
+                scans.add(load_table_scan(self, node, splits))
+        return scans
 
     def _megakernel_mode(self) -> str:
         """Effective fused scan->filter->aggregate mode: 'on'/'off'.
@@ -1238,8 +785,8 @@ class LocalExecutor:
         return rec
 
     # ------------------------------------------------------------------
-    def _new_ctx(self, scans, counts) -> "_TraceCtx":
-        return _TraceCtx(self, scans, counts)
+    def _new_ctx(self, scans: LoadedScans) -> "_TraceCtx":
+        return _TraceCtx(self, scans)
 
     def _run(self, plan: P.Output, ctx: "_TraceCtx"):
         batch = ctx.visit(plan.source)
@@ -1299,10 +846,9 @@ class _TraceCtx:
     # (_build_once)
     allow_fusion = True
 
-    def __init__(self, ex: LocalExecutor, scans, counts):
+    def __init__(self, ex: LocalExecutor, scans: LoadedScans):
         self.ex = ex
         self.scans = scans
-        self.counts = counts
         # BIGINT sum-accumulator overflow flags (decimal sums are exact
         # via wide chunk accumulators; bigint wrap raises loudly)
         self.sum_overflow: List[torch.Tensor] = []
@@ -1345,10 +891,9 @@ class _TraceCtx:
 
     # -- leaves ---------------------------------------------------------
     def _visit_tablescan(self, node: P.TableScan) -> Batch:
-        count = self.counts[id(node)]
-        lanes = self.ex._device_lanes(node, self.scans[id(node)], count)
-        sel = torch.ones(count, dtype=torch.bool, device=self.ex.device)
-        return Batch(dict(lanes), sel)
+        leaf = self.scans.leaves[id(node)]
+        sel = torch.ones(leaf.rows, dtype=torch.bool, device=self.ex.device)
+        return Batch(leaf.lanes(self.ex), sel)
 
     def _visit_remotesource(self, node: P.RemoteSource) -> Batch:
         """Exchange input of a fragment (exec/fragment_exec.py): the

@@ -29,6 +29,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 from ..plan import nodes as P
+from .scan import merge_pages_to_arrays, table_scans
 
 SPILL_SOURCE_ID = -1  # RemoteSource id for in-process spilled partials
 SAFETY_FACTOR = 4  # batch working-set headroom under the limit
@@ -65,16 +66,7 @@ def find_spillable_aggregate(
     # the aggregate's scan must be the plan's only scan: the rewritten plan
     # replaces the whole scan chain, so remaining scans would lose their
     # split assignment
-    nscans = [0]
-
-    def count_scans(n: P.PlanNode):
-        if isinstance(n, P.TableScan):
-            nscans[0] += 1
-        for s in n.sources:
-            count_scans(s)
-
-    count_scans(plan)
-    if nscans[0] != 1:
+    if len(table_scans(plan)) != 1:
         return None
     return agg, node
 
@@ -314,16 +306,7 @@ def plan_join_spill(executor, plan: P.Output, memory_limit: int):
     rscan = _is_scan_chain(join.right)
     if lscan is None or rscan is None:
         return None
-    nscans = [0]
-
-    def _count(n):
-        if isinstance(n, P.TableScan):
-            nscans[0] += 1
-        for s in n.sources:
-            _count(s)
-
-    _count(plan)
-    if nscans[0] != 2:
+    if len(table_scans(plan)) != 2:
         return None
     est = _est_side(executor, lscan) + _est_side(executor, rscan)
     if est <= memory_limit:
@@ -425,7 +408,6 @@ def execute_spilled_sort(executor, plan, sort, scan):
 
     from ..page import Column, Page
     from .fragment_exec import FragmentExecutor
-    from .local import merge_pages_to_arrays
 
     limit = int(executor.config.get("memory_limit_bytes"))
     syms = tuple(sort.output_symbols())
@@ -626,8 +608,6 @@ def _host_distinct_count(pages, sym, typ):
     string under different codes, and merge_pages_to_arrays only unifies
     (it does not dedup) the merged dictionary."""
     import numpy as np
-
-    from .local import merge_pages_to_arrays
 
     dicts: Dict[str, object] = {}
     merged, total = merge_pages_to_arrays(pages, [sym], [(sym, typ)], dicts)

@@ -44,7 +44,6 @@ row range there, any other scan copies its host arrays.
 from __future__ import annotations
 
 import math
-import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -56,6 +55,7 @@ from ..page import Page
 from ..plan import nodes as P
 from ..plan.fragment import fragment_plan
 from ..utils.tracing import TRACER
+from .scan import plan_leaves, table_scans
 
 # a tile's scan working set is bounded to limit/SAFETY so scan arrays,
 # operator temporaries and partial state fit together
@@ -77,6 +77,10 @@ def _scan_row_bytes(node: P.TableScan) -> int:
     return max(total, 1)
 
 
+# the JAX package's name: the gate's parity tests call it on both packages
+_find_scan_nodes = table_scans
+
+
 def _est_scan_bytes(executor, catalog: str, table: str, node) -> float:
     conn = executor.catalogs.get(catalog)
     try:
@@ -84,23 +88,6 @@ def _est_scan_bytes(executor, catalog: str, table: str, node) -> float:
     except Exception:  # noqa: BLE001 — unknown stats: assume small
         return 0.0
     return float(stats.row_count) * _scan_row_bytes(node)
-
-
-def _find_nodes(root: P.PlanNode, kind) -> list:
-    out = []
-
-    def walk(n: P.PlanNode):
-        if isinstance(n, kind):
-            out.append(n)
-        for s in n.sources:
-            walk(s)
-
-    walk(root)
-    return out
-
-
-def _find_scan_nodes(root: P.PlanNode) -> List[P.TableScan]:
-    return _find_nodes(root, P.TableScan)
 
 
 def estimate_plan_scan_bytes(executor, plan: P.PlanNode) -> float:
@@ -226,7 +213,8 @@ def plan_streaming(executor, plan: P.Output, memory_limit: int,
 
     try:
         # a task's plan reads upstream fragments: number the new ones after
-        first = 1 + max((n.fragment_id for n in _find_nodes(plan, P.RemoteSource)), default=0)
+        first = 1 + max((n.fragment_id for n in plan_leaves(plan)
+                          if isinstance(n, P.RemoteSource)), default=0)
         frags = fragment_plan(plan, first_id=first)
     except NotImplementedError:
         return _remember(False)
@@ -301,7 +289,7 @@ def _splits(executor, task_splits, scan_table, node: P.TableScan, want: int) -> 
 def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Page:
     """Run the fragment DAG locally, tiling SOURCE fragments' splits."""
     from .fragment_exec import FragmentExecutor
-    from .local import DeviceScanCache
+    from .scan import RemoteInputs
 
     by_id = {f.id: f for f in frags}
     ntiles_of = tile_counts(executor, frags, memory_limit)
@@ -309,10 +297,9 @@ def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Pag
     # a task's upstream pages, fetched already, under their fragment ids
     pages_by_fragment: Dict[int, List[Page]] = dict(
         getattr(executor, "remote_pages", None) or {})
-    # device residency for remote inputs across tiles, scoped to this run
+    # remote inputs merged and uploaded once for every tile of this run
     # (tiles must not thrash the session's scan cache)
-    run_cache = DeviceScanCache(device=executor.device)
-    run_lock = threading.Lock()
+    remote_inputs = RemoteInputs()
     dev = executor.device
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     executor.kernel_profile["streamedTiles"] = {}
@@ -341,8 +328,8 @@ def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Pag
                 idx: _splits(executor, task_splits, st, scans[idx], 1)
                 for idx, st in f.scan_tables.items()
             }
-            fe = FragmentExecutor(executor.catalogs, tile_config(), splits_by_scan, remote)
-            fe._streaming_cache, fe._streaming_lock = run_cache, run_lock
+            fe = FragmentExecutor(executor.catalogs, tile_config(), splits_by_scan, remote,
+                                  remote_inputs=remote_inputs)
             pages_by_fragment[fid] = [fe.execute(f.root)]
             _merge_tile_counters(executor, fe)
             return
@@ -353,17 +340,17 @@ def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Pag
         tile_starts = list(range(0, len(splits), per))
         executor.kernel_profile["streamedTiles"][fid] = len(tile_starts)
 
-        def make_loaded(i: int) -> FragmentExecutor:
+        def make_loaded(i: int):
             t0 = time.perf_counter()
             fe = FragmentExecutor(executor.catalogs, tile_config(),
-                                  {idx: splits[i: i + per]}, remote)
-            fe._streaming_cache, fe._streaming_lock = run_cache, run_lock
-            fe.preload(f.root)
+                                  {idx: splits[i: i + per]}, remote,
+                                  remote_inputs=remote_inputs)
+            loaded = fe.preload(f.root)
             # the next tile's copies start on this (prefetch) thread, on
             # the side stream, overlapping the current tile's kernels
-            fe.preupload(f.root, copy_stream)
+            fe.preupload(loaded, copy_stream)
             fe.kernel_profile["streamLoadS"] = time.perf_counter() - t0
-            return fe
+            return fe, loaded
 
         # double-buffered: while tile i runs, up to `double_buffer_depth`
         # later tiles load and upload (each staged tile holds its scan
@@ -376,13 +363,13 @@ def execute_streaming(executor, plan: P.Output, frags, memory_limit: int) -> Pag
             nexti = depth
             for tile in range(len(tile_starts)):
                 t0 = time.perf_counter()
-                fe = pending.popleft().result()  # a prefetch failure raises here
+                fe, loaded = pending.popleft().result()  # a prefetch failure raises here
                 t1 = time.perf_counter()
                 if nexti < len(tile_starts):
                     pending.append(prefetch.submit(make_loaded, tile_starts[nexti]))
                     nexti += 1
                 with TRACER.span("stream_tile", fragment=fid, tile=tile) as span:
-                    out.append(fe.execute(f.root))
+                    out.append(fe.execute(f.root, loaded))
                     span.attributes["rows"] = int(
                         fe.kernel_profile.get("summary", {}).get("actualRows", 0))
                 prof = fe.kernel_profile

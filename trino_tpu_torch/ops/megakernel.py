@@ -13,9 +13,10 @@ oversized products against a <= 15-bit factor, whole-table sums below
 layout, so fusedAggregates / fusionRejects and the output pages match
 the reference.  One decision goes further: a wide (DECIMAL(38, s)) sum
 or avg whose whole-table sum may pass 2^62 still fuses where each of its
-terms' sums stays below 2^62; its output is rebuilt from the term sums
-in 128-bit chunks (fusedWideSums counts them), with the same answer the
-unfused path gives.  What differs is what the compiler emits: where the
+terms' sums stays below 2^62 (fusedWideSums counts them), with the same
+answer the unfused path gives.  Every wide output, past that gate or
+not, is rebuilt from its term sums in 128-bit chunks (`_wide_chunks`);
+a narrow one in one int64.  What differs is what the compiler emits: where the
 TPU kernel traced a Python closure into Mosaic, this compiler emits a
 postfix program over int32 values (ops/kernels.Program), which
 ops/kernels.encode turns into the straight-line program the one
@@ -46,8 +47,8 @@ I32_MAX = 2 ** 31 - 1
 # in int32), kept so that term layouts agree with the reference; the CUDA
 # kernel itself sums in int64.  The port fuses past the reference's
 # table-wide gate for wide (DECIMAL(38, s)) sums alone, with identical
-# answers: each term's sum is proven to fit int64 and the output is
-# rebuilt in 128-bit chunks (`_wide_chunks`)
+# answers: each term's sum is proven to fit int64, and a wide output is
+# rebuilt from its term sums in 128-bit chunks (`_wide_chunks`)
 CHUNK_ROWS = 2048
 TERM_MAX = I32_MAX // CHUNK_ROWS
 # whole-table int64 sum headroom: rows * bound must stay below this
@@ -298,26 +299,12 @@ def _planes(code: Code, hi: int, shift: int, out: list) -> None:
 
 
 def _int64_sum(sums: torch.Tensor, slots) -> torch.Tensor:
-    """sum(sums[i] << sh) over `slots` in one int64: the rebuild of a sum
-    whose whole-table bound passed SUM_GATE."""
+    """sum(sums[i] << sh) over `slots` in one int64: the rebuild of a
+    narrow sum, whose whole-table bound passed SUM_GATE."""
     val = torch.zeros_like(sums[0])
     for i, sh in slots:
         val = val + (sums[i] << sh)
     return val
-
-
-def _int64_chunks(sums: torch.Tensor, slots) -> List[torch.Tensor]:
-    """The narrow fast path of the wide accumulator schema: the int64
-    rebuild carried as 32-bit chunk lanes, for an input the table-wide
-    gate passed, so every aggregate that fused before wide sums could
-    keeps its rebuild.  `_wide_chunks` gives the same lanes in more
-    torch calls (61 against 26 for Q6's three terms), and
-    measured no slower (Q6 on an H100: 6.13 against 6.48 ms, medians of
-    24 warm runs each)."""
-    val = _int64_sum(sums, slots)
-    return wd.normalize_chunks([
-        val & 0xFFFFFFFF, val >> 32, torch.zeros_like(val), torch.zeros_like(val),
-    ])
 
 
 def _wide_chunks(sums: torch.Tensor, slots) -> List[torch.Tensor]:
@@ -521,7 +508,7 @@ def _run(ctx, node: P.Aggregate):
         if a.kind in ("sum", "avg") and a.arg in mapping:
             e = mapping[a.arg]
             wide_only[e] = wide_only.get(e, True) and s._wide_sum
-    # input -> (its (term index, shift) slots, rebuilt in chunks)
+    # input -> (its (term index, shift) slots, fused past the gate)
     input_terms: Dict[ir.Expr, Tuple[List[Tuple[int, int]], bool]] = {}
     plans: List[Optional[Tuple[List[Tuple[int, int]], bool]]] = []
     for a in node.aggs:
@@ -542,9 +529,8 @@ def _run(ctx, node: P.Aggregate):
         plan = input_terms.get(e)
         if plan is None:
             tlist, hi = comp.decompose(e)
-            # a sum proven below the gate is rebuilt in one int64; past
-            # it, a wide-only input fuses where each term's own sum is
-            # below the gate
+            # past the gate, a wide-only input fuses where each term's
+            # own sum is below it
             chunked = rows_bound * hi >= SUM_GATE
             if chunked and not (wide_only[e] and all(
                     rows_bound * thi < SUM_GATE for _code, _sh, thi in tlist)):
@@ -612,22 +598,16 @@ def _run(ctx, node: P.Aggregate):
             accs[f"{o}$count"] = cnt
             continue
         slots, chunked = plan
-        if chunked:
-            cs = _wide_chunks(sums, slots)
-            n_chunked += 1
-        elif s._wide_sum:
-            cs = _int64_chunks(sums, slots)
-        else:
-            val = _int64_sum(sums, slots)
+        n_chunked += chunked
         if s._wide_sum:
-            for i, c in enumerate(cs):
+            for i, c in enumerate(_wide_chunks(sums, slots)):
                 accs[f"{o}$c{i}"] = c
             accs[f"{o}$valid" if s.kind == "sum" else f"{o}$count"] = cnt
         elif s.kind == "sum":
-            accs[f"{o}$val"] = val
+            accs[f"{o}$val"] = _int64_sum(sums, slots)
             accs[f"{o}$valid"] = cnt
         else:  # narrow avg
-            accs[f"{o}$sum"] = val
+            accs[f"{o}$sum"] = _int64_sum(sums, slots)
             accs[f"{o}$count"] = cnt
 
     if node.step == "partial":

@@ -65,15 +65,15 @@ import numpy as np
 import torch
 
 from ..cache.compile_cache import fragment_family
-from ..exec.fragment_exec import FragmentExecutor
-from ..exec.local import (
-    Batch,
-    ExecutionError,
-    LocalExecutor,
-    _scan_bytes,
-    _TraceCtx,
+from ..exec.local import Batch, ExecutionError, LocalExecutor, _TraceCtx, timed_visit
+from ..exec.scan import (
+    LoadedScan,
+    LoadedScans,
+    load_remote,
+    load_table_scan,
     merge_pages_to_arrays,
-    timed_visit,
+    pages_bytes,
+    plan_leaves,
 )
 from ..obs import compile_observatory
 from ..ops import aggregation as agg_ops
@@ -176,8 +176,6 @@ class MeshExecutor(LocalExecutor):
         self._mesh_device_ids = list(range(len(mesh)))
         self.shard = 0  # this executor's shard (a shard view's own)
         self.mesh_tasks: List[dict] = []
-        self._shard_scan_keys: List[dict] = []
-        self._shard_devgen: List[dict] = []
         # (shard, id(scan), symbol) -> code remap into the union dictionary
         self._remaps: Dict[tuple, np.ndarray] = {}
         # the last run's host walls: split load and scan lanes, per-shard
@@ -249,36 +247,35 @@ class MeshExecutor(LocalExecutor):
     def _shard_view(self, s: int) -> "MeshExecutor":
         """Shard s's executor: this one's state (the same profile,
         dictionaries, retry-ladder sets and supervisor) on the shard's
-        device, with the shard's own scan keys and generation specs."""
+        device."""
         v = object.__new__(type(self))
         v.__dict__.update(self.__dict__)
         v.device = self.mesh[s]
         v.shard = s
-        v._scan_keys = self._shard_scan_keys[s]
-        v._devgen = self._shard_devgen[s]
         return v
 
     # ------------------------------------------------------------------
-    def _execute_inner(self, plan: P.Output):
+    def _execute_inner(self, plan: P.Output, scans=None):
         t0 = time.perf_counter()
         self.mesh_tasks = []
         self.mesh_timing = dict.fromkeys(
             ("loadS", "shardOpsS", "exchangeS", "syncS"), 0.0)
-        scans, dicts, counts = self._load_sharded_scans(plan)
-        self.scan_bytes = _scan_bytes(scans)
+        if scans is None:
+            scans = self._load_sharded_scans(plan)
+        self.scan_bytes = scans.nbytes()
         self.mesh_timing["loadS"] = time.perf_counter() - t0
-        self._note_layout(plan, counts)
+        self._note_layout(plan, scans)
         t1 = time.perf_counter()
-        page = self._run_plan(plan, scans, dicts, counts)
+        page = self._run_plan(plan, scans)
         tm = self.mesh_timing
         tm["syncS"] = (time.perf_counter() - t1 - tm.pop("runS", 0.0))
         self.kernel_profile["mesh"] = dict(shards=len(self.mesh), **tm)
         self.kernel_profile["summary"]["meshDevices"] = len(self.mesh)
         if self.config.get("collect_node_stats"):
-            self._mesh_node_stats(plan, counts, time.perf_counter() - t0)
+            self._mesh_node_stats(plan, scans, time.perf_counter() - t0)
         return page
 
-    def _note_layout(self, plan: P.Output, counts) -> None:
+    def _note_layout(self, plan: P.Output, scans: LoadedScans) -> None:
         """The first run of a fragment family over this many shards in the
         process is the mesh's compile event (mode "mesh", the JAX
         package's shard_map compile): nothing is built, the event marks
@@ -290,13 +287,13 @@ class MeshExecutor(LocalExecutor):
         compile_observatory.record_compile(
             kernel="mesh:%d/fragment" % len(self.mesh), family=family,
             mode="mesh", shapes={"shards": len(self.mesh)},
-            actual_rows=sum(int(c) for c in counts.values()),
+            actual_rows=scans.rows(),
             query_id=self.query_id,
             task_id=str(self.config.get("task_id") or ""), scan_rows=[],
         )
 
-    def _new_ctx(self, scans, counts) -> "_MeshTraceCtx":
-        return _MeshTraceCtx(self, scans, counts)
+    def _new_ctx(self, scans: LoadedScans) -> "_MeshTraceCtx":
+        return _MeshTraceCtx(self, scans)
 
     def _run(self, plan: P.Output, ctx: "_MeshTraceCtx"):
         t0 = time.perf_counter()
@@ -313,49 +310,31 @@ class MeshExecutor(LocalExecutor):
         return {s: b.lanes[s] for s in plan.symbols}, b.sel
 
     # ------------------------------------------------------------------
-    def _load_sharded_scans(self, plan: P.PlanNode):
+    def _load_sharded_scans(self, plan: P.PlanNode) -> LoadedScans:
         """Each shard's splits of every scan (shard d: splits[d::n]),
         loaded as the one-device executor loads a scan (the scan cache,
-        generation on the device), keyed (shard, id(scan)); varchar
-        dictionaries unified across shards (_merge_split_dicts)."""
+        generation on the device) on the shard's device, into one set a
+        shard; varchar dictionaries unified across shards
+        (_merge_split_dicts)."""
         n = len(self.mesh)
-        self._shard_scan_keys = [{} for _ in range(n)]
-        self._shard_devgen = [{} for _ in range(n)]
         self._remaps = {}
-        scans: Dict[tuple, dict] = {}
-        counts: Dict[tuple, int] = {}
-        dicts: Dict[str, np.ndarray] = {}
-
-        # the preorder scan ordinal: FragmentExecutor._load_walk's key of
-        # a task's assigned splits, which the slice executor looks up
-        scan_idx = [0]
-
-        def walk(node: P.PlanNode):
-            if isinstance(node, P.TableScan):
-                idx = scan_idx[0]
-                scan_idx[0] += 1
-                splits = self._scan_splits(node, idx, n)
-                per_dicts = []
-                for s in range(n):
-                    sc, dc, cc = {}, {}, {}
-                    mine = splits[s::n]
-                    if mine:
-                        self._shard_view(s)._load_one_scan(node, mine, sc, dc, cc)
-                    else:
-                        self._empty_scan(node, sc, dc, cc)
-                    scans[(s, id(node))] = sc[id(node)]
-                    counts[(s, id(node))] = cc[id(node)]
-                    per_dicts.append(dc)
-                self._merge_split_dicts(node, per_dicts, dicts)
-                return
+        scans = LoadedScans([LoadedScans() for _ in range(n)])
+        # the scan's ordinal: FragmentExecutor's key of a task's assigned
+        # splits, which the slice executor looks up
+        idx = 0
+        for node in plan_leaves(plan):
             if isinstance(node, P.RemoteSource):
-                self._load_remote_source(node, scans, dicts, counts)
-                return
-            for c in node.sources:
-                walk(c)
-
-        walk(plan)
-        return scans, dicts, counts
+                scans.dicts.update(scans.shards[0].add(self._load_remote_source(node)).dicts)
+                continue
+            splits = self._scan_splits(node, idx, n)
+            idx += 1
+            for s, shard in enumerate(scans.shards):
+                mine = splits[s::n]
+                shard.add(load_table_scan(self, node, mine, self.mesh[s]) if mine
+                          else self._empty_scan(node))
+            self._merge_split_dicts(
+                node, [shard.leaves[id(node)].dicts for shard in scans.shards], scans.dicts)
+        return scans
 
     def _scan_splits(self, node: P.TableScan, idx: int, n: int):
         """All of a table's splits, asked for with the shard count as the
@@ -365,19 +344,19 @@ class MeshExecutor(LocalExecutor):
         conn = self.catalogs.get(node.catalog)
         return conn.split_manager().get_splits(node.table, n, node.constraint)
 
-    def _load_remote_source(self, node: P.RemoteSource, scans, dicts, counts):
+    def _load_remote_source(self, node: P.RemoteSource) -> LoadedScan:
         # a plan over the whole mesh has no exchange inputs; only the
         # slice executor's fragments read remote pages
         raise ExecutionError("the mesh executor cannot read remote sources")
 
-    def _empty_scan(self, node: P.TableScan, scans, dicts, counts):
+    def _empty_scan(self, node: P.TableScan) -> LoadedScan:
         """A shard that holds none of the table's splits: zero rows."""
         symbols = [s for s, _ in node.assignments]
         tmap = dict(node.types)
-        types = [(s, tmap[s]) for s in symbols]
-        merged, total = merge_pages_to_arrays([], symbols, types, dicts)
-        scans[id(node)] = merged
-        counts[id(node)] = total
+        dicts = {}
+        merged, total = merge_pages_to_arrays(
+            [], symbols, [(s, tmap[s]) for s in symbols], dicts)
+        return LoadedScan(node, merged, dicts, total)
 
     def _merge_split_dicts(self, node, per_dicts, dicts):
         """One varchar dictionary per symbol across the shards: the union
@@ -412,7 +391,7 @@ class MeshExecutor(LocalExecutor):
             dicts[sym] = np.array(entries, dtype=object)
 
     # ------------------------------------------------------------------
-    def _mesh_node_stats(self, plan, counts, wall_s):
+    def _mesh_node_stats(self, plan, scans: LoadedScans, wall_s):
         """Per-shard task rollups after the run (EXPLAIN ANALYZE,
         operator_stats), from the operators' stats over every shard: each
         shard's rows and walls scaled by its share of the scanned rows
@@ -421,9 +400,7 @@ class MeshExecutor(LocalExecutor):
         from ..obs import opstats
 
         n = len(self.mesh)
-        shard_rows = np.zeros(n, dtype=np.int64)
-        for (s, _nid), c in counts.items():
-            shard_rows[s] += int(c)
+        shard_rows = np.array([shard.rows() for shard in scans.shards], dtype=np.int64)
         frames = opstats.frames_from_plan(plan, self.node_stats)
         qid = self.query_id or "query"
         heaviest = int(shard_rows.max()) if n else 0
@@ -458,8 +435,8 @@ class _ShardCtx(_TraceCtx):
 
     allow_fusion = False
 
-    def __init__(self, mesh: "_MeshTraceCtx", view: MeshExecutor, scans, counts):
-        super().__init__(view, scans, counts)
+    def __init__(self, mesh: "_MeshTraceCtx", view: MeshExecutor, scans: LoadedScans):
+        super().__init__(view, scans)
         self.mesh = mesh
         self.sum_overflow = mesh.sum_overflow
         self.dup_checks = mesh.dup_checks
@@ -485,16 +462,13 @@ class _MeshTraceCtx(_TraceCtx):
     node with a `_visit_*` method here is an exchange; any other runs the
     one-device visitor on each shard (or once, over replicated inputs)."""
 
-    def __init__(self, ex: MeshExecutor, scans, counts):
-        super().__init__(ex, scans, counts)
+    def __init__(self, ex: MeshExecutor, scans: LoadedScans):
+        super().__init__(ex, scans)
         self.home = ex.mesh[0]
         self.devices = list(ex.mesh)
         n = len(self.devices)
         self.shards = [
-            _ShardCtx(self, ex._shard_view(s),
-                      {k[1]: a for k, a in scans.items() if k[0] == s},
-                      {k[1]: c for k, c in counts.items() if k[0] == s})
-            for s in range(n)
+            _ShardCtx(self, ex._shard_view(s), scans.shards[s]) for s in range(n)
         ]
         # a broadcast build side's lookup sources, one a device (set while
         # the shards of one broadcast join or semi join run)
@@ -661,8 +635,8 @@ class _MeshTraceCtx(_TraceCtx):
     def _merge_fused_sums(self, parts: List[torch.Tensor]) -> torch.Tensor:
         """The shards' fused (term, group) int64 partials all_gathered and
         summed.  Exact: the megakernel proves each term's table-wide sum
-        below SUM_GATE (the whole sum's where it fits, else term by term
-        for a wide output rebuilt in chunks), so no partial sum can wrap."""
+        below SUM_GATE (the whole sum's where it fits, else, for a wide
+        output, term by term), so no partial sum can wrap."""
         g = C.all_gather(parts, self.home)
         return g.reshape((len(parts),) + tuple(parts[0].shape)).sum(0)
 
@@ -1158,31 +1132,21 @@ class CrossHostFragmentExecutor(MeshExecutor):
         self.dynamic_filters = dynamic_filters or {}
         self.df_rows_pruned = 0
         # as FragmentExecutor: the remote pages held for the whole run
-        self.exchange_bytes = sum(
-            int(np.asarray(c.values).nbytes)
-            + (int(np.asarray(c.validity).nbytes) if c.validity is not None else 0)
-            for pages in self.remote_pages.values()
-            for p in pages
-            for c in p.columns
-        )
+        self.exchange_bytes = pages_bytes(self.remote_pages)
 
-    def _new_ctx(self, scans, counts) -> _SliceTraceCtx:
-        return _SliceTraceCtx(self, scans, counts)
+    def _new_ctx(self, scans: LoadedScans) -> _SliceTraceCtx:
+        return _SliceTraceCtx(self, scans)
 
     def _scan_splits(self, node: P.TableScan, idx: int, n: int):
         # only the splits the coordinator assigned to this task
         return self.splits_by_scan.get(idx, [])
 
-    def _load_remote_source(self, node: P.RemoteSource, scans, dicts, counts):
-        """The fetched pages merged once (FragmentExecutor's merge, their
-        dictionaries unified), keyed as shard 0's: the slice context
-        reads them as one replicated batch."""
-        sc, cc = {}, {}
-        FragmentExecutor._load_remote(self, node, sc, dicts, cc, None)
-        scans[(0, id(node))] = sc[id(node)]
-        counts[(0, id(node))] = cc[id(node)]
+    def _load_remote_source(self, node: P.RemoteSource) -> LoadedScan:
+        """The fetched pages merged once (their dictionaries unified),
+        shard 0's: the slice context reads them as one replicated batch."""
+        return load_remote(node, self.remote_pages.get(node.fragment_id, []))
 
-    def _run_plan(self, plan: P.Output, scans, dicts, counts):
+    def _run_plan(self, plan: P.Output, scans: LoadedScans):
         """The run inside the worker's memory pool: the host tier holds
         every shard's scan lanes and the exchange input (over the query's
         limit it raises: the slice neither streams nor spills), the device
@@ -1198,7 +1162,7 @@ class CrossHostFragmentExecutor(MeshExecutor):
                     timeout=float(self.config.get("memory_blocked_timeout_s") or 0.0))
                 self.blocked_memory_s += time.perf_counter() - t0
                 self.device_bytes = self.scan_bytes
-            return super()._run_plan(plan, scans, dicts, counts)
+            return super()._run_plan(plan, scans)
         finally:
             if manager is not None:
                 manager.free(self.query_id, self.scan_bytes, tier="host")

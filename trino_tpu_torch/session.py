@@ -69,7 +69,8 @@ from .connectors.memory import MemoryConnectorFactory
 from .connectors.system import SystemConnectorFactory
 from .connectors.tpcds import TpcdsConnectorFactory
 from .connectors.tpch import TpchConnectorFactory
-from .exec.local import DeviceScanCache, LocalExecutor
+from .exec.local import LocalExecutor
+from .exec.scan import DeviceScanCache
 from .expr.lower import ProjectionMemo
 from .memory import LocalMemoryManager
 from .page import Page, column_from_pylist, page_from_pydict
