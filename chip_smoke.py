@@ -190,11 +190,11 @@ Phases (any failure exits non-zero and prints no result line):
      diagnosed as device_fault with cited events and the DEVICE_LOSS
      error code, then the canary; a Q6 denied by file-based access
      control that loads no scan and launches nothing; two subprocesses on
-     one fresh compile_cache_dir, the first running four nvcc builds
-     (first_compile), the second none (four persistent_load, its program
-     prewarmed from the index); a subprocess running Q3 at SF10 killed
-     with SIGKILL mid-query, whose RUNNING history record the doctor finds
-     and diagnoses from disk; and the observatories' cost on warm Q6, Q1
+     one fresh compile_cache_dir, the first running one nvcc build a
+     library (first_compile), the second none (one persistent_load a
+     library, its program prewarmed from the index); a subprocess
+     running Q3 at SF10 killed with SIGKILL mid-query, whose RUNNING
+     history record the doctor finds and diagnoses from disk; and the observatories' cost on warm Q6, Q1
      and Q3, on and off in turns.
 
 Every phase but `faults` and `obs` ends with each of its sessions'
@@ -646,6 +646,117 @@ def _sum_cases(dev):
             for lbl, v, g, c, (vo, go) in cases]
 
 
+WIDE_TOP = 1 << 127
+WIDE_MAX_D = (1 << 63) - 1
+# wide_div_round's edge lanes by kind: (values, divisors) as Python ints
+# (tests/test_torch_wide_div.py holds the plain version to Python
+# integers on each kind; the kernel phase holds the kernel to the plain
+# version on all of them)
+WIDE_EDGE = {
+    "zero": ([0, 0, 0], [1, 7, WIDE_MAX_D]),
+    "plus-minus-one": ([1, -1, 1, -1, 1, -1], [1, 1, 2, 2, 3, 3]),
+    "ties": ([5, -5, 15, -15, 3 * 10**36 + 5 * 10**17, -(3 * 10**36 + 5 * 10**17),
+              WIDE_MAX_D // 2 + 1, -(WIDE_MAX_D // 2 + 1)],
+             [2, 2, 10, 10, 10**18, 10**18, WIDE_MAX_D, WIDE_MAX_D]),
+    "below-ties": ([4, -4, 14, -14, WIDE_MAX_D // 2, -(WIDE_MAX_D // 2)],
+                   [2, 2, 10, 10, WIDE_MAX_D, WIDE_MAX_D]),
+    "d-one": ([7, -7, WIDE_TOP - 1, -(WIDE_TOP - 1), -WIDE_TOP, 1 << 64, -(1 << 64)],
+              [1] * 7),
+    "d-max": ([WIDE_MAX_D, -WIDE_MAX_D, WIDE_TOP - 1, -(WIDE_TOP - 1), -WIDE_TOP, 1 << 64,
+               (WIDE_MAX_D // 2) * 3], [WIDE_MAX_D] * 7),
+    "d-clamped": ([10, -10, 7, -7, WIDE_TOP - 1], [0, -1, -(1 << 63), -5, 0]),
+    "near-top": ([WIDE_TOP - 1, -(WIDE_TOP - 1), WIDE_TOP - 2, -(WIDE_TOP - 2),
+                  WIDE_TOP - 1, -(WIDE_TOP - 1)], [1, 1, 3, 3, 10**18, 10**18]),
+    "minimum": ([-WIDE_TOP] * 4, [1, 2, 3, 10**18 + 7]),
+}
+# values at the limbs' edges against divisors of every width
+_GRID_V = (7, -7, WIDE_TOP - 1, -(WIDE_TOP - 1), -WIDE_TOP, 1 << 64, -(1 << 64),
+           (1 << 64) - 1, 1 << 63, -(1 << 63))
+_GRID_D = (1, 2, 3, 10**18 + 7, 1 << 32, (1 << 32) - 1, WIDE_MAX_D, 0, -1, -(1 << 63))
+WIDE_EDGE["grid"] = ([v for v in _GRID_V for _ in _GRID_D], list(_GRID_D) * len(_GRID_V))
+
+
+def wide_lane(v: int):
+    """A Python int as the wide layout's two int64 limbs, wrapped to 128
+    bits: [low limb as a uint64 bit pattern, signed high limb]."""
+    v &= (1 << 128) - 1
+    return [x - (1 << 64) if x >= 1 << 63 else x for x in (v & ((1 << 64) - 1), v >> 64)]
+
+
+def _wide_edge_lanes():
+    """(w int64 [n, 2], d int64 [n]) on the host: every lane of WIDE_EDGE."""
+    vals = [v for vs, _ in WIDE_EDGE.values() for v in vs]
+    ds = [d for _, dd in WIDE_EDGE.values() for d in dd]
+    return (torch.tensor([wide_lane(v) for v in vals], dtype=torch.int64),
+            torch.tensor(ds, dtype=torch.int64))
+
+
+def _wide_random_lanes(dev, n, seed):
+    """n random wide lanes of every magnitude (the high limb shifted right
+    by 0-63 bits) over divisors of every width, 3% of them any int64
+    (below 1 too), made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = -(2**63), 2**63 - 1
+    w = torch.randint(lo, hi, (n, 2), dtype=torch.int64, device=dev, generator=g)
+    w[:, 1] >>= torch.randint(0, 64, (n,), device=dev, generator=g)
+    d = torch.randint(lo, hi, (n,), dtype=torch.int64, device=dev, generator=g)
+    keep = torch.rand(n, device=dev, generator=g) < 0.03
+    d = torch.where(keep, d, (d >> torch.randint(1, 64, (n,), device=dev, generator=g)).abs())
+    return w, d
+
+
+def _check_wide_div(dev):
+    """wide_div_round against its plain version on the card: the edge
+    lanes, 1 M and 100 M random lanes, one divisor for every lane, a
+    strided lane array and no lanes; one call under sync debug mode; its
+    time alone at Q1's 12 lanes and at 100 M lanes beside the bound
+    (40 B a lane: w and d read, the quotient written, at 3.35 TB/s).
+    Returns the number of cases that disagree."""
+    from trino_tpu_torch.ops import kernels as kn
+
+    bad = 0
+    w, d = _wide_edge_lanes()
+    cases = [("edge lanes", w.to(dev), d.to(dev))]
+    for n, seed in ((1 << 20, SEED + 5), (100_000_000, SEED + 6)):
+        cases.append((f"{n:,} random lanes", *_wide_random_lanes(dev, n, seed)))
+    w1, d1 = cases[1][1], cases[1][2]
+    cases += [("one divisor for every lane", w1, d1[:1]),
+              ("every other lane (a strided view)", w1[::2], d1[::2]),
+              ("no lanes", w1[:0], d1[:0])]
+    for lbl, w, d in cases:
+        got = kn.wide_div_round(w, d)
+        torch.cuda.synchronize()
+        want = kn.wide_div_round_plain(w, d)
+        ok = torch.equal(got, want)
+        bad += not ok
+        _log(f"[kernels] wide_div_round {lbl}: {'exact' if ok else 'MISMATCH'} "
+             f"({w.shape[0]} lanes)")
+        del got, want
+    w12, d12 = w1[:12].clone(), d1[:12].abs().clamp(min=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kn.wide_div_round(w12, d12)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ok = torch.equal(got, kn.wide_div_round_plain(w12, d12))
+    bad += not ok
+    _log(f"[kernels] wide_div_round under set_sync_debug_mode('error'), 12 lanes: "
+         f"{'no sync, exact' if ok else 'MISMATCH'}")
+    w_big, d_big = cases[2][1], cases[2][2]
+    for lbl, w, d in (("12 lanes", w12, d12), ("100 M lanes", w_big, d_big)):
+        n = w.shape[0]
+        ms = _time_ms(lambda: kn.wide_div_round(w, d), 15)
+        b2b = _time_queued_ms(lambda: kn.wide_div_round(w, d))
+        plain = _time_ms(lambda: kn.wide_div_round_plain(w, d), 3)
+        bound = 40 * n / HBM_BYTES_PER_S * 1e3
+        _log(f"[timing] wide_div_round {lbl}: {ms:.4f} ms alone (median of 15), "
+             f"b2b {b2b:.4f} ms; bound {bound:.4f} ms (bytes: 40 B a lane), "
+             f"{100 * bound / ms:.1f}% of it; plain {plain:.3f} ms; enqueue "
+             f"{_enqueue_us(lambda: kn.wide_div_round(w, d), 100):.1f} us a call")
+    return bad
+
+
 def _probe_cases(dev):
     """(label, table, key, ok, sel, lo) for direct_probe: the micro-probe's
     own shape, random tables and keys, out-of-domain, negative and
@@ -819,6 +930,7 @@ def phase_kernels(dev):
             _log(f"[kernels] {name} {lbl}: "
                  f"{'exact' if ok else 'MISMATCH'} ({table.shape[0]} slots, "
                  f"{key.shape[0]} {key.dtype} probes, {int(got[1].sum())} matched)")
+    bad += _check_wide_div(dev)
     if bad:
         raise AssertionError(f"{bad} kernel cases disagree with the plain versions")
 
@@ -1446,13 +1558,15 @@ SF1_WANT.update({
     ("Q6", "on"): ("fused_agg_sums",), ("Q1", "on"): ("fused_agg_sums",),
     ("Q6", "off"): (_GS,), ("Q1", "off"): (_GC, _GS),
 })
-KERNEL_FNS = ("fused_agg_sums", "grouped_count", "grouped_sum_i64", "direct_probe")
+KERNEL_FNS = ("fused_agg_sums", "grouped_count", "grouped_sum_i64", "direct_probe",
+              "wide_div_round")
 # launches each main-path run must make, per kernel (Q1 fuses at SF10:
-# its charge sum is proven term by term and rebuilt in 128-bit chunks;
-# Q3 probes both of its joins)
+# its charge sum is proven term by term and rebuilt in 128-bit chunks,
+# and its three wide averages divide in one launch each; Q3 probes both
+# of its joins)
 MAIN_WANT = {
     ("Q6", "auto"): {"fused_agg_sums": 1},
-    ("Q1", "auto"): {"fused_agg_sums": 1},
+    ("Q1", "auto"): {"fused_agg_sums": 1, "wide_div_round": 3},
     ("Q1", "off"): {"grouped_count": 1, "grouped_sum_i64": 1},
     ("Q3", "auto"): {"direct_probe": 2},
 }
@@ -1665,7 +1779,7 @@ def _profile(s, sql, label):
     for e in sorted(evs, key=dev_us, reverse=True)[:10]:
         _log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     ours = ("fused_agg_kernel", "grouped_count_kernel", "grouped_sum_kernel",
-            "direct_probe_kernel")
+            "direct_probe_kernel", "wide_div_kernel")
     for e in evs:
         hit = next((k for k in ours if k in e.key), None)
         if hit:
@@ -5221,7 +5335,7 @@ OBS_TURNS = 4                # (on, off, off, on) rounds of the overhead turns
 OBS_CHILD_SF = 0.01          # the cold-build subprocesses' scale
 
 # a subprocess on a fresh compile_cache_dir: its session's prewarm builds
-# (or loads) the four libraries, then Q6 runs; prints the observatory's
+# (or loads) every library, then Q6 runs; prints the observatory's
 # ledger as JSON.  With forbid_nvcc set, any nvcc run raises.
 _BUILD_CHILD = r"""
 import json, sys
@@ -5396,6 +5510,7 @@ def _obs_children():
     import tempfile
 
     from trino_tpu_torch.obs import compile_observatory as co
+    from trino_tpu_torch.ops import kernels as kn
 
     here = os.path.dirname(os.path.abspath(__file__))
     cdir = tempfile.mkdtemp(prefix="chip_smoke_cc_")
@@ -5419,10 +5534,10 @@ def _obs_children():
         return [e["cause"] for e in doc["events"] if e["mode"] == mode]
 
     first, second = out
-    if causes(first, "nvcc") != [co.FIRST_COMPILE] * 4 or \
+    if causes(first, "nvcc") != [co.FIRST_COMPILE] * len(kn.SOURCES) or \
             causes(first, "encode") != [co.FIRST_COMPILE]:
         raise AssertionError(f"first child's ledger: {first['events']}")
-    if causes(second, "nvcc") != [co.PERSISTENT_LOAD] * 4 or \
+    if causes(second, "nvcc") != [co.PERSISTENT_LOAD] * len(kn.SOURCES) or \
             causes(second, "prewarm") != [co.PERSISTENT_LOAD] or \
             causes(second, "encode") or second["prewarm"]["entries"] != 1:
         raise AssertionError(f"second child's ledger: {second['events']}, prewarm "

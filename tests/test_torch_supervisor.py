@@ -8,7 +8,7 @@ seeded device loss through both sessions, each raising DeviceFaultError
 (the JAX package with its `device_cpu_fallback` off: the port has no CPU
 re-run), the device quarantined, then restored by the canary and
 answering the JAX session's page; the breadcrumb in the kernel profile; and
-each of the four kernel wrappers of ops/kernels.py named by a fault
+each of the five kernel wrappers of ops/kernels.py named by a fault
 keyed to it (the counterpart of the JAX package's dispatch-guard lint:
 every launch crosses the supervised boundary).
 """
@@ -302,6 +302,7 @@ WRAPPER_QUERIES = {
     "grouped_count": (1, "off"),
     "grouped_sum_i64": (1, "off"),
     "direct_probe": (3, "on"),
+    "wide_div_round": (1, "on"),
 }
 
 

@@ -39,7 +39,7 @@ What the port compiles, and so what its choke points report:
 Alongside the ledger a **shape census** accumulates per-kernel-family
 row-count distributions as a bounded power-of-two sketch, mergeable
 across workers via the announcement piggyback: here the row count of
-every launch of the four kernel wrappers, under the wrapper's name
+every launch of the five kernel wrappers, under the wrapper's name
 (``observe_launch``; a Python int, read without a device sync).
 Storage is the mmap'd torn-tail-tolerant two-segment JSONL shape of the
 flight recorder: memory-only by default (a bounded mirror backs

@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
 Counterpart of trino_tpu/ops/pallas_kernels.py and of the gather probe
-in scripts/micro_probe.py.  Four kernels carry the TPC-H Q6/Q1/Q3 path:
+in scripts/micro_probe.py.  Five kernels carry the TPC-H Q6/Q1/Q3 path:
 
   fused_agg_sums  (csrc/fused_agg.cu)     replaces `_fused_agg_kernel`
   grouped_count   (csrc/grouped_count.cu) replaces `_count_kernel`
   grouped_sum_i64 (csrc/grouped_sum.cu)   replaces `_plane_kernel`
   direct_probe    (csrc/direct_probe.cu)  replaces the VMEM gather probe
+  wide_div_round  (csrc/wide_div.cu)      replaces wide_decimal's `div_round`
+                                          (a `jnp` loop, no pallas_call)
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses
 the plain PyTorch version in this module only for CPU tensors.  Each
@@ -62,6 +64,7 @@ BUILD = os.path.join(_PKG, "build")
 SOURCES = {
     "fused_agg": "fused_agg.cu", "grouped_count": "grouped_count.cu",
     "grouped_sum": "grouped_sum.cu", "direct_probe": "direct_probe.cu",
+    "wide_div": "wide_div.cu",
 }
 
 # -- postfix program opcodes (csrc/fused_agg.cu enum Op) ---------------
@@ -525,6 +528,36 @@ def direct_probe_plain(
     return (slot - 1).to(torch.int64), matched
 
 
+def wide_div_round_plain(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the rounded wide division:
+    round_half_away(w / d) for a wide lane over positive int64
+    divisors d; a full 128-bit quotient (restoring division, 128 fixed
+    iterations)."""
+    from .int128 import srl, uge, ult
+    from .wide_decimal import abs128, limbs, make_wide, negate
+
+    mag, sign = abs128(w)
+    lo, hi = limbs(mag)
+    dd = torch.clamp(d.to(torch.int64), min=1)
+    rem = torch.zeros_like(dd)
+    qhi = torch.zeros_like(dd)
+    qlo = torch.zeros_like(dd)
+    for i in range(128):
+        bit_index = 127 - i
+        word = hi if bit_index >= 64 else lo
+        bit = srl(word, bit_index % 64) & 1
+        rem = (rem << 1) | bit
+        ge = uge(rem, dd)
+        rem = torch.where(ge, rem - dd, rem)
+        qhi = (qhi << 1) | srl(qlo, 63)
+        qlo = (qlo << 1) | ge.to(torch.int64)
+    up = uge(rem * 2, dd).to(torch.int64)
+    qlo2 = qlo + up
+    qhi = qhi + ult(qlo2, qlo).to(torch.int64)
+    out = make_wide(qlo2, qhi)
+    return torch.where((sign < 0)[..., None], negate(out), out)
+
+
 # -- build and binding --------------------------------------------------
 
 # loaded libraries by path (the build directory can change: set_build_dir)
@@ -537,7 +570,7 @@ _BUILD_LOCK = threading.RLock()
 _TASK_COUNTS = threading.local()
 LAUNCHES: Dict[str, int] = {
     "fused_agg_sums": 0, "grouped_count": 0, "grouped_sum_i64": 0,
-    "direct_probe": 0,
+    "direct_probe": 0, "wide_div_round": 0,
 }
 _BUILD_DIR = [BUILD]
 # library paths this process has built or adopted (each is one ledger
@@ -677,6 +710,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "grouped_sum":
         lib.grouped_sum_launch.argtypes = [P, P, L, I, P, P]
         lib.grouped_sum_launch.restype = I
+    elif name == "wide_div":
+        lib.wide_div_round_launch.argtypes = [P, P, L, P, P]
+        lib.wide_div_round_launch.restype = I
     else:
         lib.direct_probe_launch.argtypes = [P, L, P, I, P, P, L, L, P, P, I, P]
         lib.direct_probe_launch.restype = I
@@ -980,6 +1016,44 @@ def _direct_probe(table, key, ok, sel, lo, d):
     return row, matched
 
 
+def wide_div_round(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """round_half_away(w / d) of each lane of a wide int64 [n, 2] lane
+    (low limb, signed high limb) over int64 divisors `d`, [n] or one for
+    every lane (shape [] or [1]); divisors below 1 count as 1.  A full
+    128-bit quotient, wrapping mod 2^128 as the plain version does.  On
+    the card one launch, no host sync; a lane array that is not
+    contiguous, and a single divisor, are copied to [n] first."""
+    if w.dtype != torch.int64 or d.dtype != torch.int64:
+        raise ValueError("wide_div_round takes an int64 wide lane and int64 divisors")
+    if w.dim() != 2 or w.shape[1] != 2:
+        raise ValueError(f"w must be a wide lane [n, 2], not {tuple(w.shape)}")
+    n = w.shape[0]
+    if d.dim() > 1 or d.numel() not in (1, n):
+        raise ValueError(f"d must be [{n}] or one divisor, not {tuple(d.shape)}")
+    if w.device != d.device:
+        raise ValueError("w and d lie on different devices")
+    if w.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {w.device}")
+    return supervisor.launch(
+        "wide_div_round", lambda: _wide_div_round(w, d), {"w": w, "d": d})
+
+
+def _wide_div_round(w, d):
+    idx = w.get_device()
+    if idx < 0:
+        return wide_div_round_plain(w, d)
+    n = w.shape[0]
+    w = w.contiguous()
+    d = d.reshape(-1).expand(n).contiguous()
+    lib = _lib("wide_div")
+    out = torch.empty((n, 2), dtype=torch.int64, device=w.device)
+    rc = lib.wide_div_round_launch(
+        w.data_ptr(), d.data_ptr(), n, out.data_ptr(), _current_stream(idx))
+    _check_rc(rc, "wide_div_round")
+    _launched("wide_div_round", n)
+    return out
+
+
 def seg_count_maybe(flags: torch.Tensor, gid: torch.Tensor, cap: int):
     """Kernel-or-None per-group count of 0/1 flags; None = the caller
     runs its generic segment sum.  Mirrors the TPU gate for cap <= 32
@@ -1014,5 +1088,11 @@ KERNEL_REGISTRY = {
     "direct_probe": {
         "source": "trino_tpu_torch/csrc/direct_probe.cu",
         "replaces": "scripts/micro_probe.py:100",
+    },
+    # the reference's division is a `jnp` loop that XLA fuses, not a
+    # pallas_call
+    "wide_div_round": {
+        "source": "trino_tpu_torch/csrc/wide_div.cu",
+        "replaces": "trino_tpu/ops/wide_decimal.py:174 div_round",
     },
 }

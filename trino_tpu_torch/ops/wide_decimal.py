@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from . import kernels
 from .int128 import MASK32 as _M32
 from .int128 import SIGN64 as _SIGN64
 from .int128 import as_i64, srl, uge, ugt, ult, umul128
@@ -134,28 +135,9 @@ def rescale(w: torch.Tensor, up: int) -> torch.Tensor:
 
 def div_round(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """round_half_away(w / d) for a wide lane over positive int64
-    divisors d; a full 128-bit quotient (restoring division, 128 fixed
-    iterations)."""
-    mag, sign = abs128(w)
-    lo, hi = limbs(mag)
-    dd = torch.clamp(d.to(torch.int64), min=1)
-    rem = torch.zeros_like(dd)
-    qhi = torch.zeros_like(dd)
-    qlo = torch.zeros_like(dd)
-    for i in range(128):
-        bit_index = 127 - i
-        word = hi if bit_index >= 64 else lo
-        bit = srl(word, bit_index % 64) & 1
-        rem = (rem << 1) | bit
-        ge = uge(rem, dd)
-        rem = torch.where(ge, rem - dd, rem)
-        qhi = (qhi << 1) | srl(qlo, 63)
-        qlo = (qlo << 1) | ge.to(torch.int64)
-    up = uge(rem * 2, dd).to(torch.int64)
-    qlo2 = qlo + up
-    qhi = qhi + ult(qlo2, qlo).to(torch.int64)
-    out = make_wide(qlo2, qhi)
-    return torch.where((sign < 0)[..., None], negate(out), out)
+    divisors d; a full 128-bit quotient (one launch of the wide_div_round
+    kernel on the card, its plain restoring division on the CPU)."""
+    return kernels.wide_div_round(w, d.to(torch.int64))
 
 
 def _udiv128_const_wide(hi: torch.Tensor, lo: torch.Tensor, const: int):

@@ -3,11 +3,11 @@
 Counterpart of trino_tpu/runtime/supervisor.py, redesigned for an eager
 executor on a CUDA card.  The JAX package dispatches one jitted fragment
 at a time and syncs it with ``device_get``; the port enqueues thousands
-of small torch ops and four hand-written kernels, and a kernel's fault
+of small torch ops and five hand-written kernels, and a kernel's fault
 surfaces only at a later sync, often in another operator.  So the
 boundary sits in three places:
 
-- every launch of the four wrappers of ops/kernels.py (``launch``, mode
+- every launch of the five wrappers of ops/kernels.py (``launch``, mode
   "launch"), keyed by the wrapper's name: the ``device_loss`` and
   ``device_wedge`` fault sites match it, as the reference's match its
   fragment digest;
